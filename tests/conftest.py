@@ -39,6 +39,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight end-to-end cells tier-1 skips "
         "(-m 'not slow'); nightly/full runs include them")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch/CUDA port's "
+        "kernels); skips on hosts without one")
 
 
 import pytest  # noqa: E402  (after the JAX env pinning above)
