@@ -6,20 +6,33 @@
 Run from the root of a checkout on a host with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from `foundationdb_tpu_torch/csrc`,
 holds each of them bit-exact against its plain PyTorch version at edge
-shapes and at the deployment's shapes, then drives the interval
-conflict resolver through `create_conflict_set("cuda")` at the
-deployment scale of the repo's interval streamed cell: 16-byte keys,
-one point read and one point write per transaction, 16,384 transactions
-per batch over 4,000,000 uniform keys, a 5,000,000-version MVCC window
-at 250,000 versions per batch, and a 2^20-row history. The stream
-starts just below version 2^30, so the resolver re-bases its int32
-version window mid-run. The same batches go through the port on the
-CPU (the kernels' plain versions) and the verdicts, per-batch conflict
-counts and final history must agree. Each path's timed window runs
-four times on a fresh resolver; in two of those runs CUDA events
-bracket each batch's device work, which gives the device's busy share
-of the wall time without a profiler. `--trace` adds a profiler window
-over the streamed path: each kernel's device time per batch.
+shapes and at the deployment's shapes, then drives two paths at the
+deployment scale of the repo's streamed cells: 16-byte keys, one point
+read and one point write per transaction, 16,384 transactions per batch
+over 4,000,000 uniform keys, a 5,000,000-version MVCC window at 250,000
+versions per batch. The stream starts just below version 2^30, so each
+resolver re-bases its int32 version window mid-run.
+
+  - The interval resolver, `create_conflict_set("cuda")`, on a
+    2^20-row history. The first CPU_BATCHES batches go through the port
+    on the CPU (the kernels' plain versions): the verdicts of the first
+    batches, the per-batch conflict counts and the history after that
+    prefix must agree, and every run must end on the same history.
+  - The point-op resolver, `create_conflict_set("cuda-point")`, on a
+    2^19-row state, over the same batches. Its verdicts of the first
+    batches, conflict counts and state after batch POINT_CPU_BATCHES
+    must equal the port's CPU run of that prefix, and every batch's
+    conflict count must equal the interval path's.
+  - The failover wrapper, `create_resilient_conflict_set` around both
+    CUDA backends: no fault and no failover on a clean run, and with a
+    device fault injected at each seam, recovery onto a fresh CUDA
+    backend with the clean run's verdicts.
+
+Each path's timed window runs four times on a fresh resolver; in two of
+those runs CUDA events bracket each batch's device work, which gives
+the device's busy share of the wall time without a profiler. `--trace`
+adds a profiler window over each streamed path: each kernel's device
+time per batch.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -48,10 +61,16 @@ KEYSPACE = 4_000_000
 MWTLV = 5_000_000
 VERSION_STEP = 250_000
 CAPACITY = 1 << 20
+POINT_CAPACITY = 1 << 19                       # next_pow2(22 * N_TXNS + 2)
 WARMUP = 3
-TIMED = 96                                     # ~0.15 s per timed window
+TIMED = 384                 # 0.3-0.5 s per timed window: 96-batch point
+#                             windows (~0.1 s) spread +-30% with host noise
+CPU_BATCHES = WARMUP + 96   # the interval path's CPU comparison (~150 s)
+POINT_CPU_BATCHES = 30                         # GC has pruned for 10
 FIRST_VERSION = (1 << 30) - 8 * VERSION_STEP   # crosses 2^30: one re-base
 PIPELINE_DEPTH = 4
+FO_BATCHES, FO_TXNS, FO_KEYS = 30, 100, 2000   # the failover phase
+FO_FAULT_AT = (5, 13, 22)
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 SEED = 20260729
@@ -143,6 +162,37 @@ def expect_exact(what, got, want) -> int:
     if err:
         raise AssertionError(f"{what}: kernel differs from plain by {err}")
     return err
+
+
+def probe_sectors(table, queries, sector=32) -> int:
+    """Distinct 32-byte sectors of `table` ([cap, W+1] uint32 rows) that
+    the row search's probes read for these queries (side right): the
+    least the table's reads must move."""
+    cap, width = table.shape
+    t = table.astype(np.int64)
+    q = queries.astype(np.int64)
+    pos = np.zeros(q.shape[0], np.int64)
+    probed = []
+    step = cap >> 1
+    while step:
+        idx = pos + step - 1
+        probed.append(idx)
+        probe = t[idx]
+        le = np.ones(q.shape[0], bool)
+        decided = np.zeros(q.shape[0], bool)
+        for w in range(width):
+            lt = (probe[:, w] < q[:, w]) & ~decided
+            gt = (probe[:, w] > q[:, w]) & ~decided
+            le[gt] = False
+            decided |= lt | gt
+        pos += step * le
+        step >>= 1
+    if not probed:
+        return 0
+    start = np.unique(np.concatenate(probed)) * (width * 4)
+    secs = [(start + off) // sector for off in range(0, width * 4, sector)]
+    secs.append((start + width * 4 - 1) // sector)
+    return int(np.unique(np.concatenate(secs)).size)
 
 
 # ---------------------------------------------------------------------------
@@ -310,15 +360,22 @@ def measure_kernels(dev, mid, batch, version):
     # written once, the feed read, the flags and the count written
     row_bytes = (N_WORDS + 1) * 4 + 4
     k3_bytes = (count + hk.shape[0]) * row_bytes + buf.numel() * 4 + T + 4
+    # the unpacked entry (B7): the same step on 12 separate inputs, its
+    # flags one byte each
+    unpacked = ck.interval_unpack(buf, T, R, Wr, N_WORDS)
+    in_bytes = sum(t.numel() * t.element_size() for t in unpacked)
     out["resolve"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: ck.resolve_step_packed(
             hk, hv, buf, T, R, Wr, attribute=False, out=outs), 20),
         plain_ms=time_ms(lambda: ck.resolve_step_plain(
-            hk, hv, *ck.interval_unpack(buf, T, R, Wr, N_WORDS),
-            attribute=False), 3, warm=1),
+            hk, hv, *unpacked, attribute=False), 3, warm=1),
         library_ms=None,
-        bound_ms=k3_bytes / HBM_BYTES_PER_S * 1e3)
+        bound_ms=k3_bytes / HBM_BYTES_PER_S * 1e3,
+        unpacked_ms=time_ms(lambda: ck.resolve_step(
+            hk, hv, *unpacked, attribute=False, out=outs), 20),
+        unpacked_bound_ms=((count + hk.shape[0]) * row_bytes + in_bytes
+                           + T + 4) / HBM_BYTES_PER_S * 1e3)
 
     # K4: the re-base mode over the whole version array
     delta = 1_000_000
@@ -342,23 +399,228 @@ def measure_kernels(dev, mid, batch, version):
     return out
 
 
+def _point_rows(ids, width, length):
+    """[n, width] uint32 point keys: the id in the last key word, the
+    length word `length` (ids 0.. sort in id order)."""
+    rows = np.zeros((len(ids), width), np.uint32)
+    rows[:, width - 2] = np.asarray(ids, np.uint32)
+    rows[:, width - 1] = length
+    return rows
+
+
+def check_point_edges(dev):
+    """K6: queries equal to a row, between rows, below the first row and
+    above the last, with and without a +inf pad row, with the uniform
+    sides and a mixed side mask. K5: a state with duplicate keys and rows
+    below the window, a read and a write of one key in one transaction, a
+    write chain across transactions (a -> b -> c), a tooOld transaction,
+    a snapshot below init_off, a full state that overflows cap, with
+    attribution on and off, packed and unpacked."""
+    import torch
+    from foundationdb_tpu_torch.ops import keys
+    from foundationdb_tpu_torch.ops import point_kernel as pk
+    rng = np.random.default_rng(3)
+    W = 2
+    for cap in (1, 2, 64, 4096):
+        for pad in (False, True):
+            ids = np.sort(rng.choice(4 * cap, cap, replace=False)) * 2 + 2
+            table = _point_rows(ids, W + 1, 8)
+            if pad:
+                table[cap - max(1, cap // 4):] = 0xFFFFFFFF
+            q = np.concatenate([
+                table[rng.integers(0, cap, 64)],                 # equal
+                _point_rows(rng.integers(0, 8 * cap + 4, 64) * 2 + 1,
+                            W + 1, 8),                           # between
+                _point_rows([0, 1], W + 1, 0),                   # below
+                _point_rows([9 * cap + 9], W + 1, 8),            # above
+                np.full((1, W + 1), 0xFFFFFFFF, np.uint32)])
+            t_t, q_t = torch.from_numpy(table), torch.from_numpy(q)
+            for side in ("left", "right"):
+                expect_exact(f"K6 edge cap={cap} pad={pad} {side}",
+                             [keys.searchsorted_rows(t_t.to(dev),
+                                                     q_t.to(dev), side)],
+                             [keys.searchsorted_rows_plain(t_t, q_t, side)])
+            mask = torch.from_numpy(rng.random(q.shape[0]) < 0.5)
+            expect_exact(f"K6 edge cap={cap} pad={pad} mixed",
+                         [keys.searchsorted_rows_mixed(
+                             t_t.to(dev), q_t.to(dev), mask.to(dev))],
+                         [keys.searchsorted_rows_mixed_plain(t_t, q_t,
+                                                             mask)])
+
+    cap, T, R, Wr = 64, 16, 32, 32
+    commit, oldest, init_off = 70, 20, 25
+
+    def key(i):
+        return _point_rows([i], W + 1, 8)[0]
+
+    # state: key 3 three times (newest last), key 5 below the window
+    rows = [(3, 10), (3, 30), (3, 50), (5, 5), (7, 40), (9, 60)]
+    sk = np.full((cap, W + 1), 0xFFFFFFFF, np.uint32)
+    sv = np.full(cap, pk.VMASK, np.int32)
+    for i, (k, v) in enumerate(rows):
+        sk[i], sv[i] = key(k), v
+    full_k = _point_rows(np.arange(cap) * 2 + 100, W + 1, 8)
+    full_v = rng.integers(oldest, 60, cap).astype(np.int32)
+    # (snapshot, reads, writes, tooOld) per transaction
+    txns = [(45, [3], [20], False),      # state row 3 (v 50) > 45
+            (60, [21], [21], False),     # own write never hits own read
+            (60, [], [30], False),       # a
+            (60, [30], [31], False),     # reads a: conflict, b is dead
+            (60, [31], [32], False),     # reads dead b: commits, c alive
+            (60, [32], [], False),       # reads c: conflict
+            (60, [3], [33], True),       # tooOld
+            (10, [40], [], False),       # snapshot below init_off
+            (10, [], [41], False)]       # write-only: baseline irrelevant
+    snap = np.zeros(T, np.int32)
+    too_old = np.zeros(T, bool)
+    rk = np.zeros((R, W + 1), np.uint32)
+    wk = np.zeros((Wr, W + 1), np.uint32)
+    rt = np.full(R, T, np.int32)
+    wt = np.full(Wr, T, np.int32)
+    rv = np.zeros(R, bool)
+    wv = np.zeros(Wr, bool)
+    nr = nw = 0
+    for t, (sn, reads, writes, old) in enumerate(txns):
+        snap[t], too_old[t] = sn, old
+        for k in reads:
+            rk[nr], rt[nr], rv[nr] = key(k), t, True
+            nr += 1
+        for k in writes:
+            wk[nw], wt[nw], wv[nw] = key(k), t, True
+            nw += 1
+    for name, (state_k, state_v) in (("state", (sk, sv)),
+                                     ("full state", (full_k, full_v))):
+        arrays = (snap, too_old, rk, rt, rv, wk, wt, wv)
+        buf = torch.from_numpy(pk.pack_point_batch(*arrays, commit, oldest,
+                                                   init_off))
+        for attribute in (True, False):
+            want = pk.point_resolve_step_packed(
+                torch.from_numpy(state_k), torch.from_numpy(state_v), buf,
+                T, R, Wr, attribute=attribute)
+            got = pk.point_resolve_step_packed(
+                torch.from_numpy(state_k).to(dev),
+                torch.from_numpy(state_v).to(dev), buf.to(dev), T, R, Wr,
+                attribute=attribute)
+            expect_exact(f"K5 edge {name} packed",
+                         [None if g is None else g.cpu() for g in got], want)
+            got = pk.point_resolve_step(
+                torch.from_numpy(state_k).to(dev),
+                torch.from_numpy(state_v).to(dev),
+                *[torch.from_numpy(a).to(dev) for a in arrays], commit,
+                oldest, init_off, attribute=attribute)
+            expect_exact(f"K5 edge {name} unpacked",
+                         [None if g is None else g.cpu() for g in got], want)
+        if name == "state" and want[3][:len(txns)].tolist() != [
+                True, False, False, True, False, True, True, True, False]:
+            raise AssertionError(f"K5 edge batch lost its cases: {want[3]}")
+        if name == "full state" and int(want[2]) <= cap:
+            raise AssertionError("K5 edge: the full state did not overflow")
+
+
+def measure_point_kernels(dev, mid, batch, version):
+    """K5 and K6 against their plain versions on the card at the point
+    path's shapes, with device times. `mid` is a mid-stream state of the
+    point path (SK, SV, base, oldest) and `batch` the batch it resolved
+    next, at `version` (commit, new oldest)."""
+    import torch
+    from foundationdb_tpu_torch.ops import keys
+    from foundationdb_tpu_torch.ops import point_kernel as pk
+    from foundationdb_tpu_torch.ops.conflict_kernel import SNAP_CLAMP
+    out = {}
+    sk, sv, base, oldest = mid
+    T = R = Wr = N_TXNS
+    snapshots, _has_reads, rb, _re, rt, wb, _we, wt = batch
+    v, o = version
+
+    # K6: the step's lookup of the batch's read keys in the state
+    rk = torch.from_numpy(rb).to(dev)
+    got = keys.searchsorted_rows(sk, rk, "right")
+    err = expect_exact("K6", [got], [keys.searchsorted_rows_plain(
+        sk.cpu(), rk.cpu(), "right")])
+    # bound: the state sectors the probes touch, the queries read and
+    # one answer written per query
+    k6_bytes = (32 * probe_sectors(sk.cpu().numpy(), rb)
+                + R * (N_WORDS + 1) * 4 + 4 * R)
+    out["searchsorted_rows"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: keys.searchsorted_rows(sk, rk, "right"), 50),
+        plain_ms=time_ms(lambda: keys.searchsorted_rows_plain(sk, rk,
+                                                              "right"), 5),
+        library_ms=None,
+        bound_ms=k6_bytes / HBM_BYTES_PER_S * 1e3)
+
+    # K5: the packed step the main path ran for `batch`, on the state it
+    # ran it on
+    snap_off = np.clip(snapshots - base, 0, SNAP_CLAMP).astype(np.int32)
+    init_off = int(np.clip(-base, 0, SNAP_CLAMP + 1))
+    buf = torch.from_numpy(pk.pack_point_batch(
+        snap_off, snapshots < oldest, rb, rt, np.ones(R, bool), wb, wt,
+        np.ones(Wr, bool), v - base, max(oldest, o) - base,
+        init_off)).to(dev)
+    outs = (torch.empty_like(sk), torch.empty_like(sv))
+    got = pk.point_resolve_step_packed(sk, sv, buf, T, R, Wr,
+                                       attribute=False, out=outs)
+    want = pk.point_resolve_step_packed(sk.cpu(), sv.cpu(), buf.cpu(), T, R,
+                                        Wr, attribute=False)
+    err = expect_exact("K5", [None if g is None else g.cpu() for g in got],
+                       want)
+    unpacked = pk.point_unpack(buf, T, R, Wr, N_WORDS)
+    got = pk.point_resolve_step(sk, sv, *unpacked, attribute=True)
+    want = pk.point_resolve_step_plain(
+        sk.cpu(), sv.cpu(), *pk.point_unpack(buf.cpu(), T, R, Wr, N_WORDS),
+        attribute=True)
+    expect_exact("K5 unpacked, attributed", [g.cpu() for g in got], want)
+    # bound: the real state rows read once, the whole padded state
+    # written once, the feed read, the flags and the count written
+    count = int((sk[:, -1] != 0xFFFFFFFF).to(torch.int64).sum())
+    row_bytes = (N_WORDS + 1) * 4 + 4
+    k5_bytes = (count + sk.shape[0]) * row_bytes + buf.numel() * 4 + T + 4
+    in_bytes = sum(t.numel() * t.element_size() for t in unpacked)
+    out["point_resolve"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: pk.point_resolve_step_packed(
+            sk, sv, buf, T, R, Wr, attribute=False, out=outs), 20),
+        plain_ms=time_ms(lambda: pk.point_resolve_step_plain(
+            sk, sv, *unpacked, attribute=False), 3, warm=1),
+        library_ms=None,
+        bound_ms=k5_bytes / HBM_BYTES_PER_S * 1e3,
+        state_rows=count,
+        unpacked_ms=time_ms(lambda: pk.point_resolve_step(
+            sk, sv, *unpacked, attribute=False, out=outs), 20),
+        unpacked_bound_ms=((count + sk.shape[0]) * row_bytes + in_bytes
+                           + T + 4) / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
+# the kernels each path must launch (K1-K4 on the interval path; K1,
+# K4, K5 and K6 on the point path)
+INTERVAL_KERNELS = ("searchsorted_i32", "range_max", "resolve",
+                    "window_upkeep")
+POINT_KERNELS = ("searchsorted_i32", "window_upkeep", "point_resolve",
+                 "searchsorted_rows")
+
+
 def launch_counts() -> dict:
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
     from foundationdb_tpu_torch.ops import keys, rmq
+    from foundationdb_tpu_torch.ops import point_kernel as pk
     return {"searchsorted_i32": keys.launches["searchsorted_i32"],
             "range_max": rmq.launches["range_max"],
             "resolve": ck.launches["resolve"],
-            "window_upkeep": ck.launches["window_upkeep"]}
+            "window_upkeep": ck.launches["window_upkeep"],
+            "point_resolve": pk.launches["point_resolve"],
+            "searchsorted_rows": keys.launches["searchsorted_rows"]}
 
 
 def zero_counts() -> None:
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
     from foundationdb_tpu_torch.ops import keys, rmq
-    for d in (keys.launches, rmq.launches, ck.launches):
+    from foundationdb_tpu_torch.ops import point_kernel as pk
+    for d in (keys.launches, rmq.launches, ck.launches, pk.launches):
         for k in d:
             d[k] = 0
 
@@ -369,20 +631,23 @@ def versions():
         yield v, max(0, v - MWTLV)
 
 
-def run_streamed(cs, batches, snapshot_at=None, spans=False):
+def run_streamed(cs, batches, snapshot_at=(), spans=False):
     """resolve_arrays over every batch; the verdict copies are awaited
     only at the end. With `spans`, CUDA events bracket each timed
     batch's device work (`CudaConflictSet.time_device`). Returns
     (conflict arrays, timed seconds, device ms of the timed batches or
-    None, snapshot of the history taken after batch `snapshot_at`)."""
+    None, {i: snapshot of the state taken after batch i} for each i in
+    `snapshot_at`, host seconds of each timed call)."""
     import torch
-    results, snap, t0 = [], None, None
+    results, snap, t0, marks = [], {}, None, []
     for i, (b, (v, o)) in enumerate(zip(batches, versions())):
         conflict, _too_old = cs.resolve_arrays(*b, commit_version=v,
                                                new_oldest_version=o)
+        if t0 is not None:
+            marks.append(time.perf_counter())
         results.append(conflict)
-        if i == snapshot_at:
-            snap = (cs._hk.clone(), cs._hv.clone(), cs._base, cs._oldest)
+        if i in snapshot_at:
+            snap[i] = (cs._hk.clone(), cs._hv.clone(), cs._base, cs._oldest)
         if i + 1 == WARMUP:
             np.asarray(conflict)          # the device is idle from here
             cs.time_device(spans)
@@ -391,16 +656,20 @@ def run_streamed(cs, batches, snapshot_at=None, spans=False):
     if cs._hk.device.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return out, secs, cs.device_ms() if spans else None, snap
+    return (out, secs, cs.device_ms() if spans else None, snap,
+            np.diff([t0] + marks))
 
 
 def run_pipelined(cs, batches, spans=False):
     """submit_arrays / drain_arrays with RESOLVE_PIPELINE_DEPTH in
-    flight; returns (conflict arrays, timed seconds, device ms or None)."""
-    tickets, t0 = [], None
+    flight; returns (conflict arrays, timed seconds, device ms or None,
+    host seconds of each timed submit)."""
+    tickets, t0, marks = [], None, []
     for i, (b, (v, o)) in enumerate(zip(batches, versions())):
         tickets.append(cs.submit_arrays(*b, commit_version=v,
                                         new_oldest_version=o))
+        if t0 is not None:
+            marks.append(time.perf_counter())
         if i + 1 == WARMUP:
             for t in tickets:
                 cs.drain_arrays(t)
@@ -408,12 +677,85 @@ def run_pipelined(cs, batches, spans=False):
             t0 = time.perf_counter()
     out = [cs.drain_arrays(t)[0].copy() for t in tickets]
     secs = time.perf_counter() - t0
-    return out, secs, cs.device_ms() if spans else None
+    return (out, secs, cs.device_ms() if spans else None,
+            np.diff([t0] + marks))
 
 
 def final_state(cs):
     cs._sync_count()
     return cs._hk.cpu(), cs._hv.cpu(), cs._count_hint
+
+
+def failover_phase(tag) -> None:
+    """The failover wrapper around each CUDA backend, as the resolver
+    role builds it, over a few thousand point transactions in small
+    batches through submit/drain at depth 4: a clean run must see no
+    device fault, no failover and stay on the CUDA backend with the
+    pure-Python baseline's verdicts; a run with a device fault injected
+    at one seam (three times) must recover onto a fresh CUDA backend,
+    never fail over to the CPU, and give the clean run's verdicts."""
+    from foundationdb_tpu_torch.models import (
+        PyConflictSet, ResolverTransaction, create_resilient_conflict_set)
+    from foundationdb_tpu_torch.models.cuda_resolver import CudaConflictSet
+    from foundationdb_tpu_torch.models.point_resolver import (
+        CudaPointConflictSet)
+    from foundationdb_tpu_torch.ops.fault_injection import POINTS
+    from foundationdb_tpu_torch.ops.fault_injection import g_device_faults
+
+    rng = np.random.default_rng(SEED + 1)
+    batches, v = [], 1000
+
+    def pts(n):
+        return tuple((b"%07d" % k, b"%07d\x00" % k)
+                     for k in rng.integers(0, FO_KEYS, n))
+
+    for _ in range(FO_BATCHES):
+        v += 10_000
+        batches.append(([ResolverTransaction(
+            v - int(rng.integers(1, 60_000)), pts(rng.integers(0, 3)),
+            pts(rng.integers(0, 3))) for _ in range(FO_TXNS)],
+            v, max(0, v - 50_000)))
+    py = PyConflictSet()
+    want = [py.resolve(b, v, o) for b, v, o in batches]
+
+    def drive(fo, seam=None):
+        got, pending = [], []
+        for i, (b, v, o) in enumerate(batches):
+            if seam is not None and i in FO_FAULT_AT:
+                g_device_faults.schedule(seam)
+            pending.append(fo.submit(b, v, o))
+            if len(pending) >= PIPELINE_DEPTH:
+                got.append(fo.drain(pending.pop(0)))
+        got.extend(fo.drain(t) for t in pending)
+        g_device_faults.clear()
+        return got, fo.failover_stats()
+
+    for backend, cls in (("cuda", CudaConflictSet),
+                         ("cuda-point", CudaPointConflictSet)):
+        fo = create_resilient_conflict_set(backend, device=None)
+        got, st = drive(fo)
+        if (got != want or st["device_faults"] or st["failovers"]
+                or not st["on_primary"] or type(fo.active) is not cls
+                or fo.kernel_stats()["platform"] != "gpu"):
+            raise AssertionError(f"failover {backend} clean run: {st}")
+        recovered = []
+        for seam in POINTS:
+            fo = create_resilient_conflict_set(backend, device=None)
+            got, st = drive(fo, seam)
+            if (got != want or st["device_faults"] < len(FO_FAULT_AT)
+                    or st["device_recoveries"] < 1 or st["failovers"]
+                    or not st["on_primary"] or type(fo.active) is not cls
+                    or fo.kernel_stats()["platform"] != "gpu"):
+                raise AssertionError(f"failover {backend} faults at "
+                                     f"{seam}: {st}")
+            recovered.append(f"{seam} {st['device_recoveries']} "
+                             f"recoveries, {st['replayed_batches']} "
+                             f"batches replayed")
+        conflicts = sum(r.count(0) for r in want)
+        print(f"[{tag}] failover {backend}: {FO_BATCHES * FO_TXNS} txns in "
+              f"{FO_BATCHES} batches, {conflicts} conflicts, verdicts equal "
+              f"to the Python baseline; clean run: 0 faults, 0 failovers; "
+              f"faults at {'; '.join(recovered)}; 0 failovers", flush=True)
 
 
 def trace_stream(backend, batches, tag) -> None:
@@ -487,6 +829,9 @@ def main() -> int:
 
     check_edges(dev)
     print(f"[{tag}] edge shapes: K1-K4 bit-exact against plain", flush=True)
+    check_point_edges(dev)
+    print(f"[{tag}] edge shapes: K5, K6 bit-exact against plain",
+          flush=True)
 
     # the deployment's batches, made once from the seed
     rng = np.random.default_rng(SEED)
@@ -500,69 +845,133 @@ def main() -> int:
         return create_conflict_set("cuda", device=device,
                                    key_bytes=KEY_BYTES, capacity=CAPACITY)
 
-    # the port on the CPU, same batches: what every GPU run must equal
-    t0 = time.perf_counter()
-    cpu = backend("cpu")
-    ref, _secs, _dev, _snap = run_streamed(cpu, batches)
-    cpu_state = final_state(cpu)
-    del cpu
-    print(f"[{tag}] CPU reference run: {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    def point_backend(device):
+        return create_conflict_set("cuda-point", device=device,
+                                   key_bytes=KEY_BYTES,
+                                   capacity=POINT_CAPACITY)
 
-    def check(name, got, state):
-        for i in range(WARMUP):
-            if not np.array_equal(got[i], ref[i]):
-                raise AssertionError(f"{name}: verdicts of batch {i} differ")
-        for i, (g, r) in enumerate(zip(got, ref)):
-            if g.shape != (N_TXNS,) or int(g.sum()) != int(r.sum()):
-                raise AssertionError(f"{name}: conflict count of batch {i} "
-                                     f"{int(g.sum())} != {int(r.sum())}")
-        if not (torch.equal(state[0], cpu_state[0])
-                and torch.equal(state[1], cpu_state[1])
-                and state[2] == cpu_state[2]):
-            raise AssertionError(f"{name}: final history differs from CPU")
+    def cpu_prefix(make, n):
+        """The port on the CPU over the first `n` batches: what every GPU
+        run must equal there. Returns (verdicts, state after batch n-1)."""
+        t0 = time.perf_counter()
+        cpu = make("cpu")
+        got, _secs, _dev, snap, _host = run_streamed(
+            cpu, batches[:n], snapshot_at=(n - 1,))
+        print(f"[{tag}] CPU {cpu.BACKEND} run ({n} batches): "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        return got, snap[n - 1]
 
-    # the main path: each path's timed window runs once per entry of
-    # SPANS, each time on a fresh resolver; the first run's launch counts
-    # are the ones reported
-    runs = {"streamed": [], "pipelined": []}    # (seconds, device ms)
-    counts, mid, got_a, state_a = {}, None, None, None
-    for rep, spans in enumerate(SPANS):
-        for path in runs:
-            cs = backend(None)
-            zero_counts()
-            if path == "streamed":
-                got, secs, dev_ms, snap = run_streamed(
-                    cs, batches, snapshot_at=mid_at if rep == 0 else None,
-                    spans=spans)
-            else:
-                got, secs, dev_ms = run_pipelined(cs, batches, spans=spans)
-            c = launch_counts()
-            idle = [k for k, n in c.items() if n <= 0]
-            if idle:
-                raise AssertionError(f"{path} run {rep} never launched {idle}")
-            state = final_state(cs)
-            check(f"{path} run {rep}", got, state)
-            runs[path].append((secs, dev_ms))
-            if rep == 0:
-                counts[path] = c
+    def checker(label, cpu_got, cpu_snap, counts=None):
+        """A run's check: the verdicts of the first batches and the
+        conflict counts of the CPU prefix equal the CPU run's, every
+        count equals `counts[i]` when given, the state after the prefix
+        (when the run took it) equals the CPU's, and every run ends on
+        the first run's final state."""
+        last, finals = len(cpu_got) - 1, []
+
+        def check_run(name, got, state, snap):
+            name = f"{label} {name}"
+            for i in range(WARMUP):
+                if not np.array_equal(got[i], cpu_got[i]):
+                    raise AssertionError(f"{name}: verdicts of batch {i} "
+                                         "differ from the CPU run")
+            for i, g in enumerate(got):
+                n = int(g.sum())
+                want = int(cpu_got[i].sum()) if i <= last else n
+                other = n if counts is None else counts[i]
+                if g.shape != (N_TXNS,) or n != want or n != other:
+                    raise AssertionError(
+                        f"{name}: conflict count of batch {i} {n} != CPU "
+                        f"{want} / interval {other}")
+            if snap:
+                s_k, s_v, s_base, s_oldest = snap[last]
+                if not (torch.equal(s_k.cpu(), cpu_snap[0])
+                        and torch.equal(s_v.cpu(), cpu_snap[1])
+                        and (s_base, s_oldest) == cpu_snap[2:]):
+                    raise AssertionError(f"{name}: state after batch "
+                                         f"{last} differs from the CPU run")
+            if finals and not (torch.equal(state[0], finals[0][0])
+                               and torch.equal(state[1], finals[0][1])
+                               and state[2] == finals[0][2]):
+                raise AssertionError(f"{name}: final state differs")
+            finals.append(state)
+
+        return check_run
+
+    def drive(make, check_run, kernels, snapshot_at):
+        """Each path's timed window, once per entry of SPANS, each time on
+        a fresh resolver, with the launch counts set to 0 just before and
+        read just after; returns ({path: [(seconds, device ms)]}, the
+        first run's counts per path, the first streamed run's verdicts,
+        snapshots and final state)."""
+        runs = {"streamed": [], "pipelined": []}
+        counts, first = {}, None
+        for rep, spans in enumerate(SPANS):
+            for path in runs:
+                cs = make(None)
+                zero_counts()
+                snap = None
                 if path == "streamed":
-                    mid, got_a, state_a = snap, got, state
-                    stats = cs.kernel_stats()
-                    if (stats["platform"] != "gpu"
-                            or stats["h2d"]["per_batch"] != 1.0):
-                        raise AssertionError(
-                            f"unexpected kernel_stats: {stats}")
-            del cs
+                    got, secs, dev_ms, snap, host = run_streamed(
+                        cs, batches,
+                        snapshot_at=snapshot_at if rep == 0 else (),
+                        spans=spans)
+                else:
+                    got, secs, dev_ms, host = run_pipelined(cs, batches,
+                                                      spans=spans)
+                c = launch_counts()
+                idle = [k for k in kernels if c[k] <= 0]
+                if idle:
+                    raise AssertionError(f"{path} run {rep} never launched "
+                                         f"{idle}")
+                state = final_state(cs)
+                check_run(f"{path} run {rep}", got, state, snap)
+                runs[path].append((secs, dev_ms, host))
+                if rep == 0:
+                    counts[path] = c
+                    if path == "streamed":
+                        first = (got, snap, state)
+                        stats = cs.kernel_stats()
+                        if (stats["platform"] != "gpu"
+                                or stats["h2d"]["per_batch"] != 1.0):
+                            raise AssertionError(
+                                f"unexpected kernel_stats: {stats}")
+                del cs
+        return runs, counts, first
+
+    # the interval path
+    cpu_got, cpu_snap = cpu_prefix(backend, CPU_BATCHES)
+    runs, counts, (got_a, snaps_a, state_a) = drive(
+        backend, checker("interval", cpu_got, cpu_snap), INTERVAL_KERNELS,
+        (CPU_BATCHES - 1, mid_at))
     counts_a = counts["streamed"]
     n_conf = [int(g.sum()) for g in got_a]
-    print(f"[{tag}] verdicts equal to the CPU run; conflicts per batch "
-          f"{n_conf}; final rows {state_a[2]}", flush=True)
+    print(f"[{tag}] verdicts equal to the CPU run over {CPU_BATCHES} "
+          f"batches; conflicts per batch {n_conf}; final rows {state_a[2]}",
+          flush=True)
+
+    # the point path: the port's CPU run over a prefix of the same
+    # batches, long enough for GC to have pruned for several batches
+    cpu_got, cpu_snap = cpu_prefix(point_backend, POINT_CPU_BATCHES)
+    point_runs, point_counts, (_got_p, snaps_p, state_p) = drive(
+        point_backend, checker("point", cpu_got, cpu_snap, n_conf),
+        POINT_KERNELS, (POINT_CPU_BATCHES - 1, mid_at))
+    counts_p = point_counts["streamed"]
+    print(f"[{tag}] point verdicts equal to the CPU run over "
+          f"{POINT_CPU_BATCHES} batches, conflict counts equal to the "
+          f"interval path's in all {len(n_conf)}; final rows {state_p[2]}",
+          flush=True)
+
+    failover_phase(tag)
 
     if "--trace" in sys.argv[1:]:
         trace_stream(backend, batches, tag)
+        trace_stream(point_backend, batches, f"{tag} point")
     nxt = mid_at + 1
-    kern = measure_kernels(dev, mid, batches[nxt], list(versions())[nxt])
+    kern = measure_kernels(dev, snaps_a[mid_at], batches[nxt],
+                           list(versions())[nxt])
+    kern.update(measure_point_kernels(dev, snaps_p[mid_at], batches[nxt],
+                                      list(versions())[nxt]))
     sources = {
         "searchsorted_i32": ("foundationdb_tpu_torch/csrc/searchsorted.cu",
                              "foundationdb_tpu/ops/keys.py:166"),
@@ -572,19 +981,27 @@ def main() -> int:
                     "foundationdb_tpu/ops/conflict_kernel.py:138"),
         "window_upkeep": ("foundationdb_tpu_torch/csrc/window.cu",
                           "foundationdb_tpu/ops/conflict_kernel.py:628"),
+        "point_resolve": ("foundationdb_tpu_torch/csrc/point_resolve.cu",
+                          "foundationdb_tpu/ops/point_kernel.py:85"),
+        "searchsorted_rows": (
+            "foundationdb_tpu_torch/csrc/searchsorted_rows.cu",
+            "foundationdb_tpu/ops/keys.py:118"),
     }
     n_batches = WARMUP + TIMED
-    for label, rs in runs.items():
-        per = [secs / TIMED * 1e3 for secs, _ in rs]
+    for label, rs in (("streamed", runs["streamed"]),
+                      ("pipelined", runs["pipelined"]),
+                      ("point streamed", point_runs["streamed"]),
+                      ("point pipelined", point_runs["pipelined"])):
+        per = [secs / TIMED * 1e3 for secs, _, _ in rs]
         med = statistics.median(per)
         print(f"[{tag}] {label}: {N_TXNS / (med / 1e3):.1f} txn/s, "
               f"{med:.3f} ms/batch (median of {len(rs)} windows of {TIMED} "
               f"batches of {N_TXNS} txns: "
               f"{', '.join(f'{x:.3f}' for x in per)} ms/batch)", flush=True)
-        off = [x for x, (_, d) in zip(per, rs) if d is None]
-        on = [x for x, (_, d) in zip(per, rs) if d is not None]
-        busy = [d / (secs * 1e3) for secs, d in rs if d is not None]
-        span_ms = [d / TIMED for _, d in rs if d is not None]
+        off = [x for x, (_, d, _) in zip(per, rs) if d is None]
+        on = [x for x, (_, d, _) in zip(per, rs) if d is not None]
+        busy = [d / (secs * 1e3) for secs, d, _ in rs if d is not None]
+        span_ms = [d / TIMED for _, d, _ in rs if d is not None]
         print(f"[{tag}] {label}: device busy "
               f"{', '.join(f'{100 * b:.1f}%' for b in busy)} of the wall "
               f"({', '.join(f'{d:.3f}' for d in span_ms)} ms/batch in "
@@ -592,14 +1009,38 @@ def main() -> int:
               f"spans); spans cost "
               f"{statistics.median(on) - statistics.median(off):+.3f} "
               f"ms/batch", flush=True)
+        # where a window's spread comes from: a slower host moves the
+        # median call; stalls (a call over 2x the median) add the excess
+        host = []
+        for _, _, h in rs:
+            h = np.asarray(h) * 1e3
+            p50 = float(np.median(h))
+            slow = h[h > 2 * p50]
+            host.append(f"{p50:.3f} / {np.percentile(h, 90):.3f} / "
+                        f"{h.max():.3f}, {slow.size} stalls "
+                        f"{(slow - p50).sum() / h.sum() * 100:.1f}%")
+        print(f"[{tag}] {label}: host ms per call by window (p50 / p90 / "
+              f"max, calls over 2x p50 and their excess share of the "
+              f"window): {'; '.join(host)}", flush=True)
     rows = []
     for name, m in kern.items():
         src, rep = sources[name]
+        by_path = {"interval": counts_a[name], "point": counts_p[name]}
+        launches = by_path["point" if name in ("point_resolve",
+                                               "searchsorted_rows")
+                           else "interval"]
+        extra = (f", {m['state_rows']} state rows" if "state_rows" in m
+                 else "")
+        if "unpacked_ms" in m:
+            extra += (f"; unpacked entry {m['unpacked_ms']:.4f} ms, bound "
+                      f"{m['unpacked_bound_ms']:.4f} ms")
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
-              f"ms, bound {m['bound_ms']:.4f} ms), "
-              f"{counts_a[name] / n_batches:.3f} launches/batch", flush=True)
+              f"ms, bound {m['bound_ms']:.4f} ms{extra}), launches/batch "
+              f"{by_path['interval'] / n_batches:.3f} interval, "
+              f"{by_path['point'] / n_batches:.3f} point", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts_a[name],
+                     "replaces": rep, "launches": launches,
+                     "launches_by_path": by_path,
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": "bytes", "library_ms": m["library_ms"]})

@@ -63,6 +63,85 @@ inline int blocks_for(long long n, int threads) {
 
 inline size_t align_up(size_t x) { return (x + 255) & ~size_t(255); }
 
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+
+template <bool MAX>
+__device__ __forceinline__ int scan_op(int a, int b) {
+  return MAX ? max(a, b) : a + b;
+}
+
+// exclusive block scan, max (MAX) or sum (identity 0: every scanned
+// value is >= 0 for the max scans, and sums start at 0); `total` gets
+// the block's reduction. Every thread of the block must call it.
+template <bool MAX>
+__device__ int block_excl_scan(int v, int& total) {
+  __shared__ int wt[32];
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(FULL_MASK, x, o);
+    if (lane >= o) x = scan_op<MAX>(y, x);
+  }
+  if (lane == 31) wt[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int w = lane < nw ? wt[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(FULL_MASK, w, o);
+      if (lane >= o) w = scan_op<MAX>(y, w);
+    }
+    if (lane < nw) wt[lane] = w;
+  }
+  __syncthreads();
+  int wpre = wid ? wt[wid - 1] : 0;
+  total = wt[nw - 1];
+  int incl = scan_op<MAX>(wpre, x);
+  int excl = __shfl_up_sync(FULL_MASK, incl, 1);
+  if (lane == 0) excl = wpre;
+  __syncthreads();
+  return excl;
+}
+
+namespace {
+
+// exclusive scan of per-tile aggregates by ONE block (launch <<<1, T>>>);
+// the grand reduction to `total` when it is not null
+template <bool MAX>
+__global__ void scan_tiles_kernel(const int32_t* agg, int32_t* pre, int n,
+                                  int32_t* total) {
+  int carry = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    int i = base + threadIdx.x;
+    int tot;
+    int ex = block_excl_scan<MAX>(i < n ? agg[i] : 0, tot);
+    if (i < n) pre[i] = scan_op<MAX>(carry, ex);
+    carry = scan_op<MAX>(carry, tot);
+  }
+  if (total && threadIdx.x == 0) *total = carry;
+}
+
+// blocks for a cooperative launch of `Kernel` at `Threads` per block:
+// `needed`, capped at what can be co-resident on the current device
+// (cached per device)
+template <auto Kernel, int Threads>
+int coop_grid(int needed) {
+  static int cached_dev = -1, cached_max = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, Threads,
+                                                  0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached_max = per_sm * sms;
+    cached_dev = dev;
+  }
+  return max(1, min(cached_max, needed));
+}
+
+}  // namespace
+
 // bump allocator over one caller-provided scratch buffer
 struct Carver {
   char* base;
@@ -77,10 +156,25 @@ struct Carver {
 
 }  // namespace fdb
 
-// launchers shared between translation units (K3 launches K1 and K2)
+// inside a C entry point returning int: return the CUDA error code of
+// `expr`, or of the launch just made, when it is not cudaSuccess
+#define FDB_TRY(expr)                          \
+  do {                                         \
+    cudaError_t e_ = (expr);                   \
+    if (e_ != cudaSuccess) return (int)e_;     \
+  } while (0)
+#define FDB_LAUNCHED() FDB_TRY(cudaGetLastError())
+
+// launchers shared between translation units (K3 launches K1 and K2;
+// K5 launches K1 and K6)
 cudaError_t fdb_searchsorted_launch(const int32_t* table, int n,
                                     const int32_t* queries, int q, int right,
                                     int32_t* out, cudaStream_t stream);
+cudaError_t fdb_searchsorted_rows_launch(const uint32_t* table, int cap,
+                                         int width, const uint32_t* queries,
+                                         int q, const uint8_t* right_mask,
+                                         int right, int32_t* out,
+                                         cudaStream_t stream);
 size_t fdb_range_max_scratch(int n);
 cudaError_t fdb_range_max_launch(const int32_t* vals, int n,
                                  const int32_t* lo, const int32_t* hi, int q,

@@ -95,43 +95,6 @@ struct Merged {
   }
 };
 
-template <bool MAX>
-__device__ __forceinline__ int op(int a, int b) {
-  return MAX ? max(a, b) : a + b;
-}
-
-// exclusive block scan (identity 0: every scanned value is >= 0 for the
-// max scans, and sums start at 0); `total` gets the block's reduction
-template <bool MAX>
-__device__ int block_excl_scan(int v, int& total) {
-  __shared__ int wt[32];
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int nw = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x = op<MAX>(y, x);
-  }
-  if (lane == 31) wt[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int w = lane < nw ? wt[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(FULL, w, o);
-      if (lane >= o) w = op<MAX>(y, w);
-    }
-    if (lane < nw) wt[lane] = w;
-  }
-  __syncthreads();
-  int wpre = wid ? wt[wid - 1] : 0;
-  total = wt[nw - 1];
-  int incl = op<MAX>(wpre, x);
-  int excl = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) excl = wpre;
-  __syncthreads();
-  return excl;
-}
-
 // ---- 1. external check ----------------------------------------------------
 __global__ void ext_bounds_kernel(In in, int32_t* lo, int32_t* hi) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -398,27 +361,12 @@ __global__ void cover_reduce_kernel(Merged m, int32_t* agg_max,
     if (tie < 4) tmax = max(tmax, p); else tsum += tie - 5;
   }
   int totm, tots;
-  block_excl_scan<true>(tmax, totm);
-  block_excl_scan<false>(tsum, tots);
+  fdb::block_excl_scan<true>(tmax, totm);
+  fdb::block_excl_scan<false>(tsum, tots);
   if (threadIdx.x == 0) {
     agg_max[blockIdx.x] = totm;
     agg_sum[blockIdx.x] = tots;
   }
-}
-
-// exclusive scan of per-tile aggregates by one block; `total` optional
-template <bool MAX>
-__global__ void scan_tiles_kernel(const int32_t* agg, int32_t* pre, int n,
-                                  int32_t* total) {
-  int carry = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int tot;
-    int ex = block_excl_scan<MAX>(i < n ? agg[i] : 0, tot);
-    if (i < n) pre[i] = op<MAX>(carry, ex);
-    carry = op<MAX>(carry, tot);
-  }
-  if (total && threadIdx.x == 0) *total = carry;
 }
 
 // pass B: covering version (carry-last over history rows) and coverage
@@ -441,8 +389,9 @@ __global__ void cover_apply_kernel(Merged m, const int32_t* pre_max,
     tsum += d[k];
   }
   int totm, tots;
-  int runm = max(pre_max[blockIdx.x], block_excl_scan<true>(tmax, totm));
-  int runs = pre_sum[blockIdx.x] + block_excl_scan<false>(tsum, tots);
+  int runm =
+      max(pre_max[blockIdx.x], fdb::block_excl_scan<true>(tmax, totm));
+  int runs = pre_sum[blockIdx.x] + fdb::block_excl_scan<false>(tsum, tots);
   const int32_t commit = *commit_p;
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     int p = base + k;
@@ -483,7 +432,7 @@ __global__ void keep_reduce_kernel(Merged m, const int32_t* mv,
     cnt += kp;
   }
   int tot;
-  block_excl_scan<false>(cnt, tot);
+  fdb::block_excl_scan<false>(cnt, tot);
   if (threadIdx.x == 0) agg[blockIdx.x] = tot;
 }
 
@@ -495,7 +444,7 @@ __global__ void compact_kernel(Merged m, const int32_t* mv,
   for (int k = 0; k < SCAN_ITEMS; ++k)
     if (base + k < m.mtot) cnt += keepf[base + k];
   int tot;
-  int pos = pre[blockIdx.x] + block_excl_scan<false>(cnt, tot);
+  int pos = pre[blockIdx.x] + fdb::block_excl_scan<false>(cnt, tot);
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     int p = base + k;
     if (p >= m.mtot || !keepf[p]) continue;
@@ -563,28 +512,6 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   return c.off;
 }
 
-int fixpoint_grid(int needed_blocks) {
-  static int cached_dev = -1, cached_max = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != cached_dev) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fixpoint_kernel,
-                                                  FIX_THREADS, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cached_max = per_sm * sms;
-    cached_dev = dev;
-  }
-  return max(1, min(cached_max, needed_blocks));
-}
-
-#define FDB_TRY(expr)                          \
-  do {                                         \
-    cudaError_t e_ = (expr);                   \
-    if (e_ != cudaSuccess) return (int)e_;     \
-  } while (0)
-#define FDB_LAUNCHED() FDB_TRY(cudaGetLastError())
-
 int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
                  int32_t* hv_out, int32_t* count_out, uint8_t* conflict_out,
                  uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
@@ -634,8 +561,8 @@ int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
   int needed = max(fdb::blocks_for((long long)R * 32, FIX_THREADS),
                    fdb::blocks_for(T + 1, FIX_THREADS));
   void* args[] = {&f};
-  FDB_TRY(cudaLaunchCooperativeKernel((void*)fixpoint_kernel,
-                                      dim3(fixpoint_grid(needed)),
+  int grid = fdb::coop_grid<fixpoint_kernel, FIX_THREADS>(needed);
+  FDB_TRY(cudaLaunchCooperativeKernel((void*)fixpoint_kernel, dim3(grid),
                                       dim3(FIX_THREADS), args, 0, st));
   FDB_LAUNCHED();
 
@@ -663,11 +590,11 @@ int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
   cover_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.agg_max,
                                                         s.agg_sum);
   FDB_LAUNCHED();
-  scan_tiles_kernel<true><<<1, 1024, 0, st>>>(s.agg_max, s.pre_max, n_tiles,
-                                              nullptr);
+  fdb::scan_tiles_kernel<true><<<1, 1024, 0, st>>>(s.agg_max, s.pre_max,
+                                                   n_tiles, nullptr);
   FDB_LAUNCHED();
-  scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_sum, s.pre_sum, n_tiles,
-                                               nullptr);
+  fdb::scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_sum, s.pre_sum,
+                                                    n_tiles, nullptr);
   FDB_LAUNCHED();
   cover_apply_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(
       m, s.pre_max, s.pre_sum, in.commit, s.mv);
@@ -677,8 +604,8 @@ int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
   keep_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, in.oldest,
                                                        s.keepf, s.agg_keep);
   FDB_LAUNCHED();
-  scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_keep, s.pre_keep,
-                                               n_tiles, count_out);
+  fdb::scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_keep, s.pre_keep,
+                                                    n_tiles, count_out);
   FDB_LAUNCHED();
   compact_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, s.keepf,
                                                    s.pre_keep, hk_out, hv_out);

@@ -13,11 +13,19 @@ from .conflict_set import (
     ResolveTicket,
     ResolverTransaction,
 )
+from .failover import (
+    DEVICE_BACKENDS,
+    FailoverConflictSet,
+    ShadowResolveMismatch,
+    create_resilient_conflict_set,
+)
 from .native_backend import CONFLICT_BACKENDS, create_conflict_set
 
 __all__ = [
-    "COMMITTED", "CONFLICT", "CONFLICT_BACKENDS", "TOO_OLD",
-    "BruteForceConflictSet", "ConflictSetBase", "ConflictSetCheckpoint",
-    "PyConflictSet", "ResolvePipeline", "ResolveTicket",
-    "ResolverTransaction", "create_conflict_set",
+    "COMMITTED", "CONFLICT", "CONFLICT_BACKENDS", "DEVICE_BACKENDS",
+    "TOO_OLD", "BruteForceConflictSet", "ConflictSetBase",
+    "ConflictSetCheckpoint", "FailoverConflictSet", "PyConflictSet",
+    "ResolvePipeline", "ResolveTicket", "ResolverTransaction",
+    "ShadowResolveMismatch", "create_conflict_set",
+    "create_resilient_conflict_set",
 ]

@@ -1,19 +1,25 @@
 """Device ops of the port: key encoding, the int32 binary search (K1),
-range max (K2), the interval resolve step (K3) and version-window
-upkeep (K4). Each kernel wrapper launches its hand-written CUDA kernel
-for a CUDA tensor and runs its plain PyTorch version for a CPU tensor.
+range max (K2), the interval resolve step (K3), version-window upkeep
+(K4), the point resolve step (K5) and the multiword row search (K6).
+Each kernel wrapper launches its hand-written CUDA kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor.
 """
 
 from .keys import (
     INF_WORD,
     decode_keys,
     encode_keys,
+    le_rows,
+    lt_rows,
     next_pow2,
     searchsorted_i32,
+    searchsorted_rows,
+    searchsorted_rows_mixed,
 )
 from .rmq import BLOCK, VDEAD, range_max
 
 __all__ = [
     "INF_WORD", "decode_keys", "encode_keys", "next_pow2",
-    "searchsorted_i32", "BLOCK", "VDEAD", "range_max",
+    "le_rows", "lt_rows", "searchsorted_i32", "searchsorted_rows",
+    "searchsorted_rows_mixed", "BLOCK", "VDEAD", "range_max",
 ]

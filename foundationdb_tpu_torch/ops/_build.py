@@ -120,6 +120,12 @@ _SIGNATURES = {
     "fdb_resolve_packed": ([_P, _P, _P] + [_I] * 6 + [_P] * 5
                            + [_P, _SZ, _P, _P], _I),
     "fdb_window_upkeep": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "fdb_searchsorted_rows": ([_P, _I, _I, _P, _I, _P, _I, _P, _P], _I),
+    "fdb_point_resolve_scratch_bytes": ([_I, _I, _I, _I, _I], _SZ),
+    "fdb_point_resolve": ([_P] * 13 + [_I] * 7 + [_P] * 5
+                          + [_P, _SZ, _P, _P], _I),
+    "fdb_point_resolve_packed": ([_P, _P, _P] + [_I] * 6 + [_P] * 5
+                                 + [_P, _SZ, _P, _P], _I),
 }
 
 

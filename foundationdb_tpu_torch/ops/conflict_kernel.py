@@ -426,17 +426,19 @@ def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
 _scratch_cache: dict = {}
 
 
-def _scratch(dev, cap, n_txns, n_reads, n_writes, width) -> torch.Tensor:
-    """Per-shape scratch for the resolve kernels. Reuse across calls is
-    safe: every launch is ordered on the one stream."""
-    key = (dev, cap, n_txns, n_reads, n_writes, width)
+def _scratch(dev, cap, n_txns, n_reads, n_writes, width,
+             sizer: str = "fdb_resolve_scratch_bytes") -> torch.Tensor:
+    """Per-shape scratch for a resolve step's kernels, sized by the C
+    entry `sizer` (K3's or K5's). Reuse across calls is safe: every
+    launch is ordered on the one stream."""
+    key = (sizer, dev, cap, n_txns, n_reads, n_writes, width)
     s = _scratch_cache.get(key)
     if s is None:
         from ._build import lib
         if len(_scratch_cache) >= 8:
             _scratch_cache.clear()
-        nbytes = lib().fdb_resolve_scratch_bytes(cap, n_txns, n_reads,
-                                                 n_writes, width)
+        nbytes = getattr(lib(), sizer)(cap, n_txns, n_reads, n_writes,
+                                       width)
         s = _scratch_cache[key] = torch.empty(nbytes, dtype=torch.uint8,
                                               device=dev)
     return s
@@ -583,9 +585,11 @@ def make_resolve_packed_fn(cap: int, n_txns: int, n_reads: int,
 
 def _fault_seamed(fn, where: str):
     """Device-fault seam at kernel launch (the `submit` point): an
-    injected fault models the device rejecting the launch, and a real
-    CUDA error is converted to the same DeviceFaultError — either way
-    the history buffers are in an unknown state."""
+    injected fault models the device rejecting the launch, and a lost
+    device (a CUDA error PyTorch raises, memory exhausted) is converted
+    to the same DeviceFaultError — either way the history buffers are
+    in an unknown state. An error the kernel itself reports
+    (`CudaKernelError`) escapes unconverted."""
     from .fault_injection import convert_device_errors, g_device_faults
 
     def call(*args, **kwargs):

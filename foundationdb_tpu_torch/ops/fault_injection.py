@@ -5,10 +5,14 @@ host/device boundaries of a device backend (`submit` = kernel launch,
 `materialize` = verdict readback, `drain` = the blocking wait), driven
 by the `DEVICE_FAULT_INJECTION` knob (a per-seam probability drawn from
 the seeded RNG, amplified by a BUGGIFY site when already armed) or by
-one-shot `schedule()` calls. Real device errors raised at those seams
-(a CUDA error, device memory exhausted, a kernel launch CUDA
-refused) are converted to the same `DeviceFaultError`, so a failover
-controller handles both through one path.
+one-shot `schedule()` calls. Real device losses raised at those seams
+(a CUDA error surfaced by PyTorch, device memory exhausted) are
+converted to the same `DeviceFaultError`, so a failover controller
+handles both through one path. An error that the port's own kernels
+report (`CudaKernelError`: a refused or failed launch, bad arguments,
+too small a scratch, a cooperative grid that does not fit) is NOT a
+device fault: it escapes as it is, so a broken kernel is loud and
+never retried or routed around.
 """
 
 from __future__ import annotations
@@ -26,15 +30,13 @@ _runtime_errors: "tuple | None" = None
 
 
 def runtime_error_types() -> tuple:
-    """The exception types that mean 'the device call failed': CUDA
-    errors surfaced by PyTorch, device memory exhaustion, and a refused
-    or failed launch of one of the port's own kernels."""
+    """The exception types that mean 'the device was lost': CUDA errors
+    surfaced by PyTorch and device memory exhaustion."""
     global _runtime_errors
     if _runtime_errors is None:
         import torch
 
-        from ._build import CudaKernelError
-        types = [CudaKernelError, torch.cuda.OutOfMemoryError]
+        types = [torch.cuda.OutOfMemoryError]
         accel = getattr(torch, "AcceleratorError", None)
         if accel is not None:
             types.append(accel)

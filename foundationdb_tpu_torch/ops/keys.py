@@ -1,4 +1,5 @@
-"""Fixed-width key encoding (numpy) and the int32 binary search (K1).
+"""Fixed-width key encoding (numpy), the int32 binary search (K1) and
+the multiword row search (K6).
 
 A key is W big-endian uint32 words (zero-padded) plus one trailing
 length word; lexicographic comparison of those (W+1)-word rows equals
@@ -85,7 +86,7 @@ def decode_keys(rows: np.ndarray) -> list:
 # K1: searchsorted_i32 (csrc/searchsorted.cu)
 # ---------------------------------------------------------------------------
 
-launches = {"searchsorted_i32": 0}
+launches = {"searchsorted_i32": 0, "searchsorted_rows": 0}
 
 
 def searchsorted_i32_plain(table: torch.Tensor, queries: torch.Tensor,
@@ -133,3 +134,111 @@ def searchsorted_i32(table: torch.Tensor, queries: torch.Tensor,
         _device.stream_handle(table.device)), "searchsorted_i32")
     launches["searchsorted_i32"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Row order and K6: searchsorted_rows (csrc/searchsorted_rows.cu)
+# ---------------------------------------------------------------------------
+
+def lt_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic a < b over the trailing word axis ([..., W+1]),
+    folded from the least significant word up as the reference does.
+    uint32 words widen to int64 (PyTorch's uint32 has no ordered
+    compares)."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    r = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                    dtype=torch.bool, device=a.device)
+    for w in range(a.shape[-1] - 1, -1, -1):
+        aw, bw = a[..., w], b[..., w]
+        r = (aw < bw) | ((aw == bw) & r)
+    return r
+
+
+def le_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ~lt_rows(b, a)
+
+
+def _rows_search_plain(table, queries, right):
+    """The reference's loop: log2(cap) probes from 0, no correction
+    step; `right` is a bool per query (probe <= q) or a Python bool."""
+    cap = table.shape[0]
+    assert cap & (cap - 1) == 0, "table length must be a power of two"
+    logn = cap.bit_length() - 1
+    table = table.to(torch.int64)
+    queries = queries.to(torch.int64)
+    pos = torch.zeros(queries.shape[0], dtype=torch.int64,
+                      device=table.device)
+    for i in range(logn):
+        step = cap >> (i + 1)
+        probe = table[pos + step - 1]
+        lt = lt_rows(probe, queries)
+        le = ~lt_rows(queries, probe)
+        go = torch.where(right, le, lt) if isinstance(right, torch.Tensor) \
+            else (le if right else lt)
+        pos = pos + step * go.to(torch.int64)
+    return pos.to(torch.int32)
+
+
+def searchsorted_rows_plain(table: torch.Tensor, queries: torch.Tensor,
+                            side: str = "left") -> torch.Tensor:
+    """Plain version of B3: `table` is [cap, W+1] sorted rows, cap a
+    power of two, with at least one +inf pad row for exact counts;
+    returns per query the count of rows < query ("left") or <= query
+    ("right"), which caps at cap-1 without a pad row."""
+    return _rows_search_plain(table, queries, side == "right")
+
+
+def searchsorted_rows_mixed_plain(table: torch.Tensor, queries: torch.Tensor,
+                                  right_mask: torch.Tensor) -> torch.Tensor:
+    """searchsorted_rows_plain with a per-query side: right where
+    `right_mask`, left elsewhere."""
+    return _rows_search_plain(table, queries, right_mask.to(torch.bool))
+
+
+def _rows_search(table, queries, mask, right: bool):
+    from ._build import check, lib
+    cap = table.shape[0]
+    if table.dtype != torch.uint32 or table.dim() != 2 or not cap \
+            or cap & (cap - 1):
+        raise ValueError("table must be a [cap, W+1] uint32 tensor, cap a "
+                         "power of two")
+    if queries.device != table.device or queries.dtype != torch.uint32 \
+            or queries.dim() != 2 or queries.shape[1] != table.shape[1]:
+        raise ValueError("queries must be [Q, W+1] uint32 rows on the "
+                         "table's device")
+    if mask is not None and (mask.device != table.device
+                             or mask.shape != queries.shape[:1]
+                             or mask.element_size() != 1):
+        raise ValueError("right_mask must be one byte per query on the "
+                         "table's device")
+    table = table.contiguous()
+    q = queries.contiguous()
+    if mask is not None:
+        mask = mask.contiguous()
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=table.device)
+    check(lib().fdb_searchsorted_rows(
+        table.data_ptr(), cap, table.shape[1], q.data_ptr(), q.shape[0],
+        None if mask is None else mask.data_ptr(), int(right),
+        out.data_ptr(), _device.stream_handle(table.device)),
+        "searchsorted_rows")
+    launches["searchsorted_rows"] += 1
+    return out
+
+
+def searchsorted_rows(table: torch.Tensor, queries: torch.Tensor,
+                      side: str = "left") -> torch.Tensor:
+    """K6 on a CUDA tensor, the plain version on a CPU tensor."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', not {side!r}")
+    if not _device.is_cuda(table):
+        return searchsorted_rows_plain(table, queries, side)
+    return _rows_search(table, queries, None, side == "right")
+
+
+def searchsorted_rows_mixed(table: torch.Tensor, queries: torch.Tensor,
+                            right_mask: torch.Tensor) -> torch.Tensor:
+    """K6 with a per-query side on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if not _device.is_cuda(table):
+        return searchsorted_rows_mixed_plain(table, queries, right_mask)
+    return _rows_search(table, queries, right_mask, False)

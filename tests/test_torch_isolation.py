@@ -1,7 +1,7 @@
 """The port stands alone: no module of foundationdb_tpu_torch, and not
 chip_smoke.py, imports JAX or the JAX package (scanned by AST and
-checked at run time in a fresh interpreter), and the CUDA backend asked
-for with no device raises on a host without a card instead of running
+checked at run time in a fresh interpreter), and the CUDA backends asked
+for with no device raise on a host without a card instead of running
 on the CPU."""
 
 import ast
@@ -38,7 +38,8 @@ def _imported_roots(path):
 
 def test_port_sources_import_no_jax():
     sources = _port_sources()
-    assert os.path.join(PKG, "models", "cuda_resolver.py") in sources
+    for mod in ("cuda_resolver.py", "point_resolver.py", "failover.py"):
+        assert os.path.join(PKG, "models", mod) in sources
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in sources}
@@ -49,6 +50,9 @@ def test_port_import_loads_no_jax():
     code = ("import sys\n"
             "import foundationdb_tpu_torch.models.cuda_resolver\n"
             "import foundationdb_tpu_torch.ops.conflict_kernel\n"
+            "import foundationdb_tpu_torch.ops.point_kernel\n"
+            "import foundationdb_tpu_torch.models.point_resolver\n"
+            "import foundationdb_tpu_torch.models.failover\n"
             "import foundationdb_tpu_torch.models\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
@@ -64,8 +68,9 @@ def test_cuda_backend_without_card_raises(monkeypatch):
     from foundationdb_tpu_torch import device
     from foundationdb_tpu_torch.models import create_conflict_set
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(device.NoCudaDeviceError):
-        create_conflict_set("cuda")
+    for backend in ("cuda", "cuda-point"):
+        with pytest.raises(device.NoCudaDeviceError):
+            create_conflict_set(backend)
     with pytest.raises(device.NoCudaDeviceError):
         device.resolve(None)
     assert device.resolve("cpu").type == "cpu"
