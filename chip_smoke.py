@@ -6,7 +6,7 @@
 Run from the root of a checkout on a host with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from `foundationdb_tpu_torch/csrc`,
 holds each of them bit-exact against its plain PyTorch version at edge
-shapes and at the deployment's shapes, then drives two paths at the
+shapes and at the deployment's shapes, then drives three paths at the
 deployment scale of the repo's streamed cells: 16-byte keys, one point
 read and one point write per transaction, 16,384 transactions per batch
 over 4,000,000 uniform keys, a 5,000,000-version MVCC window at 250,000
@@ -23,10 +23,19 @@ resolver re-bases its int32 version window mid-run.
     batches, conflict counts and state after batch POINT_CPU_BATCHES
     must equal the port's CPU run of that prefix, and every batch's
     conflict count must equal the interval path's.
-  - The failover wrapper, `create_resilient_conflict_set` around both
-    CUDA backends: no fault and no failover on a clean run, and with a
-    device fault injected at each seam, recovery onto a fresh CUDA
-    backend with the clean run's verdicts.
+  - The key-range sharded resolver, `create_conflict_set("sharded-cuda")`,
+    4 shards of 2^18 rows split at the keyspace's quartiles (key ids 1M,
+    2M and 3M: the ids sit in the low 8 bytes, so the default
+    first-byte splits would send every key to shard 0), over the same
+    batches. Every batch's verdicts must equal the interval path's, the
+    per-shard state after batch SHARDED_CPU_BATCHES the port's CPU run
+    of that prefix, and its history stitched across the shards (the
+    stitch `checkpoint()` decodes) the interval history mid-stream and
+    at the end.
+  - The failover wrapper, `create_resilient_conflict_set` around the
+    three CUDA backends: no fault and no failover on a clean run, and
+    with a device fault injected at each seam, recovery onto a fresh
+    CUDA backend with the clean run's verdicts.
 
 Each path's timed window runs four times on a fresh resolver; in two of
 those runs CUDA events bracket each batch's device work, which gives
@@ -68,9 +77,18 @@ TIMED = 384                 # 0.3-0.5 s per timed window: 96-batch point
 CPU_BATCHES = WARMUP + 96   # the interval path's CPU comparison (~150 s)
 POINT_CPU_BATCHES = 30                         # GC has pruned for 10
 FIRST_VERSION = (1 << 30) - 8 * VERSION_STEP   # crosses 2^30: one re-base
+LAST = WARMUP + TIMED - 1
 PIPELINE_DEPTH = 4
 FO_BATCHES, FO_TXNS, FO_KEYS = 30, 100, 2000   # the failover phase
 FO_FAULT_AT = (5, 13, 22)
+FO_SPLITS = [b"0000500", b"0001000", b"0001500"]   # inside b"%07d" keys
+N_SHARDS = 4
+SHARD_CAPACITY = 1 << 18      # per shard: ~650K live rows split 4 ways
+# the key id sits in the low 8 bytes (make_batch), so the first byte is
+# always 0: the splits are ids 1M, 2M and 3M, the keyspace's quartiles
+SHARD_SPLITS = [bytes(8) + (i * KEYSPACE // N_SHARDS).to_bytes(8, "big")
+                for i in range(1, N_SHARDS)]
+SHARDED_CPU_BATCHES = 14      # the sharded path's CPU comparison (~2 min)
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 SEED = 20260729
@@ -199,6 +217,43 @@ def probe_sectors(table, queries, sector=32) -> int:
 # kernel checks
 # ---------------------------------------------------------------------------
 
+def edge_batch(rng):
+    """K3's edge batch: a batch of chains (each transaction reads what
+    the previous one writes, so the fixpoint needs many rounds), pads
+    and a tooOld transaction, on a 1024-row history of 99 keys.
+    Returns (T, R, Wr, HK, HV, the batch's 10 arrays)."""
+    from foundationdb_tpu_torch.ops import rmq
+    cap, T, R, Wr, W = 1024, 32, 64, 64, 2
+    hk = np.full((cap, W + 1), 0xFFFFFFFF, np.uint32)
+    hk[0] = 0
+    hv = np.full(cap, rmq.VDEAD, np.int32)
+    hv[0] = 0
+    for i in range(1, 100):
+        hk[i] = (0, i * 2, 4)
+        hv[i] = int(rng.integers(0, 50))
+    rb = np.zeros((R, W + 1), np.uint32)
+    re = np.zeros((R, W + 1), np.uint32)
+    wb = np.zeros((Wr, W + 1), np.uint32)
+    we = np.zeros((Wr, W + 1), np.uint32)
+    for t in range(30):
+        rb[t] = (0, t, 4)
+        re[t] = (0, t, 5)
+        wb[t] = (0, t + 1, 4)
+        we[t] = (0, t + 1, 5)
+    rt = np.full(R, T, np.int32)
+    rt[:30] = np.arange(30)
+    wt = np.full(Wr, T, np.int32)
+    wt[:30] = np.arange(30)
+    rv = np.zeros(R, bool)
+    rv[:30] = True
+    wv = rv[:Wr].copy()
+    snap = np.full(T, 60, np.int32)
+    snap[0] = 10
+    too_old = np.zeros(T, bool)
+    too_old[17] = True
+    return T, R, Wr, hk, hv, (snap, too_old, rb, re, rt, rv, wb, we, wt, wv)
+
+
 def check_edges(dev):
     """Edge shapes: empty ranges, queries above every element, same-
     and cross-block ranges, intra-batch chains, every K4 mode."""
@@ -241,37 +296,7 @@ def check_edges(dev):
             expect_exact(f"K4 edge mode {mode}", [ck.window_upkeep(
                 hv[:n].to(dev), mode, *args)],
                 [ck.window_upkeep_plain(hv[:n], mode, *args)])
-    # K3: a batch of chains (each transaction reads what the previous
-    # one writes, so the fixpoint needs many rounds), pads, tooOld
-    cap, T, R, Wr, W = 1024, 32, 64, 64, 2
-    hk = np.full((cap, W + 1), 0xFFFFFFFF, np.uint32)
-    hk[0] = 0
-    hv3 = np.full(cap, rmq.VDEAD, np.int32)
-    hv3[0] = 0
-    for i in range(1, 100):
-        hk[i] = (0, i * 2, 4)
-        hv3[i] = int(rng.integers(0, 50))
-    rb = np.zeros((R, W + 1), np.uint32)
-    re = np.zeros((R, W + 1), np.uint32)
-    wb = np.zeros((Wr, W + 1), np.uint32)
-    we = np.zeros((Wr, W + 1), np.uint32)
-    for t in range(30):
-        rb[t] = (0, t, 4)
-        re[t] = (0, t, 5)
-        wb[t] = (0, t + 1, 4)
-        we[t] = (0, t + 1, 5)
-    rt = np.full(R, T, np.int32)
-    rt[:30] = np.arange(30)
-    wt = np.full(Wr, T, np.int32)
-    wt[:30] = np.arange(30)
-    rv = np.zeros(R, bool)
-    rv[:30] = True
-    wv = rv[:Wr].copy()
-    snap = np.full(T, 60, np.int32)
-    snap[0] = 10
-    too_old = np.zeros(T, bool)
-    too_old[17] = True
-    arrays = (snap, too_old, rb, re, rt, rv, wb, we, wt, wv)
+    T, R, Wr, hk, hv3, arrays = edge_batch(rng)
     buf = torch.from_numpy(ck.pack_interval_batch(*arrays, 70, 20))
     for attribute in (True, False):
         want = ck.resolve_step_packed(torch.from_numpy(hk),
@@ -396,6 +421,189 @@ def measure_kernels(dev, mid, batch, version):
                                                         delta), 10),
         library_ms=None,
         bound_ms=8 * hv.numel() / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def empty_range_batch(T, R, Wr, width):
+    """Valid empty and inverted ranges, which every shard's clip marks
+    invalid: transaction 0 writes [8, 36), the empty [48, 48) and the
+    inverted [64, 56); transactions 1-4 read the empty [16, 16), the
+    inverted [24, 20), [44, 52) around the empty write and [54, 66)
+    across the inverted one. Had the ranges counted as valid, each read
+    would overlap one of the writes; as it is, none conflicts."""
+    def row(k):
+        return (0,) * (width - 2) + (k, 4)
+    rb = np.zeros((R, width), np.uint32)
+    re = np.zeros((R, width), np.uint32)
+    wb = np.zeros((Wr, width), np.uint32)
+    we = np.zeros((Wr, width), np.uint32)
+    rt = np.full(R, T, np.int32)
+    wt = np.full(Wr, T, np.int32)
+    rv = np.zeros(R, bool)
+    wv = np.zeros(Wr, bool)
+    for i, (b, e) in enumerate(((8, 36), (48, 48), (64, 56))):
+        wb[i], we[i], wt[i], wv[i] = row(b), row(e), 0, True
+    for i, (b, e) in enumerate(((16, 16), (24, 20), (44, 52), (54, 66))):
+        rb[i], re[i], rt[i], rv[i] = row(b), row(e), i + 1, True
+    snap = np.full(T, 60, np.int32)
+    too_old = np.zeros(T, bool)
+    return (snap, too_old, rb, re, rt, rv, wb, we, wt, wv)
+
+
+def check_sharded_edges(dev):
+    """K7 and K8 at edge shapes. K7's compare: equal rows, rows that
+    differ only in the length word, +inf rows, one row broadcast either
+    way. At 1 and 4 shards, K3's chain batch plus one transaction that
+    reads and writes across every split (the splits sit on keys the
+    chains read and write, so ranges start and end on them): K7's clip
+    of its reads and writes, and K8 from the fresh sharded state and
+    from the state one step later, attributed and not, packed and
+    unpacked; then K8 on a batch of valid empty and inverted ranges."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops import keys, rmq
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 3, (999, 3)).astype(np.uint32)
+    b = a.copy()
+    b[::3, -1] += 1
+    b[1::3] = 0xFFFFFFFF
+    for x, y in ((a, b), (b, a), (a, b[5]), (a[7], b)):
+        x, y = torch.from_numpy(x), torch.from_numpy(y)
+        expect_exact("K7 lt_rows edge", [keys.lt_rows(x.to(dev), y.to(dev))],
+                     [keys.lt_rows_plain(x, y)])
+    T, R, Wr, _hk, _hv, arrays = edge_batch(rng)
+    snap, too_old, rb, re, rt, rv, wb, we, wt, wv = (x.copy() for x in arrays)
+    rb[30], re[30], rt[30], rv[30] = (0, 0, 0), (0, 99, 4), 30, True
+    wb[30], we[30], wt[30], wv[30] = (0, 5, 4), (0, 27, 5), 30, True
+    arrays = (snap, too_old, rb, re, rt, rv, wb, we, wt, wv)
+    width = rb.shape[1]
+    for n_shards in (1, 4):
+        lows = np.zeros((n_shards, width), np.uint32)
+        for k in range(1, n_shards):
+            lows[k] = (0, 8 * k, 4)
+        highs = np.full_like(lows, 0xFFFFFFFF)
+        highs[:-1] = lows[1:]
+        lows, highs = torch.from_numpy(lows), torch.from_numpy(highs)
+        bounds = (lows.to(dev), highs.to(dev))
+        for rows in ((rb, re, rv), (wb, we, wv)):
+            args = [torch.from_numpy(x) for x in rows]
+            expect_exact(f"K7 clip edge S={n_shards}", list(
+                keys.clip_to_shards(*[x.to(dev) for x in args], *bounds)),
+                list(keys.clip_to_shards_plain(*args, lows, highs)))
+        hk = np.full((n_shards, 1024, width), 0xFFFFFFFF, np.uint32)
+        hv = np.full((n_shards, 1024), rmq.VDEAD, np.int32)
+        hk[:, 0], hv[:, 0] = lows.numpy(), 0
+        hk, hv = torch.from_numpy(hk), torch.from_numpy(hv)
+        for commit in (70, 90):
+            buf = torch.from_numpy(ck.pack_interval_batch(*arrays, commit,
+                                                          20))
+            for attribute in (True, False):
+                want = ck.resolve_step_sharded_packed(
+                    hk, hv, buf, lows, highs, T, R, Wr, attribute=attribute)
+                got = ck.resolve_step_sharded_packed(
+                    hk.to(dev), hv.to(dev), buf.to(dev), *bounds, T, R, Wr,
+                    attribute=attribute)
+                expect_exact(f"K8 edge S={n_shards} packed",
+                             [None if g is None else g.cpu() for g in got],
+                             want)
+                got = ck.resolve_step_sharded(
+                    hk.to(dev), hv.to(dev),
+                    *[torch.from_numpy(x).to(dev) for x in arrays], commit,
+                    20, *bounds, attribute=attribute)
+                expect_exact(f"K8 edge S={n_shards} unpacked",
+                             [None if g is None else g.cpu() for g in got],
+                             want)
+            if int(want[3].sum()) < 3:
+                raise AssertionError("sharded edge batch lost its chain")
+            hk, hv = want[0], want[1]
+        empty = empty_range_batch(T, R, Wr, width)
+        buf = torch.from_numpy(ck.pack_interval_batch(*empty, 110, 20))
+        want = ck.resolve_step_sharded_packed(hk, hv, buf, lows, highs, T, R,
+                                              Wr)
+        got = ck.resolve_step_sharded_packed(hk.to(dev), hv.to(dev),
+                                             buf.to(dev), *bounds, T, R, Wr)
+        expect_exact(f"K8 edge S={n_shards} empty ranges",
+                     [g.cpu() for g in got], want)
+        if bool(want[3].any()) or bool(want[4].any()):
+            raise AssertionError("an empty range conflicted in the plain K8")
+
+
+def measure_sharded_kernels(dev, mid, batch, version, bounds):
+    """K7 and K8 against their plain versions on the card at the sharded
+    path's shapes, with device times. `mid` is a mid-stream state of the
+    sharded path (HK[S], HV[S], base, oldest), `batch` the batch it
+    resolved next, at `version` (commit, new oldest), and `bounds` the
+    shards' (lows, highs) on the card."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops import keys
+    out = {}
+    hk, hv, base, oldest = mid
+    n_shards, cap, width = hk.shape
+    T = R = Wr = N_TXNS
+    snapshots, _has_reads, rb, re, rt, wb, we, wt = batch
+    v, o = version
+    snap_off = np.clip(snapshots - base, 0, ck.SNAP_CLAMP).astype(np.int32)
+    buf = torch.from_numpy(ck.pack_interval_batch(
+        snap_off, snapshots < oldest, rb, re, rt, np.ones(R, bool), wb, we,
+        wt, np.ones(Wr, bool), v - base, max(oldest, o) - base)).to(dev)
+    unpacked = ck.interval_unpack(buf, T, R, Wr, N_WORDS)
+    cpu_bounds = [b.cpu() for b in bounds]
+
+    # K7: the clip of the batch's reads (K8 launches it for the reads
+    # and for the writes)
+    clip_in = (unpacked[2], unpacked[3], unpacked[5])
+    got = keys.clip_to_shards(*clip_in, *bounds)
+    err = expect_exact("K7", list(got), list(keys.clip_to_shards_plain(
+        *[x.cpu() for x in clip_in], *cpu_bounds)))
+    # bound: the rows and flags read once, the bounds, the clipped rows
+    # and flags written once
+    k7_bytes = (R * (2 * width * 4 + 1) + 2 * n_shards * width * 4
+                + n_shards * R * (2 * width * 4 + 1))
+    out["shard_clip"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: keys.clip_to_shards(*clip_in, *bounds), 50),
+        plain_ms=time_ms(lambda: keys.clip_to_shards_plain(*clip_in,
+                                                           *bounds), 5),
+        library_ms=None,
+        bound_ms=k7_bytes / HBM_BYTES_PER_S * 1e3)
+
+    # K8: the packed step the main path ran for `batch`, on its state
+    outs = (torch.empty_like(hk), torch.empty_like(hv))
+    got = ck.resolve_step_sharded_packed(hk, hv, buf, *bounds, T, R, Wr,
+                                         attribute=False, out=outs)
+    want = ck.resolve_step_sharded_packed(hk.cpu(), hv.cpu(), buf.cpu(),
+                                          *cpu_bounds, T, R, Wr,
+                                          attribute=False)
+    err = expect_exact("K8", [None if g is None else g.cpu() for g in got],
+                       want)
+    got = ck.resolve_step_sharded(hk, hv, *unpacked, *bounds, attribute=True)
+    want = ck.resolve_step_sharded_plain(hk.cpu(), hv.cpu(),
+                                         *[x.cpu() for x in unpacked],
+                                         *cpu_bounds, attribute=True)
+    expect_exact("K8 unpacked, attributed", [g.cpu() for g in got], want)
+    # bound: each shard's real rows read once, the whole [S, cap] state
+    # written once, the feed read, the flags and counts written (the
+    # clipped ranges are K8's own intermediate: a step that clips on the
+    # fly needs none)
+    rows = int((hk[:, :, -1] != 0xFFFFFFFF).to(torch.int64).sum())
+    row_bytes = width * 4 + 4
+    k8_bytes = ((rows + n_shards * cap) * row_bytes + buf.numel() * 4
+                + T + 4 * n_shards)
+    in_bytes = sum(t.numel() * t.element_size() for t in unpacked)
+    out["resolve_sharded"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ck.resolve_step_sharded_packed(
+            hk, hv, buf, *bounds, T, R, Wr, attribute=False, out=outs), 20),
+        plain_ms=time_ms(lambda: ck.resolve_step_sharded_plain(
+            hk, hv, *unpacked, *bounds, attribute=False), 3, warm=1),
+        library_ms=None,
+        bound_ms=k8_bytes / HBM_BYTES_PER_S * 1e3,
+        state_rows=rows,
+        unpacked_ms=time_ms(lambda: ck.resolve_step_sharded(
+            hk, hv, *unpacked, *bounds, attribute=False, out=outs), 20),
+        unpacked_bound_ms=((rows + n_shards * cap) * row_bytes + in_bytes
+                           + T + 4 * n_shards) / HBM_BYTES_PER_S * 1e3)
     return out
 
 
@@ -597,11 +805,14 @@ def measure_point_kernels(dev, mid, batch, version):
 # ---------------------------------------------------------------------------
 
 # the kernels each path must launch (K1-K4 on the interval path; K1,
-# K4, K5 and K6 on the point path)
+# K4, K5 and K6 on the point path; K1, K2, K4, K7 and K8 on the sharded
+# path)
 INTERVAL_KERNELS = ("searchsorted_i32", "range_max", "resolve",
                     "window_upkeep")
 POINT_KERNELS = ("searchsorted_i32", "window_upkeep", "point_resolve",
                  "searchsorted_rows")
+SHARDED_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
+                   "shard_clip", "resolve_sharded")
 
 
 def launch_counts() -> dict:
@@ -613,7 +824,9 @@ def launch_counts() -> dict:
             "resolve": ck.launches["resolve"],
             "window_upkeep": ck.launches["window_upkeep"],
             "point_resolve": pk.launches["point_resolve"],
-            "searchsorted_rows": keys.launches["searchsorted_rows"]}
+            "searchsorted_rows": keys.launches["searchsorted_rows"],
+            "shard_clip": keys.launches["shard_clip"],
+            "resolve_sharded": ck.launches["resolve_sharded"]}
 
 
 def zero_counts() -> None:
@@ -687,8 +900,9 @@ def final_state(cs):
 
 
 def failover_phase(tag) -> None:
-    """The failover wrapper around each CUDA backend, as the resolver
-    role builds it, over a few thousand point transactions in small
+    """The failover wrapper around each CUDA backend (the sharded one at
+    4 shards split inside the phase's keyspace), as the resolver role
+    builds it, over a few thousand point transactions in small
     batches through submit/drain at depth 4: a clean run must see no
     device fault, no failover and stay on the CUDA backend with the
     pure-Python baseline's verdicts; a run with a device fault injected
@@ -701,6 +915,7 @@ def failover_phase(tag) -> None:
         CudaPointConflictSet)
     from foundationdb_tpu_torch.ops.fault_injection import POINTS
     from foundationdb_tpu_torch.ops.fault_injection import g_device_faults
+    from foundationdb_tpu_torch.parallel import ShardedCudaConflictSet
 
     rng = np.random.default_rng(SEED + 1)
     batches, v = [], 1000
@@ -730,9 +945,12 @@ def failover_phase(tag) -> None:
         g_device_faults.clear()
         return got, fo.failover_stats()
 
-    for backend, cls in (("cuda", CudaConflictSet),
-                         ("cuda-point", CudaPointConflictSet)):
-        fo = create_resilient_conflict_set(backend, device=None)
+    for backend, cls, kw in (
+            ("cuda", CudaConflictSet, {}),
+            ("cuda-point", CudaPointConflictSet, {}),
+            ("sharded-cuda", ShardedCudaConflictSet,
+             {"n_shards": N_SHARDS, "split_keys": FO_SPLITS})):
+        fo = create_resilient_conflict_set(backend, device=None, **kw)
         got, st = drive(fo)
         if (got != want or st["device_faults"] or st["failovers"]
                 or not st["on_primary"] or type(fo.active) is not cls
@@ -740,7 +958,7 @@ def failover_phase(tag) -> None:
             raise AssertionError(f"failover {backend} clean run: {st}")
         recovered = []
         for seam in POINTS:
-            fo = create_resilient_conflict_set(backend, device=None)
+            fo = create_resilient_conflict_set(backend, device=None, **kw)
             got, st = drive(fo, seam)
             if (got != want or st["device_faults"] < len(FO_FAULT_AT)
                     or st["device_recoveries"] < 1 or st["failovers"]
@@ -756,6 +974,51 @@ def failover_phase(tag) -> None:
               f"{FO_BATCHES} batches, {conflicts} conflicts, verdicts equal "
               f"to the Python baseline; clean run: 0 faults, 0 failovers; "
               f"faults at {'; '.join(recovered)}; 0 failovers", flush=True)
+
+
+def history_steps(rows, vers, base, oldest):
+    """A history's step function as `checkpoint()` describes it
+    (versions absolute, those below `oldest` clamped to one dead value,
+    equal neighbours merged), on encoded rows: the stream's end keys
+    (key + b"\\x00", the key's words with length 17) are wider than the
+    16-byte key width, so they have no byte string to decode to."""
+    v = vers.astype(np.int64) + base
+    v = np.where(v < oldest, min(int(v[-1]), oldest - 1), v)
+    keep = np.concatenate([[True], v[1:] != v[:-1]])
+    return rows[keep], v[keep]
+
+
+def compare_steps(i, snap_interval, snap_sharded) -> int:
+    """The interval history after batch `i` and the sharded one,
+    stitched across its shards by the sharded resolver (the stitch its
+    `checkpoint()` decodes), as step functions: they must be equal. A
+    difference raises with the first differing key and both versions.
+    Returns the step count."""
+    from foundationdb_tpu_torch.parallel import load_reference_sharded_state
+    hk, hv, base, oldest = (x.cpu().numpy() if hasattr(x, "cpu") else x
+                            for x in snap_interval)
+    real = hk[:, -1] != 0xFFFFFFFF
+    ka, va = history_steps(hk[real], hv[real], base, oldest)
+    shk, shv, sbase, soldest = snap_sharded
+    cs = load_reference_sharded_state(
+        shk.cpu().numpy(), shv.cpu().numpy(), base=sbase, oldest=soldest,
+        last_commit=list(versions())[i][0], init_version=0,
+        key_bytes=KEY_BYTES, split_keys=SHARD_SPLITS, device=None)
+    kb, vb = history_steps(*cs._stitched_rows(), sbase, soldest)
+    if ka.shape != kb.shape or not (np.array_equal(ka, kb)
+                                    and np.array_equal(va, vb)):
+        n = min(len(ka), len(kb))
+        diff = np.flatnonzero((ka[:n] != kb[:n]).any(axis=1)
+                              | (va[:n] != vb[:n]))
+        j = int(diff[0]) if diff.size else n
+        pick = (lambda k, v: (k[j].tolist(), int(v[j])) if j < len(k)
+                else None)
+        raise AssertionError(
+            f"after batch {i} the sharded history differs from the "
+            f"interval history at step {j}: interval (key words, version) "
+            f"{pick(ka, va)}, sharded {pick(kb, vb)} ({len(ka)} vs "
+            f"{len(kb)} steps)")
+    return len(ka)
 
 
 def trace_stream(backend, batches, tag) -> None:
@@ -832,6 +1095,9 @@ def main() -> int:
     check_point_edges(dev)
     print(f"[{tag}] edge shapes: K5, K6 bit-exact against plain",
           flush=True)
+    check_sharded_edges(dev)
+    print(f"[{tag}] edge shapes: K7, K8 bit-exact against plain at 1 and "
+          f"{N_SHARDS} shards", flush=True)
 
     # the deployment's batches, made once from the seed
     rng = np.random.default_rng(SEED)
@@ -850,6 +1116,13 @@ def main() -> int:
                                    key_bytes=KEY_BYTES,
                                    capacity=POINT_CAPACITY)
 
+    def sharded_backend(device):
+        return create_conflict_set("sharded-cuda", device=device,
+                                   key_bytes=KEY_BYTES,
+                                   capacity=SHARD_CAPACITY,
+                                   n_shards=N_SHARDS,
+                                   split_keys=SHARD_SPLITS)
+
     def cpu_prefix(make, n):
         """The port on the CPU over the first `n` batches: what every GPU
         run must equal there. Returns (verdicts, state after batch n-1)."""
@@ -861,12 +1134,13 @@ def main() -> int:
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         return got, snap[n - 1]
 
-    def checker(label, cpu_got, cpu_snap, counts=None):
+    def checker(label, cpu_got, cpu_snap, counts=None, verdicts=None):
         """A run's check: the verdicts of the first batches and the
         conflict counts of the CPU prefix equal the CPU run's, every
-        count equals `counts[i]` when given, the state after the prefix
-        (when the run took it) equals the CPU's, and every run ends on
-        the first run's final state."""
+        count equals `counts[i]` and every batch's verdicts equal
+        `verdicts[i]` when given, the state after the prefix (when the
+        run took it) equals the CPU's, and every run ends on the first
+        run's final state."""
         last, finals = len(cpu_got) - 1, []
 
         def check_run(name, got, state, snap):
@@ -883,6 +1157,10 @@ def main() -> int:
                     raise AssertionError(
                         f"{name}: conflict count of batch {i} {n} != CPU "
                         f"{want} / interval {other}")
+                if verdicts is not None and not np.array_equal(
+                        g, verdicts[i]):
+                    raise AssertionError(f"{name}: verdicts of batch {i} "
+                                         "differ from the interval path's")
             if snap:
                 s_k, s_v, s_base, s_oldest = snap[last]
                 if not (torch.equal(s_k.cpu(), cpu_snap[0])
@@ -943,7 +1221,7 @@ def main() -> int:
     cpu_got, cpu_snap = cpu_prefix(backend, CPU_BATCHES)
     runs, counts, (got_a, snaps_a, state_a) = drive(
         backend, checker("interval", cpu_got, cpu_snap), INTERVAL_KERNELS,
-        (CPU_BATCHES - 1, mid_at))
+        (CPU_BATCHES - 1, mid_at, LAST))
     counts_a = counts["streamed"]
     n_conf = [int(g.sum()) for g in got_a]
     print(f"[{tag}] verdicts equal to the CPU run over {CPU_BATCHES} "
@@ -962,16 +1240,40 @@ def main() -> int:
           f"interval path's in all {len(n_conf)}; final rows {state_p[2]}",
           flush=True)
 
+    # the sharded path: every batch's verdicts equal the interval
+    # path's, the per-shard state after the CPU prefix equals the CPU
+    # run's, and the stitched history equals the interval history
+    # mid-stream and at the end
+    cpu_got, cpu_snap = cpu_prefix(sharded_backend, SHARDED_CPU_BATCHES)
+    sharded_runs, sharded_counts, (_got_s, snaps_s, state_s) = drive(
+        sharded_backend, checker("sharded", cpu_got, cpu_snap, n_conf,
+                                 got_a), SHARDED_KERNELS,
+        (SHARDED_CPU_BATCHES - 1, mid_at, LAST))
+    counts_s = sharded_counts["streamed"]
+    rows = [compare_steps(i, snaps_a[i], snaps_s[i]) for i in (mid_at, LAST)]
+    print(f"[{tag}] sharded ({N_SHARDS} shards of {SHARD_CAPACITY} rows): "
+          f"verdicts equal to the interval path's in all {len(n_conf)} "
+          f"batches, per-shard state equal to the CPU run after "
+          f"{SHARDED_CPU_BATCHES} batches, stitched history equal to the "
+          f"interval history after batches {mid_at} and {LAST} ({rows[0]} "
+          f"and {rows[1]} steps); final rows per shard max {state_s[2]}",
+          flush=True)
+
     failover_phase(tag)
 
     if "--trace" in sys.argv[1:]:
         trace_stream(backend, batches, tag)
         trace_stream(point_backend, batches, f"{tag} point")
+        trace_stream(sharded_backend, batches, f"{tag} sharded")
     nxt = mid_at + 1
     kern = measure_kernels(dev, snaps_a[mid_at], batches[nxt],
                            list(versions())[nxt])
     kern.update(measure_point_kernels(dev, snaps_p[mid_at], batches[nxt],
                                       list(versions())[nxt]))
+    shards = sharded_backend(None)
+    kern.update(measure_sharded_kernels(
+        dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
+        (shards._lows, shards._highs)))
     sources = {
         "searchsorted_i32": ("foundationdb_tpu_torch/csrc/searchsorted.cu",
                              "foundationdb_tpu/ops/keys.py:166"),
@@ -986,12 +1288,18 @@ def main() -> int:
         "searchsorted_rows": (
             "foundationdb_tpu_torch/csrc/searchsorted_rows.cu",
             "foundationdb_tpu/ops/keys.py:118"),
+        "shard_clip": ("foundationdb_tpu_torch/csrc/shard_clip.cu",
+                       "foundationdb_tpu/ops/keys.py:101"),
+        "resolve_sharded": ("foundationdb_tpu_torch/csrc/resolve.cu",
+                            "foundationdb_tpu/parallel/sharded_resolver.py:36"),
     }
     n_batches = WARMUP + TIMED
     for label, rs in (("streamed", runs["streamed"]),
                       ("pipelined", runs["pipelined"]),
                       ("point streamed", point_runs["streamed"]),
-                      ("point pipelined", point_runs["pipelined"])):
+                      ("point pipelined", point_runs["pipelined"]),
+                      ("sharded streamed", sharded_runs["streamed"]),
+                      ("sharded pipelined", sharded_runs["pipelined"])):
         per = [secs / TIMED * 1e3 for secs, _, _ in rs]
         med = statistics.median(per)
         print(f"[{tag}] {label}: {N_TXNS / (med / 1e3):.1f} txn/s, "
@@ -1025,10 +1333,12 @@ def main() -> int:
     rows = []
     for name, m in kern.items():
         src, rep = sources[name]
-        by_path = {"interval": counts_a[name], "point": counts_p[name]}
-        launches = by_path["point" if name in ("point_resolve",
-                                               "searchsorted_rows")
-                           else "interval"]
+        by_path = {"interval": counts_a[name], "point": counts_p[name],
+                   "sharded": counts_s[name]}
+        main = ("point" if name in ("point_resolve", "searchsorted_rows")
+                else "sharded" if name in ("shard_clip", "resolve_sharded")
+                else "interval")
+        launches = by_path[main]
         extra = (f", {m['state_rows']} state rows" if "state_rows" in m
                  else "")
         if "unpacked_ms" in m:
@@ -1037,7 +1347,8 @@ def main() -> int:
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
               f"ms, bound {m['bound_ms']:.4f} ms{extra}), launches/batch "
               f"{by_path['interval'] / n_batches:.3f} interval, "
-              f"{by_path['point'] / n_batches:.3f} point", flush=True)
+              f"{by_path['point'] / n_batches:.3f} point, "
+              f"{by_path['sharded'] / n_batches:.3f} sharded", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

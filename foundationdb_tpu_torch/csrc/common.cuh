@@ -166,7 +166,7 @@ struct Carver {
 #define FDB_LAUNCHED() FDB_TRY(cudaGetLastError())
 
 // launchers shared between translation units (K3 launches K1 and K2;
-// K5 launches K1 and K6)
+// K5 launches K1 and K6; the sharded step K8 launches K1, K2 and K7)
 cudaError_t fdb_searchsorted_launch(const int32_t* table, int n,
                                     const int32_t* queries, int q, int right,
                                     int32_t* out, cudaStream_t stream);
@@ -180,3 +180,9 @@ cudaError_t fdb_range_max_launch(const int32_t* vals, int n,
                                  const int32_t* lo, const int32_t* hi, int q,
                                  int32_t* out, void* scratch,
                                  cudaStream_t stream);
+cudaError_t fdb_clip_launch(const uint32_t* b, const uint32_t* e,
+                            const void* valid, int valid_bytes,
+                            const uint32_t* lows, const uint32_t* highs,
+                            int S, int n, int width, uint32_t* out_b,
+                            uint32_t* out_e, void* out_valid, int out_bytes,
+                            cudaStream_t stream);

@@ -33,6 +33,33 @@
 // the run's live rows). The dense overlap matrix (R x Wr bits, 32 MiB at
 // the slice's shapes) and its compares are the known excess over that
 // bound, left for a later rank-space formulation.
+//
+// K8: the key-range sharded step (fdb_resolve_sharded[_packed]).
+//
+// Replaces foundationdb_tpu/parallel/sharded_resolver.py:36
+// _clip_and_resolve_packed and :77 _clip_and_resolve (launched through
+// :334 and :252 under shard_map), with the cross-shard combine of
+// ops/conflict_kernel.py:182-185. The S shards of a [S, cap, W+1]
+// history run in lockstep on one card, through K3's own phase kernels
+// with per-shard pointers: K7 clips the feed's ranges to every shard
+// once; then per shard the external bounds, K2 over that shard's HV and
+// the external read flags, OR-combined per transaction (the psum's
+// counterpart); ONE overlap matrix and ONE cooperative fixpoint, K3's
+// own; then per shard merge, GC and compaction into that shard's output
+// with its own count. The per-shard phases are a host loop of launches.
+// One matrix is exact: the reference's fixpoint rounds and attribution
+// read, per read, only the OR over shards of (ovp_s[r] & alive), which
+// is (OR_s ovp_s[r]) & alive; and a read and a write clipped to shard s
+// are both valid and overlap there iff max(rb, wb, lo_s) < min(re, we,
+// hi_s), which holds for some s iff max(rb, wb) < min(re, we) (the
+// shard holding max(rb, wb) sees the overlap), that is iff the unclipped
+// ranges are non-empty (rb < re, wb < we) and overlap. So K8's one
+// matrix is K3's over the unclipped ranges with an empty range counted
+// invalid (overlap_kernel<true>): the OR of the S clipped matrices, bit
+// for bit, on any feed. Bound: bytes, as K3's, over the S shards' rows:
+// each shard's live rows read once, the whole [S, cap] state written
+// once and the feed read once (the clipped ranges are this route's own
+// intermediate, not counted).
 
 #include <cooperative_groups.h>
 
@@ -112,15 +139,23 @@ __global__ void ext_flags_kernel(In in, const int32_t* vmax, uint8_t* ext_r) {
   ext_r[i] = fdb::flag_at(in.rvalid, i, in.flag_bytes) && vmax[i] > s;
 }
 
-// base_c = ext | too_old, with the pad entry T fixed at 1
+// base_c = ext | too_old, with the pad entry T fixed at 1; K8's ext is
+// the OR over its S shards' external read flags (ext_r[k * R + r])
+template <bool kSharded>
 __global__ void base_kernel(In in, const int32_t* rs, const uint8_t* ext_r,
-                            uint8_t* base, uint8_t* ca, uint8_t* cb) {
+                            uint8_t* base, uint8_t* ca, uint8_t* cb, int S) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t > in.T) return;
   uint8_t v = 1;
   if (t < in.T) {
     bool any = false;
-    for (int r = rs[t]; r < rs[t + 1]; ++r) any |= ext_r[r] != 0;
+    if (kSharded) {
+      for (int k = 0; k < S; ++k)
+        for (int r = rs[t]; r < rs[t + 1]; ++r)
+          any |= ext_r[(size_t)k * in.R + r] != 0;
+    } else {
+      for (int r = rs[t]; r < rs[t + 1]; ++r) any |= ext_r[r] != 0;
+    }
     v = any || fdb::flag_at(in.too_old, t, in.flag_bytes);
   }
   base[t] = v;
@@ -130,7 +165,10 @@ __global__ void base_kernel(In in, const int32_t* rs, const uint8_t* ext_r,
 
 // ---- 2. overlap matrix ------------------------------------------------------
 // ovp[r * n_lanes + l] bit b <=> read r overlaps write 32*l + b of an
-// earlier transaction, both valid: wb < re and rb < we
+// earlier transaction, both valid: wb < re and rb < we. K8's matrix
+// (kNonEmpty) also counts a range as valid only when it is non-empty,
+// as every shard's clip does.
+template <bool kNonEmpty>
 __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
   extern __shared__ uint32_t sm[];
   const int width = in.width, nw = OV_LANES * 32;
@@ -151,7 +189,10 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
   }
   for (int k = threadIdx.x; k < nw; k += blockDim.x)
     s_wt[(k % 32) * OV_LANES + k / 32] =
-        (k < nwr && fdb::flag_at(in.wvalid, w0 + k, in.flag_bytes))
+        (k < nwr && fdb::flag_at(in.wvalid, w0 + k, in.flag_bytes) &&
+         (!kNonEmpty ||
+          fdb::row_cmp(in.wb + (size_t)(w0 + k) * width,
+                       in.we + (size_t)(w0 + k) * width, width) < 0))
             ? in.wtxn[w0 + k] : INT_MAX;  // invalid: never earlier
   __syncthreads();
   int lx = threadIdx.x % OV_LANES, ry = threadIdx.x / OV_LANES;
@@ -165,6 +206,8 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
       int rt = in.rtxn[r];
       const uint32_t* rbr = in.rb + (size_t)r * width;
       const uint32_t* rer = in.re + (size_t)r * width;
+      // an empty read: no write is earlier
+      if (kNonEmpty && fdb::row_cmp(rbr, rer, width) >= 0) rt = INT_MIN;
       for (int b = 0; b < 32; ++b) {
         int sl = b * OV_LANES + lx;
         if (s_wt[sl] < rt &&
@@ -178,6 +221,8 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
 }
 
 // ---- 2b. the fixpoint, one cooperative launch ------------------------------
+// K8's ext_r holds its S shards' external read flags, shard k's at k * R;
+// its attribution ORs them
 struct Fix {
   const uint32_t* ovp;
   int R, n_lanes, Wr, T, attribute;
@@ -193,6 +238,7 @@ struct Fix {
   const uint8_t* ext_r;
   uint8_t* conflict_out;
   uint8_t* read_hit_out;
+  int S;
 };
 
 __device__ void pack_alive(const Fix& f, const uint8_t* c, int gwarp,
@@ -216,6 +262,7 @@ __device__ bool read_hits(const Fix& f, int r, int lane) {
   return __any_sync(FULL, acc != 0);
 }
 
+template <bool kSharded>
 __global__ void __launch_bounds__(FIX_THREADS) fixpoint_kernel(Fix f) {
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -258,7 +305,12 @@ __global__ void __launch_bounds__(FIX_THREADS) fixpoint_kernel(Fix f) {
   grid.sync();
   for (int r = gwarp; r < f.R; r += nwarps) {
     bool h = read_hits(f, r, lane);
-    if (lane == 0) f.read_hit_out[r] = h || f.ext_r[r];
+    if (kSharded) {
+      for (int k = 0; k < f.S; ++k) h |= f.ext_r[k * f.R + r] != 0;
+      if (lane == 0) f.read_hit_out[r] = h;
+    } else {
+      if (lane == 0) f.read_hit_out[r] = h || f.ext_r[r];
+    }
   }
 }
 
@@ -467,6 +519,9 @@ __global__ void fill_tail_kernel(uint32_t* hk_out, int32_t* hv_out, int cap,
 }
 
 // ---- scratch layout ------------------------------------------------------------
+// per shard: the external read flags; with the clip (K8): the clipped
+// read and write ranges and their flags, 4 bytes a flag at most. K3 is
+// the S = 1 layout without the clip.
 struct Scratch {
   int32_t *lo, *hi, *vmax, *rs;
   char* rmq;
@@ -475,19 +530,22 @@ struct Scratch {
   uint32_t *alive_p, *ovp, *ins_k;
   int32_t *ins_tie, *sidx_a, *sidx_b, *src, *mv;
   int32_t *agg_max, *agg_sum, *pre_max, *pre_sum, *agg_keep, *pre_keep;
+  uint32_t *crb, *cre, *cwb, *cwe;
+  char *crv, *cwv;
 };
 
 size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
-             int width) {
+             int width, int S, bool clip) {
   fdb::Carver c{base, 0};
   int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
   int n_tiles = (mtot + TILE - 1) / TILE;
+  size_t nc = clip ? S : 0;
   s.lo = c.take<int32_t>(R);
   s.hi = c.take<int32_t>(R);
   s.vmax = c.take<int32_t>(R);
   s.rmq = c.take<char>(fdb_range_max_scratch(cap));
   s.rs = c.take<int32_t>(T + 2);
-  s.ext_r = c.take<uint8_t>(R);
+  s.ext_r = c.take<uint8_t>((size_t)S * R);
   s.base = c.take<uint8_t>(T + 1);
   s.ca = c.take<uint8_t>(T + 1);
   s.cb = c.take<uint8_t>(T + 1);
@@ -509,64 +567,21 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.pre_sum = c.take<int32_t>(n_tiles);
   s.agg_keep = c.take<int32_t>(n_tiles);
   s.pre_keep = c.take<int32_t>(n_tiles);
+  s.crb = c.take<uint32_t>(nc * R * width);
+  s.cre = c.take<uint32_t>(nc * R * width);
+  s.cwb = c.take<uint32_t>(nc * Wr * width);
+  s.cwe = c.take<uint32_t>(nc * Wr * width);
+  s.crv = c.take<char>(nc * R * 4);
+  s.cwv = c.take<char>(nc * Wr * 4);
   return c.off;
 }
 
-int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
-                 int32_t* hv_out, int32_t* count_out, uint8_t* conflict_out,
-                 uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
-                 cudaStream_t st, long long* launches) {
-  const int cap = in.cap, T = in.T, R = in.R, Wr = in.Wr, width = in.width;
-  if (cap < fdb::RMQ_BLOCK || (cap & (cap - 1)) || T < 1 || R < 1 ||
-      (R & (R - 1)) || Wr < 1 || width < 1 || !hk_out || !hv_out ||
-      !count_out || !conflict_out || (attribute && !read_hit_out))
-    return fdb::ERR_BAD_ARGS;
-  long long unused[2] = {0, 0};
-  if (!launches) launches = unused;
-  Scratch s;
-  if (carve(s, nullptr, cap, T, R, Wr, width) > scratch_bytes)
-    return fdb::ERR_SCRATCH;
-  carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width);
-  const int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
-  const int n_tiles = (mtot + TILE - 1) / TILE;
-
-  // 1. external check: bounds, K2 range max, K1 segment starts
-  ext_bounds_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(in, s.lo, s.hi);
-  FDB_LAUNCHED();
-  FDB_TRY(fdb_range_max_launch(in.hv, cap, s.lo, s.hi, R, s.vmax, s.rmq, st));
-  launches[1] += 1;
-  FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
-  launches[0] += 1;
-  ext_flags_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(in, s.vmax,
-                                                              s.ext_r);
-  FDB_LAUNCHED();
-  base_kernel<<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(
-      in, s.rs, s.ext_r, s.base, s.ca, s.cb);
-  FDB_LAUNCHED();
-
-  // 2. overlap matrix + fixpoint (+ attribution)
-  size_t ov_smem = (size_t)OV_LANES * 32 * (2 * width + 1) * sizeof(uint32_t);
-  if (ov_smem > 48 * 1024)
-    FDB_TRY(cudaFuncSetAttribute(overlap_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)ov_smem));
-  dim3 ov_grid((n_lanes + OV_LANES - 1) / OV_LANES,
-               (R + OV_READS - 1) / OV_READS);
-  overlap_kernel<<<ov_grid, 256, ov_smem, st>>>(in, n_lanes, s.ovp);
-  FDB_LAUNCHED();
-  FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
-  Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
-        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
-        conflict_out, read_hit_out};
-  int needed = max(fdb::blocks_for((long long)R * 32, FIX_THREADS),
-                   fdb::blocks_for(T + 1, FIX_THREADS));
-  void* args[] = {&f};
-  int grid = fdb::coop_grid<fixpoint_kernel, FIX_THREADS>(needed);
-  FDB_TRY(cudaLaunchCooperativeKernel((void*)fixpoint_kernel, dim3(grid),
-                                      dim3(FIX_THREADS), args, 0, st));
-  FDB_LAUNCHED();
-
-  // 3. merge: sort the surviving boundaries, interleave with history
+// 3. + 4. for one shard: sort the surviving boundaries, interleave them
+// with the history, cover, then GC and compaction into (hk_out, hv_out)
+int merge_gc(const In& in, const Scratch& s, uint32_t* hk_out,
+             int32_t* hv_out, int32_t* count_out, cudaStream_t st) {
+  const int cap = in.cap, width = in.width, n_s = 2 * in.Wr;
+  const int mtot = cap + n_s, n_tiles = (mtot + TILE - 1) / TILE;
   ins_build_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
       in, s.cfinal, s.ins_k, s.ins_tie, s.sidx_a);
   FDB_LAUNCHED();
@@ -599,8 +614,6 @@ int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
   cover_apply_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(
       m, s.pre_max, s.pre_sum, in.commit, s.mv);
   FDB_LAUNCHED();
-
-  // 4. GC + compaction
   keep_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, in.oldest,
                                                        s.keepf, s.agg_keep);
   FDB_LAUNCHED();
@@ -616,45 +629,114 @@ int resolve_impl(const In& in, int attribute, uint32_t* hk_out,
   return 0;
 }
 
-}  // namespace
-
-FDB_API size_t fdb_resolve_scratch_bytes(int cap, int T, int R, int Wr,
-                                         int width) {
+// K3 (lows == nullptr, S = 1) and K8 (S shards of [cap] rows each, the
+// ranges clipped to [lows[k], highs[k]) for shard k). launches: [0] K1,
+// [1] K2, [2] K7 (K8 only).
+int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
+                 int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
+                 int32_t* count_out, uint8_t* conflict_out,
+                 uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
+                 cudaStream_t st, long long* launches) {
+  const int cap = in.cap, T = in.T, R = in.R, Wr = in.Wr, width = in.width;
+  const bool clip = lows != nullptr;
+  if (cap < fdb::RMQ_BLOCK || (cap & (cap - 1)) || T < 1 || R < 1 ||
+      (R & (R - 1)) || Wr < 1 || width < 1 || S < 1 || (clip && !highs) ||
+      !hk_out || !hv_out || !count_out || !conflict_out ||
+      (attribute && !read_hit_out))
+    return fdb::ERR_BAD_ARGS;
+  long long unused[3] = {0, 0, 0};
+  if (!launches) launches = unused;
   Scratch s;
-  return carve(s, nullptr, cap, T, R, Wr, width);
-}
+  if (carve(s, nullptr, cap, T, R, Wr, width, S, clip) > scratch_bytes)
+    return fdb::ERR_SCRATCH;
+  carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width, S, clip);
+  const int n_lanes = (Wr + 31) / 32, fb = in.flag_bytes;
 
-FDB_API int fdb_resolve(const uint32_t* hk, const int32_t* hv,
-                        const int32_t* snap, const void* too_old,
-                        const uint32_t* rb, const uint32_t* re,
-                        const int32_t* rtxn, const void* rvalid,
-                        const uint32_t* wb, const uint32_t* we,
-                        const int32_t* wtxn, const void* wvalid,
-                        const int32_t* commit, const int32_t* oldest,
-                        int flag_bytes, int cap, int T, int R, int Wr,
-                        int width, int attribute, uint32_t* hk_out,
-                        int32_t* hv_out, int32_t* count_out,
-                        uint8_t* conflict_out, uint8_t* read_hit_out,
-                        void* scratch, size_t scratch_bytes, void* stream,
-                        long long* launches) {
-  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
-  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
-        commit, oldest, flag_bytes, cap, T, R, Wr, width};
-  return resolve_impl(in, attribute, hk_out, hv_out, count_out, conflict_out,
-                      read_hit_out, scratch, scratch_bytes,
-                      static_cast<cudaStream_t>(stream), launches);
+  // 0. the shard clip (K7): every range against every shard's bounds
+  if (clip) {
+    FDB_TRY(fdb_clip_launch(in.rb, in.re, in.rvalid, fb, lows, highs, S, R,
+                            width, s.crb, s.cre, s.crv, fb, st));
+    FDB_TRY(fdb_clip_launch(in.wb, in.we, in.wvalid, fb, lows, highs, S, Wr,
+                            width, s.cwb, s.cwe, s.cwv, fb, st));
+    launches[2] += 2;
+  }
+  auto shard = [&](int k) {
+    In x = in;
+    x.hk = in.hk + (size_t)k * cap * width;
+    x.hv = in.hv + (size_t)k * cap;
+    if (clip) {
+      x.rb = s.crb + (size_t)k * R * width;
+      x.re = s.cre + (size_t)k * R * width;
+      x.rvalid = s.crv + (size_t)k * R * fb;
+      x.wb = s.cwb + (size_t)k * Wr * width;
+      x.we = s.cwe + (size_t)k * Wr * width;
+      x.wvalid = s.cwv + (size_t)k * Wr * fb;
+    }
+    return x;
+  };
+
+  // 1. external check: K1 segment starts; per shard bounds, K2 range max
+  FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
+  launches[0] += 1;
+  for (int k = 0; k < S; ++k) {
+    In x = shard(k);
+    ext_bounds_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(x, s.lo,
+                                                                s.hi);
+    FDB_LAUNCHED();
+    FDB_TRY(fdb_range_max_launch(x.hv, cap, s.lo, s.hi, R, s.vmax, s.rmq,
+                                 st));
+    launches[1] += 1;
+    ext_flags_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(
+        x, s.vmax, s.ext_r + (size_t)k * R);
+    FDB_LAUNCHED();
+  }
+  (clip ? base_kernel<true> : base_kernel<false>)
+      <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, s.ext_r,
+                                                     s.base, s.ca, s.cb, S);
+  FDB_LAUNCHED();
+
+  // 2. the overlap matrix of the unclipped ranges (for K8 the OR of the
+  // shards' clipped matrices, see the note above) + fixpoint (+
+  // attribution)
+  auto overlap = clip ? overlap_kernel<true> : overlap_kernel<false>;
+  size_t ov_smem = (size_t)OV_LANES * 32 * (2 * width + 1) * sizeof(uint32_t);
+  if (ov_smem > 48 * 1024)
+    FDB_TRY(cudaFuncSetAttribute(overlap,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)ov_smem));
+  dim3 ov_grid((n_lanes + OV_LANES - 1) / OV_LANES,
+               (R + OV_READS - 1) / OV_READS);
+  overlap<<<ov_grid, 256, ov_smem, st>>>(in, n_lanes, s.ovp);
+  FDB_LAUNCHED();
+  FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
+  Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
+        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
+        conflict_out, read_hit_out, S};
+  int needed = max(fdb::blocks_for((long long)R * 32, FIX_THREADS),
+                   fdb::blocks_for(T + 1, FIX_THREADS));
+  void* args[] = {&f};
+  int grid = clip
+                 ? fdb::coop_grid<fixpoint_kernel<true>, FIX_THREADS>(needed)
+                 : fdb::coop_grid<fixpoint_kernel<false>, FIX_THREADS>(needed);
+  void* fix = clip ? (void*)fixpoint_kernel<true>
+                   : (void*)fixpoint_kernel<false>;
+  FDB_TRY(cudaLaunchCooperativeKernel(fix, dim3(grid), dim3(FIX_THREADS),
+                                      args, 0, st));
+  FDB_LAUNCHED();
+
+  // 3. + 4. merge, GC and compaction, shard by shard
+  for (int k = 0; k < S; ++k) {
+    int e = merge_gc(shard(k), s, hk_out + (size_t)k * cap * width,
+                     hv_out + (size_t)k * cap, count_out + k, st);
+    if (e) return e;
+  }
+  return 0;
 }
 
 // the packed feed (ops/conflict_kernel.py:465-478): the 12 inputs are
 // offsets into the one buffer, read in place
-FDB_API int fdb_resolve_packed(const uint32_t* hk, const int32_t* hv,
-                               const uint32_t* buf, int cap, int T, int R,
-                               int Wr, int width, int attribute,
-                               uint32_t* hk_out, int32_t* hv_out,
-                               int32_t* count_out, uint8_t* conflict_out,
-                               uint8_t* read_hit_out, void* scratch,
-                               size_t scratch_bytes, void* stream,
-                               long long* launches) {
+In unpack_feed(const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
+               int cap, int T, int R, int Wr, int width) {
   size_t o = 2;
   auto take = [&](size_t n) {
     const uint32_t* p = buf + o;
@@ -673,9 +755,92 @@ FDB_API int fdb_resolve_packed(const uint32_t* hk, const int32_t* hv,
   const uint32_t* we = take((size_t)Wr * width);
   const int32_t* wtxn = reinterpret_cast<const int32_t*>(take(Wr));
   const uint32_t* wvalid = take(Wr);
+  return In{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+            wvalid, commit, oldest, 4, cap, T, R, Wr, width};
+}
+
+}  // namespace
+
+FDB_API size_t fdb_resolve_scratch_bytes(int cap, int T, int R, int Wr,
+                                         int width) {
+  Scratch s;
+  return carve(s, nullptr, cap, T, R, Wr, width, 1, false);
+}
+
+FDB_API size_t fdb_resolve_sharded_scratch_bytes(int S, int cap, int T, int R,
+                                                 int Wr, int width) {
+  Scratch s;
+  return carve(s, nullptr, cap, T, R, Wr, width, S, true);
+}
+
+FDB_API int fdb_resolve(const uint32_t* hk, const int32_t* hv,
+                        const int32_t* snap, const void* too_old,
+                        const uint32_t* rb, const uint32_t* re,
+                        const int32_t* rtxn, const void* rvalid,
+                        const uint32_t* wb, const uint32_t* we,
+                        const int32_t* wtxn, const void* wvalid,
+                        const int32_t* commit, const int32_t* oldest,
+                        int flag_bytes, int cap, int T, int R, int Wr,
+                        int width, int attribute, uint32_t* hk_out,
+                        int32_t* hv_out, int32_t* count_out,
+                        uint8_t* conflict_out, uint8_t* read_hit_out,
+                        void* scratch, size_t scratch_bytes, void* stream,
+                        long long* launches) {
+  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
   In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
-        commit, oldest, 4, cap, T, R, Wr, width};
-  return resolve_impl(in, attribute, hk_out, hv_out, count_out, conflict_out,
-                      read_hit_out, scratch, scratch_bytes,
+        commit, oldest, flag_bytes, cap, T, R, Wr, width};
+  return resolve_impl(in, nullptr, nullptr, 1, attribute, hk_out, hv_out,
+                      count_out, conflict_out, read_hit_out, scratch,
+                      scratch_bytes, static_cast<cudaStream_t>(stream),
+                      launches);
+}
+
+FDB_API int fdb_resolve_packed(const uint32_t* hk, const int32_t* hv,
+                               const uint32_t* buf, int cap, int T, int R,
+                               int Wr, int width, int attribute,
+                               uint32_t* hk_out, int32_t* hv_out,
+                               int32_t* count_out, uint8_t* conflict_out,
+                               uint8_t* read_hit_out, void* scratch,
+                               size_t scratch_bytes, void* stream,
+                               long long* launches) {
+  return resolve_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width),
+                      nullptr, nullptr, 1, attribute, hk_out, hv_out,
+                      count_out, conflict_out, read_hit_out, scratch,
+                      scratch_bytes, static_cast<cudaStream_t>(stream),
+                      launches);
+}
+
+// K8: hk [S, cap, width], hv [S, cap], lows/highs [S, width]; count_out
+// [S]; the verdicts and attribution are the combined ones
+FDB_API int fdb_resolve_sharded(
+    const uint32_t* hk, const int32_t* hv, const int32_t* snap,
+    const void* too_old, const uint32_t* rb, const uint32_t* re,
+    const int32_t* rtxn, const void* rvalid, const uint32_t* wb,
+    const uint32_t* we, const int32_t* wtxn, const void* wvalid,
+    const int32_t* commit, const int32_t* oldest, const uint32_t* lows,
+    const uint32_t* highs, int flag_bytes, int S, int cap, int T, int R,
+    int Wr, int width, int attribute, uint32_t* hk_out, int32_t* hv_out,
+    int32_t* count_out, uint8_t* conflict_out, uint8_t* read_hit_out,
+    void* scratch, size_t scratch_bytes, void* stream, long long* launches) {
+  if ((flag_bytes != 1 && flag_bytes != 4) || !lows) return fdb::ERR_BAD_ARGS;
+  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
+        commit, oldest, flag_bytes, cap, T, R, Wr, width};
+  return resolve_impl(in, lows, highs, S, attribute, hk_out, hv_out,
+                      count_out, conflict_out, read_hit_out, scratch,
+                      scratch_bytes, static_cast<cudaStream_t>(stream),
+                      launches);
+}
+
+FDB_API int fdb_resolve_sharded_packed(
+    const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
+    const uint32_t* lows, const uint32_t* highs, int S, int cap, int T,
+    int R, int Wr, int width, int attribute, uint32_t* hk_out,
+    int32_t* hv_out, int32_t* count_out, uint8_t* conflict_out,
+    uint8_t* read_hit_out, void* scratch, size_t scratch_bytes, void* stream,
+    long long* launches) {
+  if (!lows) return fdb::ERR_BAD_ARGS;
+  return resolve_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width), lows,
+                      highs, S, attribute, hk_out, hv_out, count_out,
+                      conflict_out, read_hit_out, scratch, scratch_bytes,
                       static_cast<cudaStream_t>(stream), launches);
 }

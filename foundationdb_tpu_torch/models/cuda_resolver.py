@@ -189,11 +189,15 @@ class CudaConflictSet(ConflictSetBase):
         self._rows_since_async = 0
 
     def _grow(self, needed: int) -> None:
+        """Double the capacity (or more, to fit `needed`); a sharded
+        history ([S, cap] rows) keeps one capacity for every shard."""
         new_cap = max(self._cap * 2, next_pow2(needed + 2))
-        hk = np.full((new_cap, self._n_words + 1), 0xFFFFFFFF, np.uint32)
-        hv = np.full((new_cap,), -(1 << 30), np.int32)
-        hk[:self._cap] = _host(self._hk)
-        hv[:self._cap] = _host(self._hv)
+        lead = tuple(self._hv.shape[:-1])
+        hk = np.full(lead + (new_cap, self._n_words + 1), 0xFFFFFFFF,
+                     np.uint32)
+        hv = np.full(lead + (new_cap,), -(1 << 30), np.int32)
+        hk[..., :self._cap, :] = _host(self._hk)
+        hv[..., :self._cap] = _host(self._hv)
         self._cap = new_cap
         self._hk, self._hv = self._to_device(hk, hv)
 

@@ -58,7 +58,7 @@ from ..ops.fault_injection import DeviceFaultError, convert_device_errors
 from .conflict_set import (ConflictSetBase, ConflictSetCheckpoint,
                            PyConflictSet, ResolverTransaction)
 
-DEVICE_BACKENDS = ("cuda", "cuda-point")
+DEVICE_BACKENDS = ("cuda", "cuda-point", "sharded-cuda")
 
 
 class ShadowResolveMismatch(RuntimeError):
@@ -457,7 +457,8 @@ def create_resilient_conflict_set(backend: str, init_version: int = 0,
     in the failover controller (unless CONFLICT_FAILOVER=0); host
     backends run bare — they have no accelerator to lose, and the
     python baseline IS the shadow reference. `device` and `kwargs`
-    (`key_bytes`, `capacity`) go to every primary the wrapper builds:
+    (`key_bytes`, `capacity`; `n_shards`, `split_keys` for
+    `sharded-cuda`) go to every primary the wrapper builds:
     `device=None` is the card, and raises on a host without one. The
     wrapper gets no CPU fallback: a device fault that outlasts
     DEVICE_FAULT_RETRIES rebuilds raises DeviceFaultError."""

@@ -119,6 +119,14 @@ _SIGNATURES = {
                     _I),
     "fdb_resolve_packed": ([_P, _P, _P] + [_I] * 6 + [_P] * 5
                            + [_P, _SZ, _P, _P], _I),
+    "fdb_resolve_sharded_scratch_bytes": ([_I] * 6, _SZ),
+    "fdb_resolve_sharded": ([_P] * 16 + [_I] * 8 + [_P] * 5
+                            + [_P, _SZ, _P, _P], _I),
+    "fdb_resolve_sharded_packed": ([_P] * 5 + [_I] * 7 + [_P] * 5
+                                   + [_P, _SZ, _P, _P], _I),
+    "fdb_lt_rows": ([_P, _I, _P, _I, _I, _I, _P, _P], _I),
+    "fdb_clip_to_shards": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                            _P], _I),
     "fdb_window_upkeep": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
     "fdb_searchsorted_rows": ([_P, _I, _I, _P, _I, _P, _I, _P, _P], _I),
     "fdb_point_resolve_scratch_bytes": ([_I, _I, _I, _I, _I], _SZ),

@@ -1,5 +1,6 @@
-"""The interval conflict-resolution step (K3) and version-window upkeep
-(K4), each as a hand-written CUDA kernel and its plain PyTorch version.
+"""The interval conflict-resolution step (K3), its key-range sharded
+form (K8) and version-window upkeep (K4), each as a hand-written CUDA
+kernel and its plain PyTorch version.
 
 One step is one `ConflictBatch::detectConflicts` round
 (fdbserver/SkipList.cpp:1163) over the history state
@@ -25,6 +26,16 @@ offsets). It returns (HK', HV', count, conflict[T], read_hit[R]):
 The output state is canonical (sorted, deduplicated, +inf / VDEAD
 padded), so the kernel and the plain version agree bit for bit, and
 both agree with the reference package on the same packed buffer.
+
+The sharded step runs S such steps in lockstep over a [S, cap, W+1]
+history, each on the batch's ranges clipped to its shard, with the
+external verdicts, every fixpoint round and the attribution OR-combined
+over the shards (the reference's psum across chips). The plain version
+(`resolve_step_sharded_plain`) does just that, one overlap matrix per
+shard. K8 clips only for the external check and the merge: it builds
+ONE matrix over the unclipped ranges, an empty range counted invalid,
+which is the OR of the shards' clipped matrices bit for bit when the
+shards tile the key space (see csrc/resolve.cu).
 
 The plain version (`resolve_step_plain`) follows the reference line by
 line with PyTorch calls: key words widen to int64 (PyTorch's uint32
@@ -57,7 +68,7 @@ REBASE_THRESHOLD = 1 << 30
 # first call (the kernel build included) and sampled execute time here.
 g_kernel_counters = CounterCollection("conflict_kernel")
 
-launches = {"resolve": 0, "window_upkeep": 0}
+launches = {"resolve": 0, "resolve_sharded": 0, "window_upkeep": 0}
 
 
 def _args_device(args) -> torch.device:
@@ -280,66 +291,62 @@ def _pack_bits(flags):
     return out
 
 
-def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
-                       wb, we, wtxn, wvalid, commit, oldest,
-                       attribute: bool = True):
-    """One resolve step in plain PyTorch, line by line after the
-    reference's step; returns (HK', HV', count, conflict, read_hit)
-    with read_hit None when `attribute` is False."""
+def _seg_any(flags, r_starts, n):
+    """Per transaction, whether any of its read slots is flagged: cumsum
+    differences at the segment starts (the slots are in txn order)."""
+    cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=flags.device),
+                     torch.cumsum(flags.to(torch.int64), 0)])
+    at = cum[r_starts]
+    return (at[1:] - at[:-1])[:n] > 0
+
+
+def _external_reads(hk, hv, snap_pad, rb, re, rtxn, rvalid):
+    """1. One shard's external check: read r hits its history iff the max
+    version over the history intervals [rb, re) touches exceeds its
+    snapshot (int64 keys and ids, bool flags)."""
     i64 = torch.int64
     dev = hv.device
     cap, width = hk.shape
-    n = snap.shape[0]
-    n_reads, n_writes = rb.shape[0], wb.shape[0]
-    pack_w = min(32, n_writes)
-    n_lanes = n_writes // pack_w
-    commit, oldest = int(commit), int(oldest)
-    hk, rb, re, wb, we = (x.to(i64) for x in (hk, rb, re, wb, we))
-    hv, snap, rtxn, wtxn = (x.to(i64) for x in (hv, snap, rtxn, wtxn))
-    too_old, rvalid, wvalid = (x.to(torch.bool)
-                               for x in (too_old, rvalid, wvalid))
-    inf_row = torch.full((width,), 0xFFFFFFFF, dtype=i64, device=dev)
-
-    def full(k, v, dtype=i64):
-        return torch.full((k,), v, dtype=dtype, device=dev)
-
-    def ar(k):
-        return torch.arange(k, dtype=i64, device=dev)
-
-    # ---- 1. external check against history ------------------------------
+    n_reads = rb.shape[0]
     nq = 2 * n_reads
+
+    def full(k, v):
+        return torch.full((k,), v, dtype=i64, device=dev)
+
     tie_e = torch.cat([full(cap, 1), full(n_reads, 2), full(n_reads, 0)])
-    qid_e = torch.cat([full(cap, nq), ar(nq)])
+    qid_e = torch.cat([full(cap, nq), torch.arange(nq, dtype=i64,
+                                                   device=dev)])
     rows_e = torch.cat([hk, rb, re])
     sorted_e = _lex_sort([rows_e[:, w] for w in range(width)]
                          + [tie_e, qid_e], width + 1)
     is_q = sorted_e[width] != 1
     cq = torch.cumsum(is_q.to(i64), 0)
-    ranks_e = ar(cap + nq) - cq + 1
+    ranks_e = torch.arange(cap + nq, dtype=i64, device=dev) - cq + 1
     pos_q = _lex_sort([sorted_e[width + 1], ranks_e], 1)[1]
     lo = pos_q[:n_reads] - 1
     hi = pos_q[n_reads:nq]
     vmax = range_max_query(build_range_max_table(hv), lo, hi).to(i64)
-    snap_pad = torch.cat([snap, full(1, SNAP_CLAMP)])
-    ext_r = rvalid & (vmax > snap_pad[rtxn])
-    r_starts = searchsorted_i32_plain(rtxn, ar(n + 2)).to(i64)
+    return rvalid & (vmax > snap_pad[rtxn])
 
-    def seg_any(flags):
-        cum = torch.cat([full(1, 0), torch.cumsum(flags.to(i64), 0)])
-        at = cum[r_starts]
-        return (at[1:] - at[:-1])[:n] > 0
 
-    ext = seg_any(ext_r)
-
-    # ---- 2. intra-batch fixpoint ----------------------------------------
+def _overlap(rb, re, rtxn, rvalid, wb, we, wtxn, wvalid, pack_w):
+    """2a. One shard's read x write overlap matrix, packed at once into
+    uint32 lanes of `pack_w` writes (int64 words): read r overlaps write
+    w of an earlier transaction, both valid. Ranked in the space of
+    {rb, wb, we} as the reference does."""
+    i64 = torch.int64
+    dev = rb.device
+    n_reads, width = rb.shape
+    n_writes = wb.shape[0]
+    inf_row = torch.full((width,), 0xFFFFFFFF, dtype=i64, device=dev)
     endpoints = torch.cat([rb, wb, we])
     ep_valid = torch.cat([rvalid, wvalid, wvalid])
     endpoints = torch.where(ep_valid[:, None], endpoints, inf_row[None, :])
     na = endpoints.shape[0]
     nall = na + n_reads
     rows_r = torch.cat([endpoints, re])
-    is_a = (ar(nall) < na).to(i64)
-    qid_r = torch.cat([ar(na), ar(n_reads) + na])
+    is_a = (torch.arange(nall, dtype=i64, device=dev) < na).to(i64)
+    qid_r = torch.arange(nall, dtype=i64, device=dev)
     sorted_r = _lex_sort([rows_r[:, w] for w in range(width)]
                          + [is_a, qid_r], width)
     a_s = sorted_r[width]
@@ -353,30 +360,23 @@ def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
     ov = ((w_lo[None, :] < r_hi[:, None]) & (r_lo[:, None] < w_hi[None, :])
           & rvalid[:, None] & wvalid[None, :]
           & (wtxn[None, :] < rtxn[:, None]))      # [n_reads, n_writes]
-    ovp = _pack_bits(ov.reshape(n_reads, n_lanes, pack_w))
+    ovp = _pack_bits(ov.reshape(n_reads, n_writes // pack_w, pack_w))
     del ov
+    return ovp
 
+
+def _merge_gc(hk, hv, wb, we, wvalid, wtxn, conflict_pad, commit, oldest):
+    """3. + 4. One shard: the surviving writes' intervals take the commit
+    version, then window GC and dedup, compacted by one more sort."""
+    i64 = torch.int64
+    dev = hv.device
+    cap, width = hk.shape
+    inf_row = torch.full((width,), 0xFFFFFFFF, dtype=i64, device=dev)
     ones = torch.ones(1, dtype=torch.bool, device=dev)
-    base_c = torch.cat([ext | too_old, ones])
 
-    def s_map(c):
-        alive_p = _pack_bits((~c[wtxn]).reshape(n_lanes, pack_w))
-        hit_r = ((ovp & alive_p[None, :]) != 0).any(dim=1)
-        return torch.cat([base_c[:n] | seg_any(hit_r), ones])
+    def full(k, v):
+        return torch.full((k,), v, dtype=i64, device=dev)
 
-    prev, cur, i = base_c, s_map(base_c), 1
-    while bool((prev != cur).any()) and i < n + 2:
-        prev, cur, i = cur, s_map(cur), i + 1
-    conflict_pad = cur
-    conflict = conflict_pad[:n]
-
-    read_hit = None
-    if attribute:
-        alive_fp = _pack_bits((~conflict_pad[wtxn]).reshape(n_lanes, pack_w))
-        intra_r = ((ovp & alive_fp[None, :]) != 0).any(dim=1)
-        read_hit = ext_r | intra_r
-
-    # ---- 3. merge surviving writes into the history ----------------------
     surv = wvalid & ~conflict_pad[wtxn]
     ins_valid = torch.cat([surv, surv])
     ins = torch.where(ins_valid[:, None], torch.cat([wb, we]),
@@ -399,7 +399,6 @@ def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
     merged_v = torch.where(covered, torch.clamp(merged_v, min=commit),
                            merged_v)
 
-    # ---- 4. GC window + dedup, compacted by one more sort ---------------
     oldest2 = max(oldest, 0)
     keep1 = run_end
     dead = merged_v < oldest2
@@ -416,7 +415,107 @@ def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
     out_k = torch.stack(sc[:width], dim=1)[:cap].to(torch.uint32)
     out_v = sc[width][:cap].to(torch.int32)
     count = (keep & is_real).sum().to(torch.int32)
-    return out_k, out_v, count, conflict, read_hit
+    return out_k, out_v, count
+
+
+def _resolve_shards(hks, hvs, snap, too_old, rtxn, wtxn, shards, commit,
+                    oldest, attribute: bool):
+    """The plain step over S shards in lockstep, line by line after the
+    reference's step (S = 1 is the single-shard step). `shards` holds
+    each shard's (rb, re, rvalid, wb, we, wvalid), its ranges clipped to
+    it; the external verdicts, every fixpoint round and the attribution
+    are OR-combined over the shards (the reference's psum), so the
+    verdicts are the single-shard step's. Returns per-shard lists of
+    (HK', HV', count), then conflict and read_hit."""
+    i64 = torch.int64
+    dev = snap.device
+    n = snap.shape[0]
+    n_writes = wtxn.shape[0]
+    pack_w = min(32, n_writes)
+    n_lanes = n_writes // pack_w
+    commit, oldest = int(commit), int(oldest)
+    snap, rtxn, wtxn = (x.to(i64) for x in (snap, rtxn, wtxn))
+    too_old = too_old.to(torch.bool)
+    ones = torch.ones(1, dtype=torch.bool, device=dev)
+    snap_pad = torch.cat([snap, torch.full((1,), SNAP_CLAMP, dtype=i64,
+                                           device=dev)])
+    r_starts = searchsorted_i32_plain(
+        rtxn, torch.arange(n + 2, dtype=i64, device=dev)).to(i64)
+    shards = [(rb.to(i64), re.to(i64), rvalid.to(torch.bool), wb.to(i64),
+               we.to(i64), wvalid.to(torch.bool))
+              for rb, re, rvalid, wb, we, wvalid in shards]
+
+    # ---- 1. external check against each shard's history -----------------
+    ext_r = [_external_reads(hk.to(i64), hv.to(i64), snap_pad, rb, re, rtxn,
+                             rvalid)
+             for hk, hv, (rb, re, rvalid, _wb, _we, _wv)
+             in zip(hks, hvs, shards)]
+    ext = torch.zeros(n, dtype=torch.bool, device=dev)
+    for e in ext_r:
+        ext |= _seg_any(e, r_starts, n)
+
+    # ---- 2. intra-batch fixpoint, its rounds combined over the shards ----
+    ovps = [_overlap(rb, re, rtxn, rvalid, wb, we, wtxn, wvalid, pack_w)
+            for rb, re, rvalid, wb, we, wvalid in shards]
+    base_c = torch.cat([ext | too_old, ones])
+
+    def s_map(c):
+        alive_p = _pack_bits((~c[wtxn]).reshape(n_lanes, pack_w))
+        hit = torch.zeros(n, dtype=torch.bool, device=dev)
+        for ovp in ovps:
+            hit |= _seg_any(((ovp & alive_p[None, :]) != 0).any(dim=1),
+                            r_starts, n)
+        return torch.cat([base_c[:n] | hit, ones])
+
+    prev, cur, i = base_c, s_map(base_c), 1
+    while bool((prev != cur).any()) and i < n + 2:
+        prev, cur, i = cur, s_map(cur), i + 1
+    conflict_pad = cur
+    conflict = conflict_pad[:n]
+
+    read_hit = None
+    if attribute:
+        alive_fp = _pack_bits((~conflict_pad[wtxn]).reshape(n_lanes, pack_w))
+        read_hit = torch.zeros(rtxn.shape[0], dtype=torch.bool, device=dev)
+        for e, ovp in zip(ext_r, ovps):
+            read_hit |= e | ((ovp & alive_fp[None, :]) != 0).any(dim=1)
+
+    # ---- 3. + 4. merge, GC and compaction, shard by shard ----------------
+    outs = [_merge_gc(hk.to(i64), hv.to(i64), wb, we, wvalid, wtxn,
+                      conflict_pad, commit, oldest)
+            for hk, hv, (_rb, _re, _rv, wb, we, wvalid)
+            in zip(hks, hvs, shards)]
+    return ([o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs],
+            conflict, read_hit)
+
+
+def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                       wb, we, wtxn, wvalid, commit, oldest,
+                       attribute: bool = True):
+    """One resolve step in plain PyTorch, line by line after the
+    reference's step; returns (HK', HV', count, conflict, read_hit)
+    with read_hit None when `attribute` is False."""
+    ks, vs, counts, conflict, read_hit = _resolve_shards(
+        [hk], [hv], snap, too_old, rtxn, wtxn,
+        [(rb, re, rvalid, wb, we, wvalid)], commit, oldest, attribute)
+    return ks[0], vs[0], counts[0], conflict, read_hit
+
+
+def resolve_step_sharded_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                               wb, we, wtxn, wvalid, commit, oldest, lows,
+                               highs, attribute: bool = True):
+    """K8's plain version: the reference's sharded step on a [S, cap,
+    W+1] history. The ranges are clipped to every shard's [lows[s],
+    highs[s]) by the plain clip, then the S shards resolve in lockstep.
+    Returns (HK'[S], HV'[S], count[S], conflict, read_hit)."""
+    crb, cre, crv = _keys.clip_to_shards_plain(rb, re, rvalid, lows, highs)
+    cwb, cwe, cwv = _keys.clip_to_shards_plain(wb, we, wvalid, lows, highs)
+    ks, vs, counts, conflict, read_hit = _resolve_shards(
+        list(hk), list(hv), snap, too_old, rtxn, wtxn,
+        [(crb[k], cre[k], crv[k], cwb[k], cwe[k], cwv[k])
+         for k in range(hk.shape[0])], commit, oldest, attribute)
+    return (torch.stack(ks), torch.stack(vs), torch.stack(counts), conflict,
+            read_hit)
 
 
 # ---------------------------------------------------------------------------
@@ -427,70 +526,75 @@ _scratch_cache: dict = {}
 
 
 def _scratch(dev, cap, n_txns, n_reads, n_writes, width,
-             sizer: str = "fdb_resolve_scratch_bytes") -> torch.Tensor:
+             sizer: str = "fdb_resolve_scratch_bytes",
+             shards=None) -> torch.Tensor:
     """Per-shape scratch for a resolve step's kernels, sized by the C
-    entry `sizer` (K3's or K5's). Reuse across calls is safe: every
-    launch is ordered on the one stream."""
-    key = (sizer, dev, cap, n_txns, n_reads, n_writes, width)
+    entry `sizer` (K3's, K5's, or K8's, which takes the shard count
+    first). Reuse across calls is safe: every launch is ordered on the
+    one stream."""
+    key = (sizer, dev, shards, cap, n_txns, n_reads, n_writes, width)
     s = _scratch_cache.get(key)
     if s is None:
         from ._build import lib
         if len(_scratch_cache) >= 8:
             _scratch_cache.clear()
-        nbytes = getattr(lib(), sizer)(cap, n_txns, n_reads, n_writes,
+        lead = () if shards is None else (shards,)
+        nbytes = getattr(lib(), sizer)(*lead, cap, n_txns, n_reads, n_writes,
                                        width)
         s = _scratch_cache[key] = torch.empty(nbytes, dtype=torch.uint8,
                                               device=dev)
     return s
 
 
-def _check_history(hk, hv):
-    if hk.dtype != torch.uint32 or hk.dim() != 2 or not hk.is_contiguous():
-        raise ValueError("HK must be a contiguous [cap, W+1] uint32 tensor")
-    if hv.dtype != torch.int32 or hv.shape != hk.shape[:1] \
+def _check_history(hk, hv, dims: int = 2):
+    """HK [cap, W+1] (dims 2) or [S, cap, W+1] (dims 3) uint32 and HV
+    of its shape less the word axis, int32, contiguous, on one device."""
+    if hk.dtype != torch.uint32 or hk.dim() != dims or not hk.is_contiguous():
+        raise ValueError(f"HK must be a contiguous {dims}-D uint32 tensor "
+                         "of rows")
+    if hv.dtype != torch.int32 or hv.shape != hk.shape[:-1] \
             or not hv.is_contiguous() or hv.device != hk.device:
-        raise ValueError("HV must be a contiguous [cap] int32 tensor "
-                         "beside HK")
+        raise ValueError("HV must be a contiguous int32 tensor beside HK")
+
+
+def _check_bounds(hk, lows, highs):
+    want = (hk.shape[0], hk.shape[-1])
+    for t in (lows, highs):
+        if t.dtype != torch.uint32 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.device != hk.device:
+            raise ValueError("shard bounds must be contiguous [S, W+1] "
+                             "uint32 rows beside the history")
 
 
 def _outputs(hk, n_txns, n_reads, attribute, out):
     dev = hk.device
     if out is None:
-        out = (torch.empty_like(hk), torch.empty(hk.shape[0], dtype=torch.int32,
+        out = (torch.empty_like(hk), torch.empty(hk.shape[:-1],
+                                                 dtype=torch.int32,
                                                  device=dev))
     hk_out, hv_out = out
-    _check_history(hk_out, hv_out)
-    if hk_out.shape != hk.shape:
+    _check_history(hk_out, hv_out, hk.dim())
+    if hk_out.shape != hk.shape or hk_out.device != dev:
         raise ValueError("output history must have the input's shape")
-    count = torch.empty((), dtype=torch.int32, device=dev)
+    count = torch.empty(hk.shape[:-2], dtype=torch.int32, device=dev)
     conflict = torch.empty(n_txns, dtype=torch.bool, device=dev)
     read_hit = (torch.empty(n_reads, dtype=torch.bool, device=dev)
                 if attribute else None)
     return hk_out, hv_out, count, conflict, read_hit
 
 
-def _note_launches(counts) -> None:
-    launches["resolve"] += 1
+def _note_launches(counts, name: str = "resolve") -> None:
+    launches[name] += 1
     _keys.launches["searchsorted_i32"] += int(counts[0])
     _rmq.launches["range_max"] += int(counts[1])
+    if len(counts) > 2:
+        _keys.launches["shard_clip"] += int(counts[2])
 
 
-def resolve_step(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
-                 wb, we, wtxn, wvalid, commit, oldest,
-                 attribute: bool = True, out=None):
-    """The unpacked entry: K3 on CUDA tensors, the plain version on CPU
-    tensors. `out` = (HK', HV') buffers the kernel writes into (the
-    resolver's ping-pong pair); fresh buffers when None. Flags are bool
-    (or 32-bit, nonzero = true); `commit`/`oldest` are 0-d int32
-    tensors on the device or Python ints."""
-    if not _device.is_cuda(hk):
-        return resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn,
-                                  rvalid, wb, we, wtxn, wvalid, commit,
-                                  oldest, attribute)
-    from ._build import check, lib
-    _check_history(hk, hv)
-    dev = hk.device
-    cap, width = hk.shape
+def _unpacked_inputs(dev, width, snap, too_old, rb, re, rtxn, rvalid,
+                     wb, we, wtxn, wvalid, commit, oldest):
+    """The unpacked entries' 12 inputs checked and made contiguous:
+    returns (inputs, flag bytes, T, R, Wr)."""
     n_txns, n_reads, n_writes = snap.shape[0], rb.shape[0], wb.shape[0]
     flags = (too_old, rvalid, wvalid)
     flag_bytes = flags[0].element_size()
@@ -521,17 +625,48 @@ def resolve_step(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
         if t.dtype != torch.int32 or not t.numel():
             raise ValueError("snapshots, txn ids, commit and oldest must "
                              "be int32")
+    return ins, flag_bytes, n_txns, n_reads, n_writes
+
+
+def _ptrs(outs):
+    return [t.data_ptr() if t is not None else None for t in outs]
+
+
+def resolve_step(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                 wb, we, wtxn, wvalid, commit, oldest,
+                 attribute: bool = True, out=None):
+    """The unpacked entry: K3 on CUDA tensors, the plain version on CPU
+    tensors. `out` = (HK', HV') buffers the kernel writes into (the
+    resolver's ping-pong pair); fresh buffers when None. Flags are bool
+    (or 32-bit, nonzero = true); `commit`/`oldest` are 0-d int32
+    tensors on the device or Python ints."""
+    if not _device.is_cuda(hk):
+        return resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn,
+                                  rvalid, wb, we, wtxn, wvalid, commit,
+                                  oldest, attribute)
+    from ._build import check, lib
+    _check_history(hk, hv)
+    dev = hk.device
+    cap, width = hk.shape
+    ins, flag_bytes, n_txns, n_reads, n_writes = _unpacked_inputs(
+        dev, width, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+        wvalid, commit, oldest)
     outs = _outputs(hk, n_txns, n_reads, attribute, out)
     scratch = _scratch(dev, cap, n_txns, n_reads, n_writes, width)
     counts = (ctypes.c_longlong * 2)()
     check(lib().fdb_resolve(
         hk.data_ptr(), hv.data_ptr(), *[t.data_ptr() for t in ins],
         flag_bytes, cap, n_txns, n_reads, n_writes, width, int(attribute),
-        *[t.data_ptr() if t is not None else None for t in outs],
-        scratch.data_ptr(), scratch.numel(), _device.stream_handle(dev),
-        counts), "resolve")
+        *_ptrs(outs), scratch.data_ptr(), scratch.numel(),
+        _device.stream_handle(dev), counts), "resolve")
     _note_launches(counts)
     return outs
+
+
+def _check_feed(buf, n_txns, n_reads, n_writes, width):
+    if buf.dtype != torch.uint32 or buf.dim() != 1 or buf.shape[0] != \
+            interval_feed_len(n_txns, n_reads, n_writes, width - 1):
+        raise ValueError("feed buffer does not match the shape bucket")
 
 
 def resolve_step_packed(hk, hv, buf, n_txns: int, n_reads: int,
@@ -540,9 +675,7 @@ def resolve_step_packed(hk, hv, buf, n_txns: int, n_reads: int,
     above. K3 reads its 12 inputs in place on the card; on the CPU the
     plain version runs on views of the buffer."""
     cap, width = hk.shape
-    if buf.dtype != torch.uint32 or buf.dim() != 1 or buf.shape[0] != \
-            interval_feed_len(n_txns, n_reads, n_writes, width - 1):
-        raise ValueError("feed buffer does not match the shape bucket")
+    _check_feed(buf, n_txns, n_reads, n_writes, width)
     if not _device.is_cuda(hk):
         return resolve_step_plain(
             hk, hv, *interval_unpack(buf, n_txns, n_reads, n_writes,
@@ -558,12 +691,107 @@ def resolve_step_packed(hk, hv, buf, n_txns: int, n_reads: int,
     counts = (ctypes.c_longlong * 2)()
     check(lib().fdb_resolve_packed(
         hk.data_ptr(), hv.data_ptr(), buf.data_ptr(), cap, n_txns, n_reads,
-        n_writes, width, int(attribute),
-        *[t.data_ptr() if t is not None else None for t in outs],
-        scratch.data_ptr(), scratch.numel(), _device.stream_handle(dev),
-        counts), "resolve_packed")
+        n_writes, width, int(attribute), *_ptrs(outs), scratch.data_ptr(),
+        scratch.numel(), _device.stream_handle(dev), counts),
+        "resolve_packed")
     _note_launches(counts)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K8, the key-range sharded step (csrc/resolve.cu fdb_resolve_sharded*)
+# ---------------------------------------------------------------------------
+
+def resolve_step_sharded(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                         wb, we, wtxn, wvalid, commit, oldest, lows, highs,
+                         attribute: bool = True, out=None):
+    """The unpacked sharded entry: K8 on CUDA tensors, its plain version
+    on CPU tensors. HK [S, cap, W+1], HV [S, cap]; `lows`/`highs` [S,
+    W+1] are the shards' key ranges, which tile the key space as the
+    resolver builds them (lows[0] the zero row, highs[k] == lows[k+1],
+    highs[-1] the +inf row); the batch is K3's, empty ranges allowed.
+    Returns (HK'[S], HV'[S], count[S], conflict[T], read_hit[R] or
+    None)."""
+    if not _device.is_cuda(hk):
+        return resolve_step_sharded_plain(hk, hv, snap, too_old, rb, re,
+                                          rtxn, rvalid, wb, we, wtxn, wvalid,
+                                          commit, oldest, lows, highs,
+                                          attribute)
+    from ._build import check, lib
+    _check_history(hk, hv, 3)
+    _check_bounds(hk, lows, highs)
+    dev = hk.device
+    n_shards, cap, width = hk.shape
+    ins, flag_bytes, n_txns, n_reads, n_writes = _unpacked_inputs(
+        dev, width, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+        wvalid, commit, oldest)
+    outs = _outputs(hk, n_txns, n_reads, attribute, out)
+    scratch = _scratch(dev, cap, n_txns, n_reads, n_writes, width,
+                       "fdb_resolve_sharded_scratch_bytes", n_shards)
+    counts = (ctypes.c_longlong * 3)()
+    check(lib().fdb_resolve_sharded(
+        hk.data_ptr(), hv.data_ptr(), *[t.data_ptr() for t in ins],
+        lows.data_ptr(), highs.data_ptr(), flag_bytes, n_shards, cap, n_txns,
+        n_reads, n_writes, width, int(attribute), *_ptrs(outs),
+        scratch.data_ptr(), scratch.numel(), _device.stream_handle(dev),
+        counts), "resolve_sharded")
+    _note_launches(counts, "resolve_sharded")
+    return outs
+
+
+def resolve_step_sharded_packed(hk, hv, buf, lows, highs, n_txns: int,
+                                n_reads: int, n_writes: int,
+                                attribute: bool = True, out=None):
+    """The packed sharded entry, the counterpart of the reference's
+    shard_map'd packed step: one feed buffer, read word for word as K3
+    reads it, shared by every shard. K8 on the card; on the CPU the
+    plain version on views of the buffer."""
+    if hk.dim() != 3:
+        raise ValueError("a sharded history is [S, cap, W+1]")
+    width = hk.shape[-1]
+    _check_feed(buf, n_txns, n_reads, n_writes, width)
+    if not _device.is_cuda(hk):
+        return resolve_step_sharded_plain(
+            hk, hv, *interval_unpack(buf, n_txns, n_reads, n_writes,
+                                     width - 1), lows, highs, attribute)
+    from ._build import check, lib
+    _check_history(hk, hv, 3)
+    _check_bounds(hk, lows, highs)
+    dev = hk.device
+    if buf.device != dev:
+        raise ValueError("feed buffer must lie on the history's device")
+    n_shards, cap, _ = hk.shape
+    buf = buf.contiguous()
+    outs = _outputs(hk, n_txns, n_reads, attribute, out)
+    scratch = _scratch(dev, cap, n_txns, n_reads, n_writes, width,
+                       "fdb_resolve_sharded_scratch_bytes", n_shards)
+    counts = (ctypes.c_longlong * 3)()
+    check(lib().fdb_resolve_sharded_packed(
+        hk.data_ptr(), hv.data_ptr(), buf.data_ptr(), lows.data_ptr(),
+        highs.data_ptr(), n_shards, cap, n_txns, n_reads, n_writes, width,
+        int(attribute), *_ptrs(outs), scratch.data_ptr(), scratch.numel(),
+        _device.stream_handle(dev), counts), "resolve_sharded_packed")
+    _note_launches(counts, "resolve_sharded")
+    return outs
+
+
+@functools.lru_cache(maxsize=None)
+def make_resolve_sharded_packed_fn(n_shards: int, cap: int, n_txns: int,
+                                   n_reads: int, n_writes: int, n_words: int,
+                                   attribute: bool = True):
+    """Profiled, fault-seamed packed sharded entry for one shape bucket:
+    fn(HK, HV, buf, lows, highs, out=None) -> (HK'[S], HV'[S], count[S],
+    conflict, read_hit)."""
+    def fn(hk, hv, buf, lows, highs, out=None):
+        return resolve_step_sharded_packed(hk, hv, buf, lows, highs, n_txns,
+                                           n_reads, n_writes,
+                                           attribute=attribute, out=out)
+
+    tag = "" if attribute else "/noattr"
+    fn = profile_kernel(
+        fn, f"sharded_packed[{n_shards}s/{cap}c/{n_txns}t/{n_reads}r/"
+            f"{n_writes}w{tag}]")
+    return _fault_seamed(fn, f"sharded_packed[{cap}c]")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
-"""Fixed-width key encoding (numpy), the int32 binary search (K1) and
-the multiword row search (K6).
+"""Fixed-width key encoding (numpy), the int32 binary search (K1), the
+multiword row search (K6), and the row compare with the shard clip
+built on it (K7).
 
 A key is W big-endian uint32 words (zero-padded) plus one trailing
 length word; lexicographic comparison of those (W+1)-word rows equals
@@ -86,7 +87,7 @@ def decode_keys(rows: np.ndarray) -> list:
 # K1: searchsorted_i32 (csrc/searchsorted.cu)
 # ---------------------------------------------------------------------------
 
-launches = {"searchsorted_i32": 0, "searchsorted_rows": 0}
+launches = {"searchsorted_i32": 0, "searchsorted_rows": 0, "shard_clip": 0}
 
 
 def searchsorted_i32_plain(table: torch.Tensor, queries: torch.Tensor,
@@ -137,10 +138,10 @@ def searchsorted_i32(table: torch.Tensor, queries: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Row order and K6: searchsorted_rows (csrc/searchsorted_rows.cu)
+# K7: row order and the shard clip (csrc/shard_clip.cu)
 # ---------------------------------------------------------------------------
 
-def lt_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def lt_rows_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lexicographic a < b over the trailing word axis ([..., W+1]),
     folded from the least significant word up as the reference does.
     uint32 words widen to int64 (PyTorch's uint32 has no ordered
@@ -154,9 +155,93 @@ def lt_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r
 
 
+def lt_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K7's row compare on CUDA tensors, the plain fold on CPU tensors.
+    The leading axes broadcast; on the card an operand that is one row
+    is read in place for every row of the other."""
+    if not _device.is_cuda(a):
+        return lt_rows_plain(a, b)
+    from ._build import check, lib
+    if b.device != a.device or a.dtype != torch.uint32 \
+            or b.dtype != torch.uint32 or a.dim() < 1 or b.dim() < 1 \
+            or a.shape[-1] != b.shape[-1] or not a.shape[-1]:
+        raise ValueError("lt_rows takes two uint32 row tensors of one "
+                         "width on one device")
+    width = a.shape[-1]
+    lead = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+
+    def operand(x):
+        if x.shape[:-1].numel() == 1:
+            return x.reshape(width).contiguous(), 0
+        return x.expand(*lead, width).contiguous(), 1
+
+    (a, a_step), (b, b_step) = operand(a), operand(b)
+    out = torch.empty(lead, dtype=torch.bool, device=a.device)
+    if out.numel():
+        check(lib().fdb_lt_rows(a.data_ptr(), a_step, b.data_ptr(), b_step,
+                                out.numel(), width, out.data_ptr(),
+                                _device.stream_handle(a.device)), "lt_rows")
+        launches["shard_clip"] += 1
+    return out
+
+
 def le_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ~lt_rows(b, a)
 
+
+def clip_to_shards_plain(b_rows, e_rows, valid, lows, highs):
+    """Plain version of the shard clip: every range [b, e) against every
+    shard's [lo, hi), as rows_max / rows_min / valid & lt_rows(b', e')
+    of the reference's sharded step. Returns [S, N, W+1] clipped begins
+    and ends and [S, N] bool validity."""
+    i64 = torch.int64
+    lo, hi = lows.to(i64)[:, None, :], highs.to(i64)[:, None, :]
+    b, e = b_rows.to(i64)[None], e_rows.to(i64)[None]
+    cb = torch.where(lt_rows_plain(b, lo)[..., None], lo, b)
+    ce = torch.where(lt_rows_plain(hi, e)[..., None], hi, e)
+    cv = (valid != 0)[None] & lt_rows_plain(cb, ce)
+    return cb.to(torch.uint32), ce.to(torch.uint32), cv
+
+
+def clip_to_shards(b_rows: torch.Tensor, e_rows: torch.Tensor,
+                   valid: torch.Tensor, lows: torch.Tensor,
+                   highs: torch.Tensor):
+    """K7's clip on CUDA tensors, the plain version on CPU tensors.
+    `b_rows`/`e_rows` [N, W+1] uint32, `valid` [N] (1- or 4-byte flags,
+    nonzero = true), `lows`/`highs` [S, W+1] uint32 shard bounds."""
+    if not _device.is_cuda(b_rows):
+        return clip_to_shards_plain(b_rows, e_rows, valid, lows, highs)
+    from ._build import check, lib
+    dev = b_rows.device
+    n, width = b_rows.shape
+    n_shards = lows.shape[0]
+    for t, shape in ((b_rows, (n, width)), (e_rows, (n, width)),
+                     (lows, (n_shards, width)), (highs, (n_shards, width))):
+        if t.dtype != torch.uint32 or tuple(t.shape) != shape \
+                or t.device != dev:
+            raise ValueError("clip_to_shards takes [N, W+1] range rows and "
+                             "[S, W+1] bounds, uint32 on one device")
+    if valid.shape != (n,) or valid.element_size() not in (1, 4) \
+            or valid.device != dev:
+        raise ValueError("valid must be [N] 1- or 4-byte flags beside the "
+                         "rows")
+    b_rows, e_rows, valid, lows, highs = (
+        t.contiguous() for t in (b_rows, e_rows, valid, lows, highs))
+    cb = torch.empty((n_shards, n, width), dtype=torch.uint32, device=dev)
+    ce = torch.empty_like(cb)
+    cv = torch.empty((n_shards, n), dtype=torch.bool, device=dev)
+    check(lib().fdb_clip_to_shards(
+        b_rows.data_ptr(), e_rows.data_ptr(), valid.data_ptr(),
+        valid.element_size(), lows.data_ptr(), highs.data_ptr(), n_shards,
+        n, width, cb.data_ptr(), ce.data_ptr(), cv.data_ptr(),
+        _device.stream_handle(dev)), "clip_to_shards")
+    launches["shard_clip"] += 1
+    return cb, ce, cv
+
+
+# ---------------------------------------------------------------------------
+# K6: searchsorted_rows (csrc/searchsorted_rows.cu)
+# ---------------------------------------------------------------------------
 
 def _rows_search_plain(table, queries, right):
     """The reference's loop: log2(cap) probes from 0, no correction
@@ -171,8 +256,8 @@ def _rows_search_plain(table, queries, right):
     for i in range(logn):
         step = cap >> (i + 1)
         probe = table[pos + step - 1]
-        lt = lt_rows(probe, queries)
-        le = ~lt_rows(queries, probe)
+        lt = lt_rows_plain(probe, queries)
+        le = ~lt_rows_plain(queries, probe)
         go = torch.where(right, le, lt) if isinstance(right, torch.Tensor) \
             else (le if right else lt)
         pos = pos + step * go.to(torch.int64)

@@ -10,7 +10,8 @@ fail over to the CPU and reattach; the fallback enforces the primary's
 input contract; attributed batches survive failover; shadow validation
 catches a sabotaged backend, passes honest ones, and fail-stops when
 armed; and the resilient factory asked for the card raises on a host
-without one."""
+without one. The key-range sharded backend (4 shards) takes every
+case the other device backends take."""
 
 import random
 
@@ -36,6 +37,9 @@ from foundationdb_tpu_torch.models.point_resolver import (  # noqa: E402
     CudaPointConflictSet,
 )
 from foundationdb_tpu_torch.ops._build import CudaKernelError  # noqa: E402
+from foundationdb_tpu_torch.parallel import (  # noqa: E402
+    ShardedCudaConflictSet,
+)
 from foundationdb_tpu_torch.ops.fault_injection import (  # noqa: E402
     DeviceFaultError,
     convert_device_errors,
@@ -70,16 +74,32 @@ def ref_verdicts(*args, attribute=False, **kwargs):
             for b, v, o in ref_rand_batches(*args, **kwargs)]
 
 
+# what the resilient factory passes each backend beyond the device
+BACKEND_KW = {"sharded-cuda": {"n_shards": 4}}
+
+
 def mk(name, **kw):
     if name == "python":
         return PyConflictSet(**kw)
     if name == "cuda":
         return CudaConflictSet(device="cpu", **kw)
+    if name == "sharded-cuda":
+        return ShardedCudaConflictSet(device="cpu", **BACKEND_KW[name], **kw)
     return CudaPointConflictSet(device="cpu", **kw)
 
 
 def _factory(backend):
     return lambda: mk(backend)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain steps run on small tensors: one intra-op thread is
+    faster here and leaves the other test workers their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -99,8 +119,8 @@ def knobs():
 
 # -- checkpoint / restore parity ---------------------------------------
 
-@pytest.mark.parametrize("producer", ("python", "cuda"))
-@pytest.mark.parametrize("restorer", ("python", "cuda"))
+@pytest.mark.parametrize("producer", ("python", "cuda", "sharded-cuda"))
+@pytest.mark.parametrize("restorer", ("python", "cuda", "sharded-cuda"))
 def test_checkpoint_restore_cross_backend_parity(producer, restorer):
     batches = rand_batches(3, 30)
     a = mk(producer)
@@ -190,7 +210,7 @@ def test_restore_after_rebase_window():
 
 # -- failover determinism ----------------------------------------------
 
-FAULT_BACKENDS = ("cuda", "cuda-point")
+FAULT_BACKENDS = ("cuda", "cuda-point", "sharded-cuda")
 
 
 def _run_pipelined(cs, batches, window=4):
@@ -339,7 +359,8 @@ def test_device_fault_past_retries_raises(backend, retries, knobs):
     knobs("conflict_checkpoint_versions", 10 ** 9)
     set_seed(5)
     batches = rand_batches(13, 12, point=backend == "cuda-point")
-    fo = create_resilient_conflict_set(backend, device="cpu")
+    fo = create_resilient_conflict_set(backend, device="cpu",
+                                       **BACKEND_KW.get(backend, {}))
     for b, v, o in batches[:8]:
         fo.resolve(b, v, o)
     knobs("device_fault_injection", 1.0)
@@ -439,6 +460,11 @@ def test_resilient_factory(monkeypatch):
     assert isinstance(fo.active, CudaPointConflictSet)
     assert fo.active._key_bytes == 16
     assert isinstance(create_resilient_conflict_set("python"), PyConflictSet)
+    fo = create_resilient_conflict_set("sharded-cuda", device="cpu",
+                                       n_shards=4, split_keys=[b"1", b"2",
+                                                               b"3"])
+    assert isinstance(fo.active, ShardedCudaConflictSet)
+    assert fo.active._split_keys == [b"", b"1", b"2", b"3"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for backend in FAULT_BACKENDS:
         with pytest.raises(device.NoCudaDeviceError):

@@ -40,6 +40,7 @@ def test_port_sources_import_no_jax():
     sources = _port_sources()
     for mod in ("cuda_resolver.py", "point_resolver.py", "failover.py"):
         assert os.path.join(PKG, "models", mod) in sources
+    assert os.path.join(PKG, "parallel", "sharded_resolver.py") in sources
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
            for p in sources}
@@ -53,6 +54,7 @@ def test_port_import_loads_no_jax():
             "import foundationdb_tpu_torch.ops.point_kernel\n"
             "import foundationdb_tpu_torch.models.point_resolver\n"
             "import foundationdb_tpu_torch.models.failover\n"
+            "import foundationdb_tpu_torch.parallel\n"
             "import foundationdb_tpu_torch.models\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
@@ -68,7 +70,7 @@ def test_cuda_backend_without_card_raises(monkeypatch):
     from foundationdb_tpu_torch import device
     from foundationdb_tpu_torch.models import create_conflict_set
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for backend in ("cuda", "cuda-point"):
+    for backend in ("cuda", "cuda-point", "sharded-cuda"):
         with pytest.raises(device.NoCudaDeviceError):
             create_conflict_set(backend)
     with pytest.raises(device.NoCudaDeviceError):
