@@ -36,6 +36,17 @@ resolver re-bases its int32 version window mid-run.
     three CUDA backends: no fault and no failover on a clean run, and
     with a device fault injected at each seam, recovery onto a fresh
     CUDA backend with the clean run's verdicts.
+  - The bench chains (`ops/bench_chain.py`, the reference bench's
+    device-driven loops): CHAIN_BATCHES steps of K9 (the batch made on
+    the card, `jax.random` bit for bit), K5 or K3, and K10 (the tally)
+    from `PRNGKey(7)`. The point and interval chains must count the same
+    conflicts; the first CHAIN_PREFIX steps' counts, key and state must
+    equal the port's CPU run; the timed runs make no sync (they run
+    under `torch.cuda.set_sync_debug_mode("error")`).
+  - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
+    mode as a subprocess: one JSON line carrying the card's name, every
+    cross-check of its modes met, its chains' count equal to this
+    script's.
 
 Each path's timed window runs four times on a fresh resolver; in two of
 those runs CUDA events bracket each batch's device work, which gives
@@ -91,6 +102,14 @@ SHARD_SPLITS = [bytes(8) + (i * KEYSPACE // N_SHARDS).to_bytes(8, "big")
 SHARDED_CPU_BATCHES = 14      # the sharded path's CPU comparison (~2 min)
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
+# int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes at
+# the 1.98 GHz boost clock (H100 SXM data sheet, Hopper white paper)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+THREEFRY_OPS = 77      # 20 rounds x (add, rotate, xor), 5 injections x 3, 2
+CHAIN_BATCHES = 100    # the reference bench's FDBTPU_BENCH_BATCHES
+CHAIN_PREFIX = 8       # the chains' CPU comparison
+CHAIN_REPEATS = 3
+ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
 SEED = 20260729
 
 
@@ -800,6 +819,115 @@ def measure_point_kernels(dev, mid, batch, version):
     return out
 
 
+def _chain_buffers(dev, slots, interval):
+    """K9's outputs for `slots` reads and writes: [rb, re, wb, we]
+    (the end rows None on the point chain), snapshots, commit, oldest."""
+    import torch
+    width = N_WORDS + 1
+    rows = [torch.zeros((slots, width), dtype=torch.uint32, device=dev)
+            if k in (0, 2) or interval else None for k in range(4)]
+    return (rows, torch.zeros(slots, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def check_chain_edges(dev):
+    """K9 and K10 against their plain versions over 8 chained keys from
+    PRNGKey(7): at 1, 7 and 16,384 slots, keyspaces 1, 2^16+1, 4,000,000
+    and 2^31-1, with and without end rows; K10 tallies flags taken from
+    the step's rows, so they differ step by step, and records each
+    step's count."""
+    import torch
+    from foundationdb_tpu_torch.ops import bench_chain as bc
+    for slots, keyspace in ((1, 1), (7, 2**16 + 1), (7, 2**31 - 1),
+                            (N_TXNS, KEYSPACE), (N_TXNS, 2**31 - 1)):
+        for interval in (False, True):
+            runs = []
+            for d in ("cpu", dev):
+                ctl = torch.zeros(bc.C_WORDS, dtype=torch.uint32)
+                ctl[0:2] = bc.prng_key(7)
+                ctl = ctl.to(d)
+                rows, snap, commit, oldest = _chain_buffers(d, slots,
+                                                            interval)
+                per_step = torch.zeros(8, dtype=torch.int32, device=d)
+                seen = []
+                for _ in range(8):
+                    bc.chain_gen(ctl, *rows, snap, commit, oldest, keyspace)
+                    flags = (rows[0][:, N_WORDS - 1].to(torch.int64)
+                             & 1) == 1
+                    bc.chain_tally(ctl, flags, slots, per_step)
+                    seen.append([t.cpu().clone() for t in
+                                 (*rows, snap, commit, oldest, ctl)
+                                 if t is not None])
+                runs.append((seen, per_step.cpu()))
+            for i, (want, got) in enumerate(zip(runs[0][0], runs[1][0])):
+                expect_exact(f"K9/K10 edge slots={slots} keyspace="
+                             f"{keyspace} step {i}", got, want)
+            expect_exact("K10 edge per-step counts", [runs[1][1]],
+                         [runs[0][1]])
+
+
+def measure_chain_kernels(dev, ctl0):
+    """K9 and K10 against their plain versions at the chains' shapes
+    (16,384 read and write slots), from the control block `ctl0` the
+    main path left (a key and step counter mid-chain), with device
+    times. K9 is timed at the point chain's shape (its interval shape,
+    with end rows, beside it); K10 on the flags of a resolved batch."""
+    import torch
+    from foundationdb_tpu_torch.ops import bench_chain as bc
+    out = {}
+    width = N_WORDS + 1
+    got = ctl0.clone()
+    rows, snap, commit, oldest = _chain_buffers(dev, N_TXNS, False)
+    bc.chain_gen(got, *rows, snap, commit, oldest, KEYSPACE)
+    want = ctl0.cpu()
+    p_rows, p_snap, p_commit, p_oldest = _chain_buffers("cpu", N_TXNS, False)
+    bc.chain_gen(want, *p_rows, p_snap, p_commit, p_oldest, KEYSPACE)
+    err = expect_exact("K9", [got, rows[0], rows[2], snap, commit, oldest],
+                       [want, p_rows[0], p_rows[2], p_snap, p_commit,
+                        p_oldest])
+    i_rows, i_snap, i_commit, i_oldest = _chain_buffers(dev, N_TXNS, True)
+    # bound: the rows and snapshots written, the control block read and
+    # written; the hashing: two threefry evaluations a slot and seven for
+    # the step's keys, and randint's five operations a slot
+    k9_bytes = 2 * N_TXNS * width * 4 + 4 * N_TXNS + 4 * (3 + 6 + 2)
+    k9_ops = (2 * 2 * N_TXNS + 7) * THREEFRY_OPS + 5 * 2 * N_TXNS
+    k9_b, k9_o = k9_bytes / HBM_BYTES_PER_S, k9_ops / INT32_OPS_PER_S
+    k9_end_b = (k9_bytes + 2 * N_TXNS * width * 4) / HBM_BYTES_PER_S
+    out["chain_gen"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: bc.chain_gen(got, *rows, snap, commit, oldest,
+                                        KEYSPACE), 50),
+        plain_ms=time_ms(lambda: bc.chain_gen_plain(
+            got, *rows, snap, commit, oldest, KEYSPACE), 5),
+        library_ms=None,
+        bound_ms=max(k9_b, k9_o) * 1e3,
+        bound_by="bytes" if k9_b >= k9_o else "operations",
+        interval_ms=time_ms(lambda: bc.chain_gen(
+            got, *i_rows, i_snap, i_commit, i_oldest, KEYSPACE), 50),
+        interval_bound_ms=max(k9_end_b, k9_o) * 1e3)
+
+    flags = rows[0][:, N_WORDS - 1].to(torch.int64) % 97 == 0
+    steps = int(ctl0[bc.C_STEP].to(torch.int64)) + 1
+    got = ctl0.clone()
+    per_got = torch.zeros(steps, dtype=torch.int32, device=dev)
+    bc.chain_tally(got, flags, N_TXNS, per_got)
+    want = ctl0.cpu()
+    per_want = torch.zeros(steps, dtype=torch.int32)
+    bc.chain_tally(want, flags.cpu(), N_TXNS, per_want)
+    err = expect_exact("K10", [got, per_got], [want, per_want])
+    # bound: the flags read once, the control block read and written
+    k10_bytes = N_TXNS + 4 * 5 + 4 * 5
+    out["chain_tally"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: bc.chain_tally(got, flags, N_TXNS), 50),
+        plain_ms=time_ms(lambda: bc.chain_tally_plain(got, flags, N_TXNS),
+                         5),
+        library_ms=time_ms(lambda: torch.sum(flags[:N_TXNS]), 50),
+        bound_ms=k10_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -813,9 +941,13 @@ POINT_KERNELS = ("searchsorted_i32", "window_upkeep", "point_resolve",
                  "searchsorted_rows")
 SHARDED_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
                    "shard_clip", "resolve_sharded")
+# the chains: K9, K5 (with K1 and K6) or K3 (with K1 and K2), K10
+CHAIN_KERNELS = ("chain_gen", "point_resolve", "searchsorted_i32",
+                 "searchsorted_rows", "resolve", "range_max", "chain_tally")
 
 
 def launch_counts() -> dict:
+    from foundationdb_tpu_torch.ops import bench_chain as bc
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
     from foundationdb_tpu_torch.ops import keys, rmq
     from foundationdb_tpu_torch.ops import point_kernel as pk
@@ -826,14 +958,18 @@ def launch_counts() -> dict:
             "point_resolve": pk.launches["point_resolve"],
             "searchsorted_rows": keys.launches["searchsorted_rows"],
             "shard_clip": keys.launches["shard_clip"],
-            "resolve_sharded": ck.launches["resolve_sharded"]}
+            "resolve_sharded": ck.launches["resolve_sharded"],
+            "chain_gen": bc.launches["chain_gen"],
+            "chain_tally": bc.launches["chain_tally"]}
 
 
 def zero_counts() -> None:
+    from foundationdb_tpu_torch.ops import bench_chain as bc
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
     from foundationdb_tpu_torch.ops import keys, rmq
     from foundationdb_tpu_torch.ops import point_kernel as pk
-    for d in (keys.launches, rmq.launches, ck.launches, pk.launches):
+    for d in (keys.launches, rmq.launches, ck.launches, pk.launches,
+              bc.launches):
         for k in d:
             d[k] = 0
 
@@ -976,6 +1112,170 @@ def failover_phase(tag) -> None:
               f"faults at {'; '.join(recovered)}; 0 failovers", flush=True)
 
 
+def chain_phase(tag, dev):
+    """The bench chains at the reference bench's shape (16,384 txns,
+    keyspace 4,000,000, CHAIN_BATCHES batches from PRNGKey(7); the
+    point chain on a 2^19-row state, the interval chain on a 2^20-row
+    history). The first CHAIN_PREFIX steps of each must equal the port's
+    CPU run (per-step counts, key, state). Then CHAIN_REPEATS timed runs
+    of each chain from a fresh state, each under sync-debug "error" (a
+    sync in the loop raises), with the launch counts set to 0 just
+    before and read just after; both chains must count the same
+    conflicts in every run. A last run per chain brackets each step
+    with CUDA events (the busy share), then the capacity audit.
+    Returns ({kind: numbers}, the timed runs' launch counts, the point
+    chain's control block)."""
+    import torch
+    from foundationdb_tpu_torch.ops import bench_chain as bc
+    chains = {kind: bc.BenchChain(kind, N_TXNS, KEYSPACE, device=dev,
+                                  record=CHAIN_PREFIX)
+              for kind in ("point", "interval")}
+    res = {}
+    for kind, ch in chains.items():
+        t0 = time.perf_counter()
+        cpu = bc.BenchChain(kind, N_TXNS, KEYSPACE, device="cpu",
+                            record=CHAIN_PREFIX)
+        cpu.run(CHAIN_PREFIX)
+        cpu_s = time.perf_counter() - t0
+        ch.run(CHAIN_PREFIX)
+        if ch.step_counts() != cpu.step_counts() or not (
+                np.array_equal(ch.key(), cpu.key())
+                and torch.equal(ch.state[0].cpu(), cpu.state[0])
+                and torch.equal(ch.state[1].cpu(), cpu.state[1])):
+            raise AssertionError(
+                f"{kind} chain: the first {CHAIN_PREFIX} steps differ from "
+                f"the CPU run (counts {ch.step_counts()} vs "
+                f"{cpu.step_counts()})")
+        res[kind] = {"prefix_counts": cpu.step_counts(),
+                     "cpu_ms_per_step": 1e3 * cpu_s / CHAIN_PREFIX,
+                     "cap": ch.cap, "runs": []}
+        print(f"[{tag}] {kind} chain: the first {CHAIN_PREFIX} steps equal "
+              f"the CPU run (counts {cpu.step_counts()}, key, state; CPU "
+              f"{cpu_s:.3f} s)", flush=True)
+        del cpu
+    torch.cuda.synchronize()
+    zero_counts()
+    for _ in range(CHAIN_REPEATS):
+        for kind, ch in chains.items():
+            ch.reset()
+            torch.cuda.synchronize()
+            enq = []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                t0 = time.perf_counter()
+                ch.run(CHAIN_BATCHES, enqueue_s=enq)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            end.synchronize()
+            wall = time.perf_counter() - t0
+            if torch.cuda.memory_stats()["allocation.all.allocated"] != allocs:
+                raise AssertionError(f"the {kind} chain allocated on the "
+                                     f"card inside its loop")
+            res[kind]["runs"].append((wall, start.elapsed_time(end),
+                                      1e3 * float(np.median(enq)),
+                                      ch.conflicts(), 1e3 * min(enq)))
+    counts = launch_counts()
+    idle = [k for k in CHAIN_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the chains never launched {idle}")
+    totals = {kind: {r[3] for r in res[kind]["runs"]} for kind in chains}
+    if len(totals["point"] | totals["interval"]) != 1:
+        raise AssertionError(f"chain conflict totals differ: {totals}")
+    for kind, ch in chains.items():
+        ch.reset()
+        torch.cuda.synchronize()
+        spans = []
+        t0 = time.perf_counter()
+        ch.run(CHAIN_BATCHES, spans=spans)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = res[kind]
+        r["busy"] = sum(a.elapsed_time(b) for a, b in spans) / (wall * 1e3)
+        r["audit_rows"] = ch.audit()
+        best = min(r["runs"])
+        r["ms_per_batch"] = 1e3 * best[0] / CHAIN_BATCHES
+        r["device_ms_per_batch"] = best[1] / CHAIN_BATCHES
+        r["enqueue_ms_per_step"] = best[2]
+        r["enqueue_min_ms"] = best[4]
+        r["total"] = best[3]
+        print(f"[{tag}] {kind} chain: {N_TXNS * CHAIN_BATCHES / best[0]:.1f} "
+              f"txn/s, {r['ms_per_batch']:.4f} ms/batch (best of "
+              f"{CHAIN_REPEATS} runs of {CHAIN_BATCHES} batches: "
+              f"{', '.join(f'{1e3 * x[0] / CHAIN_BATCHES:.4f}' for x in r['runs'])}"
+              f"), CUDA events {r['device_ms_per_batch']:.4f} ms/batch, host "
+              f"enqueue {r['enqueue_ms_per_step']:.4f} ms/step median, "
+              f"{r['enqueue_min_ms']:.4f} min (a step's launches block "
+              f"once the launch queue is full), device busy "
+              f"{100 * r['busy']:.1f}% (CUDA-event spans), {r['total']} "
+              f"conflicts, no sync and no allocation in the loop, audit "
+              f"{r['audit_rows']} rows of {ch.cap}", flush=True)
+    print(f"[{tag}] chains: point and interval count {totals['point']} "
+          f"conflicts in every run", flush=True)
+    return res, counts, chains["point"].ctl.clone()
+
+
+def entry_phase(tag, chain_total) -> dict:
+    """`python -m foundationdb_tpu_torch.bench` in `all` mode at
+    ENTRY_BATCHES batches: exit 0, one JSON line naming this card, every
+    cross-check of its modes met (the entry refuses to publish when one
+    fails; they are read here again), and its chains' count equal to the
+    chain phase's. The record goes to chiprun_out/bench_entry.json."""
+    import torch
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FDBTPU_BENCH_")}
+    env.update(FDBTPU_BENCH_BACKEND="all",
+               FDBTPU_BENCH_BATCHES=str(ENTRY_BATCHES))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "foundationdb_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    secs = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"bench entry exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench entry printed {len(lines)} lines")
+    rec = json.loads(lines[0])
+    card = rec["config"]["device"]
+    if card["name"] != torch.cuda.get_device_name(0) \
+            or not card["power_limit"]:
+        raise AssertionError(f"bench entry's device record {card}")
+    sub = rec["sub_metrics"]
+    checks = sub["cross_checks"]
+    for what, counts in checks.items():
+        if len(set(counts.values())) != 1:
+            raise AssertionError(f"bench entry cross-check {what}: {counts}")
+    if set(checks["chains_equal"].values()) != {chain_total}:
+        raise AssertionError(f"bench entry chains {checks['chains_equal']} "
+                             f"vs the chain phase's {chain_total}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "bench_entry.json"),
+              "w") as f:
+        f.write(lines[0] + "\n")
+    t = sub["transport"]
+    print(f"[{tag}] bench entry (all, {ENTRY_BATCHES} batches, "
+          f"{secs:.1f} s): value {rec['value']} txn/s "
+          f"({rec['config']['backend']}), card {card}; "
+          + "; ".join(f"{m} {sub[m]['txn_per_s']}"
+                      for m in ("cuda-point", "cuda", "cuda-streamed",
+                                "cuda-streamed-interval", "cuda-pipelined",
+                                "native", "native-streamed", "python"))
+          + f" txn/s; pipelined by depth {sub['cuda-pipelined']['txn_per_s_by_depth']}; "
+          f"chains ms/batch {sub['cuda-point']['ms_per_batch']} / "
+          f"{sub['cuda']['ms_per_batch']}, enqueue ms/step "
+          f"{sub['cuda-point']['enqueue_ms_per_step']} / "
+          f"{sub['cuda']['enqueue_ms_per_step']}; transport "
+          f"{t['dispatch_roundtrip_ms']} ms round trip, {t['h2d_mb_s']} "
+          f"MB/s H2D; cross-checks {checks}", flush=True)
+    return rec
+
+
 def history_steps(rows, vers, base, oldest):
     """A history's step function as `checkpoint()` describes it
     (versions absolute, those below `oldest` clamped to one dead value,
@@ -1098,6 +1398,9 @@ def main() -> int:
     check_sharded_edges(dev)
     print(f"[{tag}] edge shapes: K7, K8 bit-exact against plain at 1 and "
           f"{N_SHARDS} shards", flush=True)
+    check_chain_edges(dev)
+    print(f"[{tag}] edge shapes: K9, K10 bit-exact against plain over 8 "
+          f"chained keys", flush=True)
 
     # the deployment's batches, made once from the seed
     rng = np.random.default_rng(SEED)
@@ -1261,6 +1564,9 @@ def main() -> int:
 
     failover_phase(tag)
 
+    chain_res, counts_c, chain_ctl = chain_phase(tag, dev)
+    entry_phase(tag, chain_res["point"]["total"])
+
     if "--trace" in sys.argv[1:]:
         trace_stream(backend, batches, tag)
         trace_stream(point_backend, batches, f"{tag} point")
@@ -1274,6 +1580,7 @@ def main() -> int:
     kern.update(measure_sharded_kernels(
         dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
         (shards._lows, shards._highs)))
+    kern.update(measure_chain_kernels(dev, chain_ctl))
     sources = {
         "searchsorted_i32": ("foundationdb_tpu_torch/csrc/searchsorted.cu",
                              "foundationdb_tpu/ops/keys.py:166"),
@@ -1292,6 +1599,10 @@ def main() -> int:
                        "foundationdb_tpu/ops/keys.py:101"),
         "resolve_sharded": ("foundationdb_tpu_torch/csrc/resolve.cu",
                             "foundationdb_tpu/parallel/sharded_resolver.py:36"),
+        "chain_gen": ("foundationdb_tpu_torch/csrc/bench_chain.cu",
+                      "bench.py:164"),
+        "chain_tally": ("foundationdb_tpu_torch/csrc/bench_chain.cu",
+                        "bench.py:173"),
     }
     n_batches = WARMUP + TIMED
     for label, rs in (("streamed", runs["streamed"]),
@@ -1330,13 +1641,15 @@ def main() -> int:
         print(f"[{tag}] {label}: host ms per call by window (p50 / p90 / "
               f"max, calls over 2x p50 and their excess share of the "
               f"window): {'; '.join(host)}", flush=True)
+    chain_steps = 2 * CHAIN_REPEATS * CHAIN_BATCHES   # both chains' steps
     rows = []
     for name, m in kern.items():
         src, rep = sources[name]
         by_path = {"interval": counts_a[name], "point": counts_p[name],
-                   "sharded": counts_s[name]}
+                   "sharded": counts_s[name], "chain": counts_c[name]}
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
+                else "chain" if name in ("chain_gen", "chain_tally")
                 else "interval")
         launches = by_path[main]
         extra = (f", {m['state_rows']} state rows" if "state_rows" in m
@@ -1344,17 +1657,33 @@ def main() -> int:
         if "unpacked_ms" in m:
             extra += (f"; unpacked entry {m['unpacked_ms']:.4f} ms, bound "
                       f"{m['unpacked_bound_ms']:.4f} ms")
+        if "interval_ms" in m:
+            extra += f"; with end rows {m['interval_ms']:.4f} ms"
+        if m["library_ms"] is not None:
+            extra += f"; library {m['library_ms']:.4f} ms"
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
-              f"ms, bound {m['bound_ms']:.4f} ms{extra}), launches/batch "
+              f"ms, bound {m['bound_ms']:.6f} ms by "
+              f"{m.get('bound_by', 'bytes')}{extra}), launches/batch "
               f"{by_path['interval'] / n_batches:.3f} interval, "
               f"{by_path['point'] / n_batches:.3f} point, "
-              f"{by_path['sharded'] / n_batches:.3f} sharded", flush=True)
+              f"{by_path['sharded'] / n_batches:.3f} sharded, "
+              f"{by_path['chain'] / chain_steps:.3f} chain step", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                     "bound_by": "bytes", "library_ms": m["library_ms"]})
+                     "bound_by": m.get("bound_by", "bytes"),
+                     "library_ms": m["library_ms"]})
+    for kind, step in (("point", "point_resolve"), ("interval", "resolve")):
+        gen = kern["chain_gen"]
+        bound = (kern[step]["bound_ms"] + kern["chain_tally"]["bound_ms"]
+                 + gen["bound_ms" if kind == "point" else "interval_bound_ms"])
+        r = chain_res[kind]
+        print(f"[{tag}] {kind} chain: {r['ms_per_batch']:.4f} ms/batch "
+              f"against a bound of {bound:.6f} ms (K9 + {step} + K10; the "
+              f"step's bound on the {kind} path's mid-stream state); CPU "
+              f"{r['cpu_ms_per_step']:.1f} ms/step over the prefix", flush=True)
     print(f"[{tag}] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Device ops of the port: key encoding, the int32 binary search (K1),
 range max (K2), the interval resolve step (K3), version-window upkeep
 (K4), the point resolve step (K5), the multiword row search (K6), the
-row compare and shard clip (K7) and the sharded resolve step (K8).
-Each kernel wrapper launches its hand-written CUDA kernel for a CUDA
-tensor and runs its plain PyTorch version for a CPU tensor.
+row compare and shard clip (K7), the sharded resolve step (K8), and
+the bench chains' batch generator (K9) and tally (K10) in
+`bench_chain`. Each kernel wrapper launches its hand-written CUDA
+kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
+tensor.
 """
 
 from .keys import (

@@ -109,6 +109,7 @@ def _build(out_dir: str) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SZ = ctypes.c_size_t
+_U = ctypes.c_uint
 _SIGNATURES = {
     "fdb_error_string": ([_I], ctypes.c_char_p),
     "fdb_searchsorted_i32": ([_P, _I, _P, _I, _I, _P, _P], _I),
@@ -134,6 +135,8 @@ _SIGNATURES = {
                           + [_P, _SZ, _P, _P], _I),
     "fdb_point_resolve_packed": ([_P, _P, _P] + [_I] * 6 + [_P] * 5
                                  + [_P, _SZ, _P, _P], _I),
+    "fdb_chain_gen": ([_P] * 8 + [_I] * 4 + [_U, _U, _P], _I),
+    "fdb_chain_tally": ([_P, _P, _I, _P, _I, _P], _I),
 }
 
 

@@ -567,17 +567,30 @@ def _check_bounds(hk, lows, highs):
 
 
 def _outputs(hk, n_txns, n_reads, attribute, out):
+    """The step's outputs: `out` is (HK', HV') or (HK', HV', count,
+    conflict), the caller's buffers (a bench chain allocates nothing
+    per step); what it leaves out is allocated here."""
     dev = hk.device
     if out is None:
         out = (torch.empty_like(hk), torch.empty(hk.shape[:-1],
                                                  dtype=torch.int32,
                                                  device=dev))
-    hk_out, hv_out = out
+    hk_out, hv_out, *given = out
     _check_history(hk_out, hv_out, hk.dim())
     if hk_out.shape != hk.shape or hk_out.device != dev:
         raise ValueError("output history must have the input's shape")
-    count = torch.empty(hk.shape[:-2], dtype=torch.int32, device=dev)
-    conflict = torch.empty(n_txns, dtype=torch.bool, device=dev)
+    if given:
+        count, conflict = given
+        if count.dtype != torch.int32 or count.shape != hk.shape[:-2] \
+                or conflict.dtype != torch.bool \
+                or tuple(conflict.shape) != (n_txns,) \
+                or not (count.is_contiguous() and conflict.is_contiguous()) \
+                or count.device != dev or conflict.device != dev:
+            raise ValueError("count and conflict buffers must be int32 "
+                             "[S] / bool [T] on the history's device")
+    else:
+        count = torch.empty(hk.shape[:-2], dtype=torch.int32, device=dev)
+        conflict = torch.empty(n_txns, dtype=torch.bool, device=dev)
     read_hit = (torch.empty(n_reads, dtype=torch.bool, device=dev)
                 if attribute else None)
     return hk_out, hv_out, count, conflict, read_hit
@@ -637,9 +650,10 @@ def resolve_step(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
                  attribute: bool = True, out=None):
     """The unpacked entry: K3 on CUDA tensors, the plain version on CPU
     tensors. `out` = (HK', HV') buffers the kernel writes into (the
-    resolver's ping-pong pair); fresh buffers when None. Flags are bool
-    (or 32-bit, nonzero = true); `commit`/`oldest` are 0-d int32
-    tensors on the device or Python ints."""
+    resolver's ping-pong pair), optionally followed by count and
+    conflict buffers; fresh buffers when None. Flags are bool (or
+    32-bit, nonzero = true); `commit`/`oldest` are 0-d int32 tensors on
+    the device or Python ints."""
     if not _device.is_cuda(hk):
         return resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn,
                                   rvalid, wb, we, wtxn, wvalid, commit,

@@ -302,8 +302,8 @@ def point_resolve_step(sk, sv, snap, too_old, rk, rtxn, rvalid,
                        attribute: bool = True, out=None):
     """The unpacked entry: K5 on CUDA tensors, the plain version on CPU
     tensors. `out` = (SK', SV') buffers the kernel writes into (the
-    resolver's ping-pong pair, never the input state); fresh buffers
-    when None. Flags are bool (or 32-bit, nonzero = true); the three
+    resolver's ping-pong pair, never the input state), optionally
+    followed by count and conflict buffers; fresh buffers when None. Flags are bool (or 32-bit, nonzero = true); the three
     scalars are 0-d int32 tensors on the device or Python ints."""
     if not _device.is_cuda(sk):
         return point_resolve_step_plain(sk, sv, snap, too_old, rk, rtxn,
