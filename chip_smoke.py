@@ -163,6 +163,62 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def _device_us(event) -> float:
+    """A profiler row's own device time (the attribute's name moved
+    between PyTorch releases)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def traced_us(fn, reps: int = 50) -> float:
+    """Device time of one call by torch.profiler: every CUDA kernel and
+    copy it launched, summed over `reps` calls, over `reps`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return total / reps
+
+
+def host_profile(tag, label, fn, calls: int = 2000, top: int = 10) -> float:
+    """cProfile of `calls` back-to-back calls of `fn` (launches only:
+    the card keeps up, so this is the host's own time); prints the top
+    entries by own time and returns the host us per call."""
+    import cProfile
+    import pstats
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    per_call = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f"[{tag}] {label} host profile: {per_call:.2f} us a call "
+          f"unprofiled; own time per call by function:", flush=True)
+    for (file, line, name), (_cc, nc, tt, _ct, _callers) in rows:
+        print(f"[{tag}]   {tt / calls * 1e6:8.2f} us  {nc / calls:5.1f}x  "
+              f"{os.path.basename(file)}:{line} {name}", flush=True)
+    return per_call
+
+
 def sectors_touched(lo, hi, n, elem_bytes=4, sector=32) -> int:
     """Distinct 32-byte sectors of an n-element array that the non-empty
     ranges [lo, hi) cover: the least the array's reads must move."""
@@ -334,6 +390,60 @@ def check_edges(dev):
                                           else None for g in got], want)
         if int(want[3].sum()) < 3:
             raise AssertionError("edge batch lost its conflict chain")
+
+
+def check_resolve_edges(dev, tag):
+    """K3 against its plain version on the card, on the adversarial
+    batches of `foundationdb_tpu_torch.testing` at the interval cell's
+    shape (a 2^20-row history, 16,384 transactions, reads and writes,
+    16-byte keys), packed with attribution on and off and unpacked:
+    every output equal."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    import torch
+    t0 = time.perf_counter()
+    conflicts = []
+    for i, kind in enumerate(tg.KINDS):
+        hk, hv, arrays = tg.adversarial_batch(
+            np.random.default_rng(SEED + i), kind, CAPACITY, N_TXNS, N_TXNS,
+            N_TXNS, N_WORDS)
+        buf = torch.from_numpy(ck.pack_interval_batch(
+            *arrays, tg.COMMIT, tg.OLDEST)).to(dev)
+        hk, hv = torch.from_numpy(hk).to(dev), torch.from_numpy(hv).to(dev)
+        unpacked = ck.interval_unpack(buf, N_TXNS, N_TXNS, N_TXNS, N_WORDS)
+        for attribute in (True, False):
+            want = ck.resolve_step_plain(hk, hv, *unpacked,
+                                         attribute=attribute)
+            got = ck.resolve_step_packed(hk, hv, buf, N_TXNS, N_TXNS,
+                                         N_TXNS, attribute=attribute)
+            expect_exact(f"K3 edge {kind} attribute={attribute}", got, want)
+        # `want` is the attribute-free step's, the last of the loop
+        got = ck.resolve_step(hk, hv, *unpacked, attribute=False)
+        expect_exact(f"K3 edge {kind} unpacked", got, want)
+        conflicts.append(int(want[3].sum()))
+    print(f"[{tag}] K3 edge batches at {CAPACITY} rows x {N_TXNS} txns "
+          f"({', '.join(tg.KINDS)}): bit-exact against plain, packed with "
+          f"attribution on and off and unpacked; conflicts {conflicts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def profile_k1(dev, tag) -> dict:
+    """K1 and `torch.searchsorted` on the resolve step's search (a
+    16,384-entry table, 16,386 queries): device time by the profiler,
+    and the host's own time per call with its profile by function."""
+    import torch
+    from foundationdb_tpu_torch.ops import keys
+    table = torch.arange(N_TXNS, dtype=torch.int32, device=dev)
+    q = torch.arange(N_TXNS + 2, dtype=torch.int32, device=dev)
+    return dict(
+        traced_ms=traced_us(lambda: keys.searchsorted_i32(table, q)) / 1e3,
+        library_traced_ms=traced_us(
+            lambda: torch.searchsorted(table, q)) / 1e3,
+        host_us=host_profile(tag, "K1 searchsorted_i32",
+                             lambda: keys.searchsorted_i32(table, q)),
+        library_host_us=host_profile(tag, "torch.searchsorted",
+                                     lambda: torch.searchsorted(table, q),
+                                     top=5))
 
 
 def measure_kernels(dev, mid, batch, version):
@@ -1321,6 +1431,29 @@ def compare_steps(i, snap_interval, snap_sharded) -> int:
     return len(ka)
 
 
+# the steps' phases by kernel name, for `--trace` (first match wins)
+TRACE_PHASES = (
+    ("K3 endpoint sort (its last pass writes the ranks)",
+     ("ep_block_sort", "ep_merge")),
+    ("K3 rank-space overlap (lane tables + matrix)",
+     ("lane_tables", "overlap_rank")),
+    ("K3 survivor compaction", ("surv_count", "surv_place")),
+    ("K8 overlap by row compares", ("overlap_rows",)),
+    ("boundary sort rounds (K8 per shard, K5's writes)",
+     ("ins_build", "sort_round")),
+    ("fixpoint + attribution", ("fixpoint",)),
+    ("merge into the history", ("merge_hist", "merge_ins")),
+    ("cover, GC and compaction scans",
+     ("cover_", "keep_reduce", "compact_kernel", "fill_tail",
+      "scan_tiles")),
+    ("external check (K1, K2 or K6, bounds, flags)",
+     ("searchsorted", "rmq_", "ext_bounds", "ext_flags", "base_kernel")),
+    ("K5 runs, scatters and scans", ("point_",)),
+    ("shard clip (K7)", ("clip",)),
+    ("feed and result copies", ("Memcpy", "memcpy", "Memset", "memset")),
+)
+
+
 def trace_stream(backend, batches, tag) -> None:
     """`--trace`: a torch.profiler window over the streamed main path
     (after 3 untraced warm-up batches). Prints each kernel's share of
@@ -1343,7 +1476,7 @@ def trace_stream(backend, batches, tag) -> None:
         np.asarray(out[-1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+    rows = [(_device_us(e), e.count, e.key)
             for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     rows = sorted([r for r in rows if r[0] > 0], reverse=True)
@@ -1356,6 +1489,16 @@ def trace_stream(backend, batches, tag) -> None:
         print(f"[{tag}] trace: {us / len(window):10.1f} us/batch "
               f"{n / len(window):6.1f} calls/batch  {name[:90]}",
               flush=True)
+    phases = {}
+    for us, n, name in rows:
+        phase = next((p for p, keys in TRACE_PHASES if any(
+            k in name for k in keys)), "other")
+        tot = phases.setdefault(phase, [0.0, 0])
+        tot[0] += us
+        tot[1] += n
+    for phase, (us, n) in sorted(phases.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{tag}] trace phase: {us / len(window):10.1f} us/batch "
+              f"{n / len(window):6.1f} launches/batch  {phase}", flush=True)
 
 
 def main() -> int:
@@ -1392,6 +1535,7 @@ def main() -> int:
 
     check_edges(dev)
     print(f"[{tag}] edge shapes: K1-K4 bit-exact against plain", flush=True)
+    check_resolve_edges(dev, tag)
     check_point_edges(dev)
     print(f"[{tag}] edge shapes: K5, K6 bit-exact against plain",
           flush=True)
@@ -1574,6 +1718,7 @@ def main() -> int:
     nxt = mid_at + 1
     kern = measure_kernels(dev, snaps_a[mid_at], batches[nxt],
                            list(versions())[nxt])
+    kern["searchsorted_i32"].update(profile_k1(dev, tag))
     kern.update(measure_point_kernels(dev, snaps_p[mid_at], batches[nxt],
                                       list(versions())[nxt]))
     shards = sharded_backend(None)
@@ -1661,6 +1806,11 @@ def main() -> int:
             extra += f"; with end rows {m['interval_ms']:.4f} ms"
         if m["library_ms"] is not None:
             extra += f"; library {m['library_ms']:.4f} ms"
+        if "traced_ms" in m:
+            extra += (f"; traced {m['traced_ms']:.4f} ms, library traced "
+                      f"{m['library_traced_ms']:.4f} ms; host "
+                      f"{m['host_us']:.2f} us a call, library "
+                      f"{m['library_host_us']:.2f} us")
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
               f"ms, bound {m['bound_ms']:.6f} ms by "
               f"{m.get('bound_by', 'bytes')}{extra}), launches/batch "

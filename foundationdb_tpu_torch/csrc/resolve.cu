@@ -3,36 +3,54 @@
 // Replaces foundationdb_tpu/ops/conflict_kernel.py:138 make_resolve_core
 // (step :187-425), entered packed (:586 make_resolve_packed_fn, :551
 // make_interval_unpack) or unpacked (:431 make_resolve_fn). It computes
-// the same function, (HK', HV', count, conflict[T], read_hit[R]), but
-// not by the TPU's route: the TPU ranks keys by sorting because its
-// scatters and binary searches are slow; here binary searches into the
-// sorted history and conflict-free scatters are cheap, so
+// the same function, (HK', HV', count, conflict[T], read_hit[R]):
 //   1. external check: one binary search per read bound into HK (the
 //      history is sorted), then K2 range max over HV and K1 for the
 //      per-transaction read segments;
-//   2. intra-batch check: the read x write overlap matrix is built by
-//      direct lexicographic compares (32 writes per uint32 lane, as the
-//      reference packs it), and the antitone fixpoint runs inside ONE
-//      cooperative launch with grid-wide barriers between its phases:
-//      no host round trip per round;
-//   3. attribution: one more masked pass over the matrix at the
-//      fixpoint (skipped when `attribute` is 0);
-//   4. merge: only the 2*Wr boundaries of surviving writes are sorted
-//      (merge rounds, ties broken by original index, which equals the
-//      reference's stable order); a merge-path scatter interleaves them
-//      with the already sorted history, and two tiled scans give the
+//   2. one endpoint sort per step: the batch's N = 2R + 2Wr endpoints
+//      (rb, wb, we, an invalid one as the +inf row, as the reference
+//      does at :255-257, and re) are sorted as records of the key row
+//      and a tag, (key, end-before-begin, index): tiles of 512 records
+//      (pairs sorted in each thread's registers, then merge-path merges
+//      in shared memory), then merge-path rounds across tiles (warp-wide
+//      splits, shared-memory merges); the last pass writes each
+//      endpoint's sorted position. Ends sort before begins on equal
+//      keys, so pos(wb) < pos(re) <=> wb < re and pos(rb) < pos(we) <=>
+//      rb < we for every key, empty and inverted ranges included: the
+//      sorted position is the reference's rank (:271-289) for the two
+//      compares the overlap makes, with no scan;
+//   3. rank-space overlap: the read x write matrix, 32 writes per uint32
+//      lane as the reference packs it, from int32 positions: each lane's
+//      32 writes become a table (their w_lo, w_hi and wtxn sorted, with
+//      prefix and suffix masks), so a read's word is three 6-probe
+//      searches and two ANDs instead of 96 compares (a warp walks one
+//      lane's table for 32 reads at a time); a read whose transaction
+//      precedes every write of the lane writes 0 without searching. The
+//      antitone fixpoint runs inside ONE cooperative launch with
+//      grid-wide barriers between its phases, and attribution is one
+//      more masked pass;
+//   4. merge: a stable compaction of the sorted endpoints keeps the
+//      surviving writes' wb and we, already in key order (the order
+//      among equal keys is free: the output is canonical); the rest of
+//      the 2*Wr boundary slots become +inf rows after them, which only
+//      the never-kept +inf run sees. Each boundary's count of history
+//      rows <= it (one row search) places it, and an int32 search of
+//      those counts places each history row; two tiled scans give the
 //      covering version and the coverage count;
 //   5. GC + compaction: keep flags exactly as the reference computes
-//      them, then a prefix sum and a scatter pack the kept rows; the
-//      tail is filled with +inf / VDEAD.
+//      them, then a prefix sum and a scatter pack the kept rows (a tile
+//      taken in stripes, so a warp moves consecutive rows); the tail is
+//      filled with +inf / VDEAD.
 // The output state is canonical, so it is bit-identical to the
 // reference's. Bound: bytes. The live history rows must be read once
 // and the whole padded history written once (24 bytes per row at W = 4:
 // at cap 2^20 with ~650K live rows, ~16 MB read and 24 MiB written) plus
 // the 1.7 MB feed: ~13 us at 3.35 TB/s (chip_smoke.py computes it from
 // the run's live rows). The dense overlap matrix (R x Wr bits, 32 MiB at
-// the slice's shapes) and its compares are the known excess over that
-// bound, left for a later rank-space formulation.
+// the slice's shapes, written once and read once per fixpoint round)
+// and the scans over the merged rows are the known excess over that
+// bound. Records hold width + 1 words rounded up to 1, 2, 3, 4, 8 or 16
+// uint4s, so the sort takes keys of up to 63 words.
 //
 // K8: the key-range sharded step (fdb_resolve_sharded[_packed]).
 //
@@ -55,7 +73,7 @@
 // shard holding max(rb, wb) sees the overlap), that is iff the unclipped
 // ranges are non-empty (rb < re, wb < we) and overlap. So K8's one
 // matrix is K3's over the unclipped ranges with an empty range counted
-// invalid (overlap_kernel<true>): the OR of the S clipped matrices, bit
+// invalid (overlap_rows_kernel): the OR of the S clipped matrices, bit
 // for bit, on any feed. Bound: bytes, as K3's, over the S shards' rows:
 // each shard's live rows read once, the whole [S, cap] state written
 // once and the feed read once (the clipped ranges are this route's own
@@ -75,9 +93,21 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 8;
 constexpr int TILE = SCAN_THREADS * SCAN_ITEMS;
-constexpr int OV_LANES = 8;    // uint32 lanes (x 32 writes) per block
-constexpr int OV_READS = 128;  // reads per block
+constexpr int OV_LANES = 8;    // K8: uint32 lanes (x 32 writes) per block
+constexpr int OV_READS = 128;  // K8: reads per block
 constexpr int FIX_THREADS = 256;
+constexpr int EP_SORT_THREADS = 256;  // threads of a block-sort block
+// records a block-sort thread holds in registers: a tile of 512 records
+// (a bigger tile saves merge rounds but leaves most SMs idle)
+constexpr int EP_SORT_ITEMS = 2;
+constexpr int EP_TILE = EP_SORT_THREADS * EP_SORT_ITEMS;
+constexpr int SURV_ITEMS = 2;      // sorted endpoints per thread, compaction
+constexpr int SURV_TILE = SCAN_THREADS * SURV_ITEMS;
+constexpr int EP_CHUNK = 512;      // output records per block of a merge
+                                   // (<= EP_TILE: no block straddles pairs)
+constexpr int EP_THREADS = 128;    // threads of a merge block
+constexpr int EP_ITEMS = EP_CHUNK / EP_THREADS;
+constexpr uint32_t BEGIN_BIT = 0x80000000u;
 
 struct In {
   const uint32_t* hk;
@@ -163,13 +193,11 @@ __global__ void base_kernel(In in, const int32_t* rs, const uint8_t* ext_r,
   cb[t] = v;
 }
 
-// ---- 2. overlap matrix ------------------------------------------------------
+// ---- 2. overlap matrix (K8) -------------------------------------------------
 // ovp[r * n_lanes + l] bit b <=> read r overlaps write 32*l + b of an
-// earlier transaction, both valid: wb < re and rb < we. K8's matrix
-// (kNonEmpty) also counts a range as valid only when it is non-empty,
-// as every shard's clip does.
-template <bool kNonEmpty>
-__global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
+// earlier transaction, both valid and non-empty (as every shard's clip
+// counts them): wb < re and rb < we, by direct row compares.
+__global__ void overlap_rows_kernel(In in, int n_lanes, uint32_t* ovp) {
   extern __shared__ uint32_t sm[];
   const int width = in.width, nw = OV_LANES * 32;
   uint32_t* s_wb = sm;
@@ -190,9 +218,8 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
   for (int k = threadIdx.x; k < nw; k += blockDim.x)
     s_wt[(k % 32) * OV_LANES + k / 32] =
         (k < nwr && fdb::flag_at(in.wvalid, w0 + k, in.flag_bytes) &&
-         (!kNonEmpty ||
-          fdb::row_cmp(in.wb + (size_t)(w0 + k) * width,
-                       in.we + (size_t)(w0 + k) * width, width) < 0))
+         fdb::row_cmp(in.wb + (size_t)(w0 + k) * width,
+                      in.we + (size_t)(w0 + k) * width, width) < 0)
             ? in.wtxn[w0 + k] : INT_MAX;  // invalid: never earlier
   __syncthreads();
   int lx = threadIdx.x % OV_LANES, ry = threadIdx.x / OV_LANES;
@@ -207,7 +234,7 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
       const uint32_t* rbr = in.rb + (size_t)r * width;
       const uint32_t* rer = in.re + (size_t)r * width;
       // an empty read: no write is earlier
-      if (kNonEmpty && fdb::row_cmp(rbr, rer, width) >= 0) rt = INT_MIN;
+      if (fdb::row_cmp(rbr, rer, width) >= 0) rt = INT_MIN;
       for (int b = 0; b < 32; ++b) {
         int sl = b * OV_LANES + lx;
         if (s_wt[sl] < rt &&
@@ -217,6 +244,393 @@ __global__ void overlap_kernel(In in, int n_lanes, uint32_t* ovp) {
       }
     }
     ovp[(size_t)r * n_lanes + lane] = bits;
+  }
+}
+
+// ---- 2. (K3) the endpoint sort ----------------------------------------------
+// A record is NV uint4s: the key row (width words), the tag (BEGIN_BIT
+// for rb and wb, or'ed with the endpoint's index g: rb [0, R), wb
+// [R, R+Wr), we [R+Wr, R+2Wr), re [R+2Wr, N)), then zero words. Records
+// compare word by word, so the order is (key, end before begin, g): a
+// total order. The padding record (all ones) sorts after every real one.
+template <int NV>
+struct Rec {
+  uint4 v[NV];
+};
+
+__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
+  if (a.x != b.x) return a.x < b.x ? -1 : 1;
+  if (a.y != b.y) return a.y < b.y ? -1 : 1;
+  if (a.z != b.z) return a.z < b.z ? -1 : 1;
+  if (a.w != b.w) return a.w < b.w ? -1 : 1;
+  return 0;
+}
+
+template <int NV>
+__device__ __forceinline__ bool rec_less(const Rec<NV>& a, const Rec<NV>& b) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    int c = cmp4(a.v[i], b.v[i]);
+    if (c) return c < 0;
+  }
+  return false;
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+template <int NV>
+__device__ __forceinline__ uint32_t rec_tag(const Rec<NV>& r, int width) {
+  uint32_t tag = 0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (width / 4 == i) tag = word_of(r.v[i], width % 4);
+  return tag;
+}
+
+template <int NV>
+__device__ Rec<NV> ep_record(const In& in, int g, int n) {
+  Rec<NV> rec;
+  const int R = in.R, Wr = in.Wr, width = in.width;
+  if (g >= n) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      rec.v[i] = make_uint4(FULL, FULL, FULL, FULL);
+    return rec;
+  }
+  const uint32_t* row;
+  bool inf = false;
+  uint32_t tag = (uint32_t)g;
+  if (g < R) {
+    row = in.rb + (size_t)g * width;
+    inf = !fdb::flag_at(in.rvalid, g, in.flag_bytes);
+    tag |= BEGIN_BIT;
+  } else if (g < R + Wr) {
+    row = in.wb + (size_t)(g - R) * width;
+    inf = !fdb::flag_at(in.wvalid, g - R, in.flag_bytes);
+    tag |= BEGIN_BIT;
+  } else if (g < R + 2 * Wr) {
+    row = in.we + (size_t)(g - R - Wr) * width;
+    inf = !fdb::flag_at(in.wvalid, g - R - Wr, in.flag_bytes);
+  } else {
+    row = in.re + (size_t)(g - R - 2 * Wr) * width;
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    uint32_t x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int k = 4 * i + j;
+      x[j] = k < width ? (inf ? fdb::INF_WORD : row[k])
+                       : (k == width ? tag : 0u);
+    }
+    rec.v[i] = make_uint4(x[0], x[1], x[2], x[3]);
+  }
+  return rec;
+}
+
+// each endpoint's sorted position, by group
+struct Pos {
+  int32_t *r_lo, *r_hi, *w_lo, *w_hi;
+};
+
+__device__ __forceinline__ void ep_place(const In& in, const Pos& P,
+                                         uint32_t tag, int pos) {
+  int g = (int)(tag & ~BEGIN_BIT);
+  const int R = in.R, Wr = in.Wr;
+  if (g < R) P.r_lo[g] = pos;
+  else if (g < R + Wr) P.w_lo[g - R] = pos;
+  else if (g < R + 2 * Wr) P.w_hi[g - R - Wr] = pos;
+  else P.r_hi[g - R - 2 * Wr] = pos;
+}
+
+
+template <int NV>
+__device__ __forceinline__ void ep_cas(Rec<NV>& a, Rec<NV>& b) {
+  if (rec_less(b, a)) {
+    Rec<NV> t = a;
+    a = b;
+    b = t;
+  }
+}
+
+// record i of a block's tile in shared memory: one uint4 of padding after
+// each thread's run of EP_SORT_ITEMS records, so the runs' stores hit
+// every bank
+template <int NV>
+__device__ __forceinline__ Rec<NV>& ep_at(uint4* sm, int i) {
+  return *reinterpret_cast<Rec<NV>*>(sm + i * NV + i / EP_SORT_ITEMS);
+}
+
+// one tile of EP_TILE records: each thread sorts EP_SORT_ITEMS records in
+// registers (odd-even transposition), then runs of EP_SORT_ITEMS,
+// 2 * EP_SORT_ITEMS, ... merge pairwise in shared memory, each thread
+// finding its outputs' merge path by binary search; `last` when the tile
+// is the whole sort
+template <int NV>
+__global__ void __launch_bounds__(EP_SORT_THREADS)
+    ep_block_sort_kernel(In in, int n, Rec<NV>* out, int last, Pos P) {
+  constexpr int ITEMS = EP_SORT_ITEMS;
+  extern __shared__ uint4 ep_sm[];
+  const int tile = EP_TILE, base = blockIdx.x * tile;
+  const int tid = threadIdx.x;
+  for (int k = 0; k < ITEMS; ++k) {
+    int i = k * EP_SORT_THREADS + tid;
+    ep_at<NV>(ep_sm, i) = ep_record<NV>(in, base + i, n);
+  }
+  __syncthreads();
+  Rec<NV> r[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) r[k] = ep_at<NV>(ep_sm, tid * ITEMS + k);
+#pragma unroll
+  for (int p = 0; p < ITEMS; ++p)
+#pragma unroll
+    for (int k = p & 1; k + 1 < ITEMS; k += 2) ep_cas(r[k], r[k + 1]);
+  for (int w = ITEMS; w < tile; w <<= 1) {
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) ep_at<NV>(ep_sm, tid * ITEMS + k) = r[k];
+    __syncthreads();
+    const int d0 = tid * ITEMS, pair = d0 / (2 * w) * (2 * w), d = d0 - pair;
+    int lo = max(0, d - w), hi = min(d, w);
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (rec_less(ep_at<NV>(ep_sm, pair + mid),
+                   ep_at<NV>(ep_sm, pair + w + d - 1 - mid)))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int ai = lo, bi = d - lo;
+    Rec<NV> ha = ep_at<NV>(ep_sm, pair + min(ai, w - 1));
+    Rec<NV> hb = ep_at<NV>(ep_sm, pair + w + min(bi, w - 1));
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if (bi >= w || (ai < w && rec_less(ha, hb))) {
+        r[k] = ha;
+        if (++ai < w) ha = ep_at<NV>(ep_sm, pair + ai);
+      } else {
+        r[k] = hb;
+        if (++bi < w) hb = ep_at<NV>(ep_sm, pair + w + bi);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) ep_at<NV>(ep_sm, tid * ITEMS + k) = r[k];
+  __syncthreads();
+  for (int k = 0; k < ITEMS; ++k) {
+    int i = k * EP_SORT_THREADS + tid;
+    if (base + i >= n) break;
+    const Rec<NV>& rec = ep_at<NV>(ep_sm, i);
+    out[base + i] = rec;
+    if (last) ep_place(in, P, rec_tag(rec, in.width), base + i);
+  }
+}
+
+// merge path: the count of A's records among the first d of merge(A, B),
+// found by one warp 32 probes at a time (every lane returns it)
+template <int NV>
+__device__ int merge_split(const Rec<NV>* A, int la, const Rec<NV>* B,
+                           int lb, int d, int lane) {
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (hi - lo > 32) {
+    int step = (hi - lo + 31) / 32;
+    int m = lo + lane * step;
+    bool p = m < hi && rec_less(A[m], B[d - 1 - m]);
+    int k = __popc(__ballot_sync(FULL, p));
+    if (k == 0) return lo;
+    int mk = lo + k * step;
+    lo += (k - 1) * step + 1;
+    if (mk < hi) hi = mk;
+  }
+  int m = lo + lane;
+  bool p = m < hi && rec_less(A[m], B[d - 1 - m]);
+  return lo + __popc(__ballot_sync(FULL, p));
+}
+
+// one merge round: sorted runs of `run` records pair up; a block writes
+// EP_CHUNK outputs of one pair, merged in shared memory
+template <int NV>
+__global__ void __launch_bounds__(EP_THREADS)
+    ep_merge_kernel(In in, const Rec<NV>* src, Rec<NV>* out, int n, int run,
+                    int last, Pos P) {
+  extern __shared__ uint4 ep_sm[];
+  Rec<NV>* s = reinterpret_cast<Rec<NV>*>(ep_sm);
+  __shared__ int split[2];
+  const int o0 = blockIdx.x * EP_CHUNK, o1 = min(o0 + EP_CHUNK, n);
+  const int p0 = o0 / (2 * run) * (2 * run);
+  const int la = min(run, n - p0), lb = max(0, min(run, n - p0 - run));
+  const Rec<NV>* A = src + p0;
+  const Rec<NV>* B = A + la;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    int a = merge_split(A, la, B, lb, (warp ? o1 : o0) - p0, lane);
+    if (lane == 0) split[warp] = a;
+  }
+  __syncthreads();
+  const int a0 = split[0], b0 = o0 - p0 - a0;
+  const int na = split[1] - a0, nb = o1 - o0 - na;
+  for (int i = threadIdx.x; i < na + nb; i += blockDim.x)
+    s[i] = i < na ? A[a0 + i] : B[b0 + i - na];
+  __syncthreads();
+  const Rec<NV>* sa = s;
+  const Rec<NV>* sb = s + na;
+  int d = threadIdx.x * EP_ITEMS;
+  if (d >= na + nb) return;
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (rec_less(sa[mid], sb[d - 1 - mid])) lo = mid + 1; else hi = mid;
+  }
+  int ai = lo, bi = d - lo;
+  for (int k = 0; k < EP_ITEMS && d + k < na + nb; ++k) {
+    bool take_a = bi >= nb || (ai < na && rec_less(sa[ai], sb[bi]));
+    Rec<NV> r = take_a ? sa[ai++] : sb[bi++];
+    out[o0 + d + k] = r;
+    if (last) ep_place(in, P, rec_tag(r, in.width), o0 + d + k);
+  }
+}
+
+// ---- 2a. (K3) rank-space overlap --------------------------------------------
+// ovp[r * n_lanes + l] bit b <=> read r overlaps write w = 32*l + b of
+// an earlier transaction, both valid: pos(wb) < pos(re) and pos(rb) <
+// pos(we), that is wb < re and rb < we (the reference's :292-294).
+//
+// A lane's 32 writes become a table first: their w_lo, w_hi and wtxn
+// each sorted (an invalid write as w_lo = INT_MAX, w_hi = INT_MIN,
+// wtxn = INT_MAX), with the masks MA[k] (the k smallest w_lo), MB[k]
+// (all but the k smallest w_hi) and MC[k] (the k smallest wtxn). A
+// read's word is then MA[#(w_lo < r_hi)] & MB[#(w_hi <= r_lo)] &
+// MC[#(wtxn < rtxn)]: three 6-probe searches instead of 96 compares.
+constexpr int LT_SL = 0, LT_SH = 32, LT_ST = 64;        // sorted keys
+constexpr int LT_MA = 96, LT_MB = 129, LT_MC = 162;     // 33 masks each
+constexpr int LT_TMIN = 195, LT_TMAX = 196;  // valid wtxn's min and max
+constexpr int LT_STRIDE = 199;  // words a table (odd: no bank conflicts)
+constexpr int OVT_LANES = 8;    // lanes (tables, warps) per overlap block
+constexpr int OVT_CHUNKS = 16;  // 32-read chunks per overlap block
+
+// ascending sort of one (key, idx) per lane across the warp (bitonic)
+__device__ __forceinline__ void warp_sort(int& key, int& idx, int lane) {
+  for (int k = 2; k <= 32; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      int pk = __shfl_xor_sync(FULL, key, j);
+      int pi = __shfl_xor_sync(FULL, idx, j);
+      bool pless = pk < key || (pk == key && pi < idx);
+      bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      if (keep_min ? pless : !pless) {
+        key = pk;
+        idx = pi;
+      }
+    }
+  }
+}
+
+// inclusive OR over lanes <= lane (prefix) or >= lane (suffix)
+__device__ __forceinline__ uint32_t warp_or(uint32_t m, int lane,
+                                            bool prefix) {
+  for (int o = 1; o < 32; o <<= 1) {
+    uint32_t y = prefix ? __shfl_up_sync(FULL, m, o)
+                        : __shfl_down_sync(FULL, m, o);
+    if (prefix ? lane >= o : lane + o < 32) m |= y;
+  }
+  return m;
+}
+
+// one warp per lane: its table (LT_STRIDE words) into tab
+__global__ void lane_tables_kernel(In in, Pos P, int n_lanes, int32_t* tab) {
+  const int l = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int b = threadIdx.x & 31;
+  if (l >= n_lanes) return;  // whole warps
+  const int w = l * 32 + b;
+  const bool ok = w < in.Wr && fdb::flag_at(in.wvalid, w, in.flag_bytes);
+  int32_t* t = tab + (size_t)l * LT_STRIDE;
+  int key = ok ? P.w_lo[w] : INT_MAX, idx = b;
+  warp_sort(key, idx, b);
+  t[LT_SL + b] = key;
+  t[LT_MA + 1 + b] = (int32_t)warp_or(1u << idx, b, true);
+  key = ok ? P.w_hi[w] : INT_MIN;
+  idx = b;
+  warp_sort(key, idx, b);
+  t[LT_SH + b] = key;
+  t[LT_MB + b] = (int32_t)warp_or(1u << idx, b, false);
+  const int wt = ok ? in.wtxn[w] : INT_MAX;
+  key = wt;
+  idx = b;
+  warp_sort(key, idx, b);
+  t[LT_ST + b] = key;
+  t[LT_MC + 1 + b] = (int32_t)warp_or(1u << idx, b, true);
+  int tmin = ok ? wt : INT_MAX, tmax = ok ? wt : INT_MIN;
+  for (int o = 16; o > 0; o >>= 1) {
+    tmin = min(tmin, __shfl_xor_sync(FULL, tmin, o));
+    tmax = max(tmax, __shfl_xor_sync(FULL, tmax, o));
+  }
+  if (b == 0) {
+    t[LT_MA] = 0;
+    t[LT_MB + 32] = 0;
+    t[LT_MC] = 0;
+    t[LT_TMIN] = tmin;
+    t[LT_TMAX] = tmax;
+  }
+}
+
+// #(s[i] < x), or #(s[i] <= x) with `le`, over 32 sorted keys: K1's probe
+// sequence at n = 32
+template <bool LE>
+__device__ __forceinline__ int count_below(const int32_t* s, int x) {
+  int k = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    int v = s[k + step - 1];
+    k += (LE ? v <= x : v < x) ? step : 0;
+  }
+  int v = s[k];
+  return k + ((LE ? v <= x : v < x) ? 1 : 0);
+}
+
+// OVT_LANES tables per block, one a warp; a warp's threads take 32
+// reads at a time, so every search walks one table (no bank conflicts).
+// The words of 32 reads x the block's lanes go out through shared
+// memory, a 32-byte run per read row.
+__global__ void __launch_bounds__(OVT_LANES * 32)
+    overlap_rank_kernel(In in, Pos P, const int32_t* tab, int n_lanes,
+                        uint32_t* ovp) {
+  __shared__ int32_t ot[OVT_LANES * LT_STRIDE];
+  __shared__ uint32_t words[32][OVT_LANES + 1];
+  const int l0 = blockIdx.x * OVT_LANES, nl = min(OVT_LANES, n_lanes - l0);
+  for (int i = threadIdx.x; i < nl * LT_STRIDE; i += blockDim.x)
+    ot[i] = tab[(size_t)l0 * LT_STRIDE + i];
+  __syncthreads();
+  const int wl = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int32_t* tb = ot + wl * LT_STRIDE;
+  const bool has = wl < nl;
+  const int tmin = has ? tb[LT_TMIN] : INT_MAX;
+  const int tmax = has ? tb[LT_TMAX] : INT_MIN;
+  for (int c = 0; c < OVT_CHUNKS; ++c) {
+    const int r0 = (blockIdx.y * OVT_CHUNKS + c) * 32;
+    if (r0 >= in.R) break;
+    const int r = r0 + t;
+    uint32_t bits = 0;
+    if (has && r < in.R && fdb::flag_at(in.rvalid, r, in.flag_bytes)) {
+      const int rt = in.rtxn[r];
+      if (rt > tmin) {
+        bits = (uint32_t)tb[LT_MA + count_below<false>(tb + LT_SL,
+                                                        P.r_hi[r])] &
+               (uint32_t)tb[LT_MB + count_below<true>(tb + LT_SH,
+                                                       P.r_lo[r])];
+        if (rt <= tmax)
+          bits &= (uint32_t)tb[LT_MC + count_below<false>(tb + LT_ST, rt)];
+      }
+    }
+    words[t][wl] = bits;
+    __syncthreads();
+    for (int i = threadIdx.x; i < 32 * OVT_LANES; i += blockDim.x) {
+      int row = i / OVT_LANES, col = i % OVT_LANES;
+      if (col < nl && r0 + row < in.R)
+        ovp[(size_t)(r0 + row) * n_lanes + l0 + col] = words[row][col];
+    }
+    __syncthreads();
   }
 }
 
@@ -315,8 +729,84 @@ __global__ void __launch_bounds__(FIX_THREADS) fixpoint_kernel(Fix f) {
 }
 
 // ---- 3. merge ----------------------------------------------------------------
-// boundary rows of surviving writes: wb with tie 6, we with tie 4; the
-// others become +inf with tie 1 (ops/conflict_kernel.py:348-363)
+// K3: the sorted endpoint with tag `tag` is a boundary of a surviving
+// write (a valid write whose transaction did not conflict); `is_b` says
+// whether it is the write's begin
+__device__ __forceinline__ bool survivor(const In& in, const uint8_t* cfinal,
+                                         uint32_t tag, bool& is_b) {
+  int w = (int)(tag & ~BEGIN_BIT) - in.R;
+  if (w < 0 || w >= 2 * in.Wr) return false;
+  is_b = w < in.Wr;
+  if (!is_b) w -= in.Wr;
+  int t = min(max(in.wtxn[w], 0), in.T);
+  return fdb::flag_at(in.wvalid, w, in.flag_bytes) && cfinal[t] == 0;
+}
+
+// pass A of the compaction: survivors per tile of sorted endpoints
+// (records of `stride` words, the tag at word `width`)
+__global__ void surv_count_kernel(In in, const uint32_t* rec, int stride,
+                                  int n, const uint8_t* cfinal,
+                                  int32_t* agg) {
+  const int base = blockIdx.x * SURV_TILE + threadIdx.x;
+  int cnt = 0;
+#pragma unroll
+  for (int k = 0; k < SURV_ITEMS; ++k) {
+    int p = base + k * SCAN_THREADS;
+    bool is_b;
+    cnt += p < n &&
+           survivor(in, cfinal, rec[(size_t)p * stride + in.width], is_b);
+  }
+  int tot;
+  fdb::block_excl_scan<false>(cnt, tot);
+  if (threadIdx.x == 0) agg[blockIdx.x] = tot;
+}
+
+// pass B: the survivors' rows in sorted order into ins_k (tie 6 for a
+// begin, 4 for an end), then +inf rows with tie 1 up to 2 * Wr
+__global__ void surv_place_kernel(In in, const uint32_t* rec, int stride,
+                                  int n, const uint8_t* cfinal,
+                                  const int32_t* agg, int n_tiles,
+                                  uint32_t* __restrict__ ins_k,
+                                  int32_t* __restrict__ ins_tie) {
+  int before = 0, all = 0;
+  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) {
+    all += agg[k];
+    if (k < (int)blockIdx.x) before += agg[k];
+  }
+  int pre, total;
+  fdb::block_excl_scan<false>(before, pre);
+  fdb::block_excl_scan<false>(all, total);
+  const int base = blockIdx.x * SURV_TILE + threadIdx.x;
+  bool sv[SURV_ITEMS], bg[SURV_ITEMS];
+#pragma unroll
+  for (int k = 0; k < SURV_ITEMS; ++k) {
+    int p = base + k * SCAN_THREADS;
+    bg[k] = false;
+    sv[k] = p < n &&
+            survivor(in, cfinal, rec[(size_t)p * stride + in.width], bg[k]);
+  }
+  // stripe by stripe, so the survivors keep their sorted order
+  int pos = pre;
+  for (int k = 0; k < SURV_ITEMS; ++k) {
+    int tot;
+    int at = pos + fdb::block_excl_scan<false>(sv[k], tot);
+    pos += tot;
+    if (!sv[k]) continue;
+    const uint32_t* r = rec + (size_t)(base + k * SCAN_THREADS) * stride;
+    for (int w = 0; w < in.width; ++w)
+      ins_k[(size_t)at * in.width + w] = r[w];
+    ins_tie[at] = bg[k] ? 6 : 4;
+  }
+  for (int j = total + blockIdx.x * blockDim.x + threadIdx.x; j < 2 * in.Wr;
+       j += gridDim.x * blockDim.x) {
+    for (int w = 0; w < in.width; ++w)
+      ins_k[(size_t)j * in.width + w] = fdb::INF_WORD;
+    ins_tie[j] = 1;
+  }
+}
+
+// K8: boundary rows of surviving writes: wb with tie 6, we with tie 4;
+// the others become +inf with tie 1 (ops/conflict_kernel.py:348-363)
 __global__ void ins_build_kernel(In in, const uint8_t* cfinal,
                                  uint32_t* ins_k, int32_t* ins_tie,
                                  int32_t* idx) {
@@ -371,33 +861,37 @@ __global__ void sort_round_kernel(const uint32_t* ins_k,
   out[min(start, pstart) + (p - start) + lo] = me;
 }
 
-// history row i: preceded by every boundary with (key, tie) < (hk[i], 1)
-__global__ void merge_hist_kernel(In in, const uint32_t* ins_k,
-                                  const int32_t* ins_tie, const int32_t* sidx,
-                                  int n_s, int32_t* src) {
+// sorted boundary j: preceded by every history row with key <= its key
+// (history rows have tie 1 <= every boundary tie, and come first on
+// ties); ub[j] is that count. The boundaries are ins_k's rows in the
+// order sidx gives, or in their own order when sidx is null (K3's
+// compaction leaves them sorted)
+__global__ void merge_ins_kernel(In in, const uint32_t* ins_k,
+                                 const int32_t* sidx, int n_s, int32_t* ub,
+                                 int32_t* src) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_s) return;
+  int e = sidx ? sidx[j] : j;
+  int u = fdb::row_bound(in.hk, in.cap, ins_k + (size_t)e * in.width,
+                         in.width, true);
+  ub[j] = u;
+  src[j + u] = in.cap + e;
+}
+
+// history row i: preceded by every boundary with (key, tie) < (hk[i], 1),
+// that is with key < hk[i]: as the history is sorted, every boundary j
+// with ub[j] <= i. ub is non-decreasing in j, so an int32 search counts
+// them
+__global__ void merge_hist_kernel(In in, const int32_t* ub, int n_s,
+                                  int32_t* src) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.cap) return;
-  const uint32_t* key = in.hk + (size_t)i * in.width;
   int lo = 0, hi = n_s;
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    int e = sidx[mid];
-    int c = fdb::row_cmp(ins_k + (size_t)e * in.width, key, in.width);
-    if (c < 0 || (c == 0 && ins_tie[e] < 1)) lo = mid + 1; else hi = mid;
+    if (ub[mid] <= i) lo = mid + 1; else hi = mid;
   }
   src[i + lo] = i;
-}
-
-// sorted boundary j: preceded by every history row with key <= its key
-// (history rows have tie 1 <= every boundary tie, and come first on ties)
-__global__ void merge_ins_kernel(In in, const uint32_t* ins_k,
-                                 const int32_t* sidx, int n_s, int32_t* src) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_s) return;
-  int e = sidx[j];
-  int ub = fdb::row_bound(in.hk, in.cap, ins_k + (size_t)e * in.width,
-                          in.width, true);
-  src[j + ub] = in.cap + e;
 }
 
 // pass A of the first scan: per tile, the last history-or-masked row
@@ -470,76 +964,113 @@ __device__ bool keep_row(const Merged& m, const int32_t* mv, int p,
   return !fdb::row_is_inf(kp, m.width);
 }
 
+// the keep flags and their count per tile; a tile's rows are taken
+// striped (row k * SCAN_THREADS + t of the tile by thread t), so a warp
+// reads consecutive rows
 __global__ void keep_reduce_kernel(Merged m, const int32_t* mv,
-                                   const int32_t* oldest_p, uint8_t* keepf,
+                                   const int32_t* oldest_p,
+                                   uint8_t* __restrict__ keepf,
                                    int32_t* agg) {
-  int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
+  const int base = blockIdx.x * TILE + threadIdx.x;
   int32_t oldest2 = max(*oldest_p, 0);
+  bool kp[SCAN_ITEMS];
   int cnt = 0;
+#pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k;
-    if (p >= m.mtot) break;
-    bool kp = keep_row(m, mv, p, oldest2);
-    keepf[p] = kp;
-    cnt += kp;
+    int p = base + k * SCAN_THREADS;
+    kp[k] = p < m.mtot && keep_row(m, mv, p, oldest2);
+    cnt += kp[k];
+  }
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    int p = base + k * SCAN_THREADS;
+    if (p < m.mtot) keepf[p] = kp[k];
   }
   int tot;
   fdb::block_excl_scan<false>(cnt, tot);
   if (threadIdx.x == 0) agg[blockIdx.x] = tot;
 }
 
+// the kept rows of a tile, packed from pre[tile] on in merged order: one
+// block scan per stripe of SCAN_THREADS consecutive rows, so the kept
+// rows of a stripe are written side by side
 __global__ void compact_kernel(Merged m, const int32_t* mv,
                                const uint8_t* keepf, const int32_t* pre,
-                               uint32_t* hk_out, int32_t* hv_out) {
-  int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
-  int cnt = 0;
-  for (int k = 0; k < SCAN_ITEMS; ++k)
-    if (base + k < m.mtot) cnt += keepf[base + k];
-  int tot;
-  int pos = pre[blockIdx.x] + fdb::block_excl_scan<false>(cnt, tot);
+                               uint32_t* __restrict__ hk_out,
+                               int32_t* __restrict__ hv_out) {
+  const int base = blockIdx.x * TILE + threadIdx.x;
+  int f[SCAN_ITEMS], at[SCAN_ITEMS];
+#pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k;
-    if (p >= m.mtot || !keepf[p]) continue;
-    if (pos < m.cap) {
+    int p = base + k * SCAN_THREADS;
+    f[k] = p < m.mtot ? keepf[p] : 0;
+  }
+  int pos = pre[blockIdx.x];
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    int tot;
+    at[k] = pos + fdb::block_excl_scan<false>(f[k], tot);
+    pos += tot;
+  }
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    int p = base + k * SCAN_THREADS;
+    if (f[k] && at[k] < m.cap) {
       const uint32_t* kp = m.key(p);
       for (int w = 0; w < m.width; ++w)
-        hk_out[(size_t)pos * m.width + w] = kp[w];
-      hv_out[pos] = mv[p];
+        hk_out[(size_t)at[k] * m.width + w] = kp[w];
+      hv_out[at[k]] = mv[p];
     }
-    ++pos;
   }
 }
 
+// rows [count, cap) of the output become +inf / VDEAD, word by word
 __global__ void fill_tail_kernel(uint32_t* hk_out, int32_t* hv_out, int cap,
                                  int width, const int32_t* count) {
-  int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cap || q < *count) return;
-  for (int w = 0; w < width; ++w) hk_out[(size_t)q * width + w] = fdb::INF_WORD;
-  hv_out[q] = fdb::VDEAD;
+  const long long n0 = min(max(*count, 0), cap);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = n0 * width + t; i < (long long)cap * width; i += step)
+    hk_out[i] = fdb::INF_WORD;
+  for (long long q = n0 + t; q < cap; q += step) hv_out[q] = fdb::VDEAD;
 }
 
 // ---- scratch layout ------------------------------------------------------------
 // per shard: the external read flags; with the clip (K8): the clipped
-// read and write ranges and their flags, 4 bytes a flag at most. K3 is
-// the S = 1 layout without the clip.
+// read and write ranges and their flags, 4 bytes a flag at most, and the
+// boundary sort's index arrays. K3 is the S = 1 layout without the clip,
+// with the endpoint sort's two record buffers and positions instead.
 struct Scratch {
   int32_t *lo, *hi, *vmax, *rs;
   char* rmq;
   uint8_t *ext_r, *base, *ca, *cb, *cfinal, *hit_r, *keepf;
   int* flags;
   uint32_t *alive_p, *ovp, *ins_k;
-  int32_t *ins_tie, *sidx_a, *sidx_b, *src, *mv;
+  int32_t *ins_tie, *sidx_a, *sidx_b, *ub, *src, *mv;
   int32_t *agg_max, *agg_sum, *pre_max, *pre_sum, *agg_keep, *pre_keep;
   uint32_t *crb, *cre, *cwb, *cwe;
   char *crv, *cwv;
+  uint4 *rec_a, *rec_b;
+  Pos pos;
+  int32_t *agg_surv, *lane_tab;
 };
+
+// uint4s per endpoint record (width + 1 words, rounded up), 0 when the
+// keys are too wide for the endpoint sort
+int rec_nv(int width) {
+  static const int kNV[] = {1, 2, 3, 4, 8, 16};
+  int need = (width + 1 + 3) / 4;
+  for (int nv : kNV)
+    if (need <= nv) return nv;
+  return 0;
+}
 
 size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
              int width, int S, bool clip) {
   fdb::Carver c{base, 0};
   int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
   int n_tiles = (mtot + TILE - 1) / TILE;
-  size_t nc = clip ? S : 0;
+  int n_ep = clip ? 0 : 2 * R + 2 * Wr;
+  size_t nc = clip ? S : 0, ns = clip ? n_s : 0;
   s.lo = c.take<int32_t>(R);
   s.hi = c.take<int32_t>(R);
   s.vmax = c.take<int32_t>(R);
@@ -556,8 +1087,9 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.ovp = c.take<uint32_t>((size_t)R * n_lanes);
   s.ins_k = c.take<uint32_t>((size_t)n_s * width);
   s.ins_tie = c.take<int32_t>(n_s);
-  s.sidx_a = c.take<int32_t>(n_s);
-  s.sidx_b = c.take<int32_t>(n_s);
+  s.sidx_a = c.take<int32_t>(ns);
+  s.sidx_b = c.take<int32_t>(ns);
+  s.ub = c.take<int32_t>(n_s);
   s.src = c.take<int32_t>(mtot);
   s.mv = c.take<int32_t>(mtot);
   s.keepf = c.take<uint8_t>(mtot);
@@ -573,15 +1105,73 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.cwe = c.take<uint32_t>(nc * Wr * width);
   s.crv = c.take<char>(nc * R * 4);
   s.cwv = c.take<char>(nc * Wr * 4);
+  size_t rec = clip ? 0 : (size_t)n_ep * rec_nv(width);
+  s.rec_a = c.take<uint4>(rec);
+  s.rec_b = c.take<uint4>(rec);
+  s.pos.r_lo = c.take<int32_t>(clip ? 0 : R);
+  s.pos.r_hi = c.take<int32_t>(clip ? 0 : R);
+  s.pos.w_lo = c.take<int32_t>(clip ? 0 : n_lanes * 32);
+  s.pos.w_hi = c.take<int32_t>(clip ? 0 : n_lanes * 32);
+  s.agg_surv =
+      c.take<int32_t>(clip ? 0 : (n_ep + SURV_TILE - 1) / SURV_TILE);
+  s.lane_tab = c.take<int32_t>(clip ? 0 : (size_t)n_lanes * LT_STRIDE);
   return c.off;
 }
 
-// 3. + 4. for one shard: sort the surviving boundaries, interleave them
-// with the history, cover, then GC and compaction into (hk_out, hv_out)
-int merge_gc(const In& in, const Scratch& s, uint32_t* hk_out,
-             int32_t* hv_out, int32_t* count_out, cudaStream_t st) {
-  const int cap = in.cap, width = in.width, n_s = 2 * in.Wr;
-  const int mtot = cap + n_s, n_tiles = (mtot + TILE - 1) / TILE;
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// K3's endpoint sort: the sorted records land in *sorted, every
+// endpoint's position in s.pos
+template <int NV>
+int endpoint_sort(const In& in, const Scratch& s, const uint4** sorted,
+                  cudaStream_t st) {
+  const int n = 2 * in.R + 2 * in.Wr, tile = EP_TILE;
+  Rec<NV>* cur = reinterpret_cast<Rec<NV>*>(s.rec_a);
+  Rec<NV>* nxt = reinterpret_cast<Rec<NV>*>(s.rec_b);
+  size_t smem = ((size_t)tile * NV + EP_SORT_THREADS) * sizeof(uint4);
+  FDB_TRY(allow_smem(ep_block_sort_kernel<NV>, smem));
+  ep_block_sort_kernel<NV><<<fdb::blocks_for(n, tile), EP_SORT_THREADS, smem,
+                             st>>>(in, n, cur, n <= tile, s.pos);
+  FDB_LAUNCHED();
+  smem = (size_t)EP_CHUNK * sizeof(Rec<NV>);
+  FDB_TRY(allow_smem(ep_merge_kernel<NV>, smem));
+  for (int run = tile; run < n; run <<= 1) {
+    ep_merge_kernel<NV><<<fdb::blocks_for(n, EP_CHUNK), EP_THREADS, smem,
+                          st>>>(in, cur, nxt, n, run, 2 * run >= n, s.pos);
+    FDB_LAUNCHED();
+    Rec<NV>* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  *sorted = reinterpret_cast<const uint4*>(cur);
+  return 0;
+}
+
+int endpoint_sort(const In& in, const Scratch& s, const uint4** sorted,
+                  cudaStream_t st) {
+  switch (rec_nv(in.width)) {
+    case 1: return endpoint_sort<1>(in, s, sorted, st);
+    case 2: return endpoint_sort<2>(in, s, sorted, st);
+    case 3: return endpoint_sort<3>(in, s, sorted, st);
+    case 4: return endpoint_sort<4>(in, s, sorted, st);
+    case 8: return endpoint_sort<8>(in, s, sorted, st);
+    case 16: return endpoint_sort<16>(in, s, sorted, st);
+  }
+  return fdb::ERR_BAD_ARGS;
+}
+
+// K8, per shard: the 2*Wr boundary rows (survivors' wb / we, the rest
+// +inf with tie 1) sorted by merge rounds over (key, tie, index); the
+// order lands in *sidx
+int sort_boundaries(const In& in, const Scratch& s, const int32_t** sidx,
+                    cudaStream_t st) {
+  const int n_s = 2 * in.Wr;
   ins_build_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
       in, s.cfinal, s.ins_k, s.ins_tie, s.sidx_a);
   FDB_LAUNCHED();
@@ -589,17 +1179,44 @@ int merge_gc(const In& in, const Scratch& s, uint32_t* hk_out,
   int32_t* nxt = s.sidx_b;
   for (int run = 1; run < n_s; run <<= 1) {
     sort_round_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
-        s.ins_k, s.ins_tie, width, cur, nxt, n_s, run);
+        s.ins_k, s.ins_tie, in.width, cur, nxt, n_s, run);
     FDB_LAUNCHED();
     int32_t* t = cur;
     cur = nxt;
     nxt = t;
   }
-  merge_hist_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(
-      in, s.ins_k, s.ins_tie, cur, n_s, s.src);
+  *sidx = cur;
+  return 0;
+}
+
+// K3: the survivors' boundaries compacted out of the sorted endpoints
+int compact_survivors(const In& in, const Scratch& s, const uint4* sorted,
+                      cudaStream_t st) {
+  const int n = 2 * in.R + 2 * in.Wr, tiles = fdb::blocks_for(n, SURV_TILE);
+  const int stride = 4 * rec_nv(in.width);
+  const uint32_t* rec = reinterpret_cast<const uint32_t*>(sorted);
+  surv_count_kernel<<<tiles, SCAN_THREADS, 0, st>>>(in, rec, stride, n,
+                                                    s.cfinal, s.agg_surv);
   FDB_LAUNCHED();
+  surv_place_kernel<<<tiles, SCAN_THREADS, 0, st>>>(
+      in, rec, stride, n, s.cfinal, s.agg_surv, tiles, s.ins_k, s.ins_tie);
+  FDB_LAUNCHED();
+  return 0;
+}
+
+// 3. + 4. for one shard: interleave the 2*Wr boundaries (in sidx's order,
+// or sorted as they lie when sidx is null) with the history, cover, then
+// GC and compaction into (hk_out, hv_out)
+int merge_gc(const In& in, const Scratch& s, const int32_t* sidx,
+             uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
+             cudaStream_t st) {
+  const int cap = in.cap, width = in.width, n_s = 2 * in.Wr;
+  const int mtot = cap + n_s, n_tiles = (mtot + TILE - 1) / TILE;
   merge_ins_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
-      in, s.ins_k, cur, n_s, s.src);
+      in, s.ins_k, sidx, n_s, s.ub, s.src);
+  FDB_LAUNCHED();
+  merge_hist_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(in, s.ub, n_s,
+                                                               s.src);
   FDB_LAUNCHED();
   Merged m{in.hk, in.hv, s.ins_k, s.ins_tie, s.src, cap, width, mtot};
   cover_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.agg_max,
@@ -623,8 +1240,8 @@ int merge_gc(const In& in, const Scratch& s, uint32_t* hk_out,
   compact_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, s.keepf,
                                                    s.pre_keep, hk_out, hv_out);
   FDB_LAUNCHED();
-  fill_tail_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(
-      hk_out, hv_out, cap, width, count_out);
+  fill_tail_kernel<<<fdb::blocks_for((long long)cap * width, 256 * 8), 256,
+                     0, st>>>(hk_out, hv_out, cap, width, count_out);
   FDB_LAUNCHED();
   return 0;
 }
@@ -641,8 +1258,8 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   const bool clip = lows != nullptr;
   if (cap < fdb::RMQ_BLOCK || (cap & (cap - 1)) || T < 1 || R < 1 ||
       (R & (R - 1)) || Wr < 1 || width < 1 || S < 1 || (clip && !highs) ||
-      !hk_out || !hv_out || !count_out || !conflict_out ||
-      (attribute && !read_hit_out))
+      (!clip && !rec_nv(width)) || !hk_out || !hv_out || !count_out ||
+      !conflict_out || (attribute && !read_hit_out))
     return fdb::ERR_BAD_ARGS;
   long long unused[3] = {0, 0, 0};
   if (!launches) launches = unused;
@@ -695,19 +1312,31 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
                                                      s.base, s.ca, s.cb, S);
   FDB_LAUNCHED();
 
-  // 2. the overlap matrix of the unclipped ranges (for K8 the OR of the
-  // shards' clipped matrices, see the note above) + fixpoint (+
-  // attribution)
-  auto overlap = clip ? overlap_kernel<true> : overlap_kernel<false>;
-  size_t ov_smem = (size_t)OV_LANES * 32 * (2 * width + 1) * sizeof(uint32_t);
-  if (ov_smem > 48 * 1024)
-    FDB_TRY(cudaFuncSetAttribute(overlap,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)ov_smem));
-  dim3 ov_grid((n_lanes + OV_LANES - 1) / OV_LANES,
-               (R + OV_READS - 1) / OV_READS);
-  overlap<<<ov_grid, 256, ov_smem, st>>>(in, n_lanes, s.ovp);
-  FDB_LAUNCHED();
+  // 2. the overlap matrix: K3's from the endpoint sort's positions; K8's
+  // one matrix of the unclipped ranges (the OR of the shards' clipped
+  // matrices, see the note above) by row compares. Then the fixpoint
+  // (+ attribution).
+  const uint4* sorted = nullptr;
+  if (clip) {
+    size_t ov_smem =
+        (size_t)OV_LANES * 32 * (2 * width + 1) * sizeof(uint32_t);
+    FDB_TRY(allow_smem(overlap_rows_kernel, ov_smem));
+    dim3 ov_grid((n_lanes + OV_LANES - 1) / OV_LANES,
+                 (R + OV_READS - 1) / OV_READS);
+    overlap_rows_kernel<<<ov_grid, 256, ov_smem, st>>>(in, n_lanes, s.ovp);
+    FDB_LAUNCHED();
+  } else {
+    int e = endpoint_sort(in, s, &sorted, st);
+    if (e) return e;
+    lane_tables_kernel<<<fdb::blocks_for((long long)n_lanes * 32, 256), 256,
+                         0, st>>>(in, s.pos, n_lanes, s.lane_tab);
+    FDB_LAUNCHED();
+    dim3 ov_grid((n_lanes + OVT_LANES - 1) / OVT_LANES,
+                 (R + 32 * OVT_CHUNKS - 1) / (32 * OVT_CHUNKS));
+    overlap_rank_kernel<<<ov_grid, OVT_LANES * 32, 0, st>>>(
+        in, s.pos, s.lane_tab, n_lanes, s.ovp);
+    FDB_LAUNCHED();
+  }
   FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
   Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
         s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
@@ -725,9 +1354,18 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   FDB_LAUNCHED();
 
   // 3. + 4. merge, GC and compaction, shard by shard
+  if (!clip) {
+    int e = compact_survivors(in, s, sorted, st);
+    if (!e) e = merge_gc(in, s, nullptr, hk_out, hv_out, count_out, st);
+    return e;
+  }
   for (int k = 0; k < S; ++k) {
-    int e = merge_gc(shard(k), s, hk_out + (size_t)k * cap * width,
-                     hv_out + (size_t)k * cap, count_out + k, st);
+    In x = shard(k);
+    const int32_t* sidx = nullptr;
+    int e = sort_boundaries(x, s, &sidx, st);
+    if (!e)
+      e = merge_gc(x, s, sidx, hk_out + (size_t)k * cap * width,
+                   hv_out + (size_t)k * cap, count_out + k, st);
     if (e) return e;
   }
   return 0;

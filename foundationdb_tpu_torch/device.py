@@ -34,11 +34,20 @@ def resolve(device=None) -> torch.device:
 
 
 def is_cuda(t) -> bool:
-    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+    return isinstance(t, torch.Tensor) and t.is_cuda
 
 
-def stream_handle(dev: torch.device) -> int:
-    """cudaStream_t of PyTorch's current stream on `dev`, as an int."""
+# PyTorch's accessor of the current stream's raw handle (what its own
+# kernel launchers call): no Stream object per launch
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(dev) -> int:
+    """cudaStream_t of PyTorch's current stream on `dev` (a CUDA
+    torch.device, or its index), as an int."""
+    index = dev if isinstance(dev, int) else dev.index
+    if _raw_stream is not None and index is not None:
+        return _raw_stream(index)
     return torch.cuda.current_stream(dev).cuda_stream
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from . import _build
 
 INF_WORD = np.uint32(0xFFFFFFFF)
 
@@ -115,24 +116,25 @@ def searchsorted_i32_plain(table: torch.Tensor, queries: torch.Tensor,
 
 def searchsorted_i32(table: torch.Tensor, queries: torch.Tensor,
                      side: str = "left") -> torch.Tensor:
-    """K1 on a CUDA tensor, the plain version on a CPU tensor."""
-    if side not in ("left", "right"):
+    """K1 on a CUDA tensor, the plain version on a CPU tensor. The card's
+    path is kept short on the host: device indices compare as ints, the
+    output is `empty_like` the queries, the stream is read raw."""
+    if side != "left" and side != "right":
         raise ValueError(f"side must be 'left' or 'right', not {side!r}")
     if not _device.is_cuda(table):
         return searchsorted_i32_plain(table, queries, side)
-    from ._build import check, lib
     n = table.shape[0]
     if table.dtype != torch.int32 or table.dim() != 1 or n & (n - 1) or not n:
         raise ValueError("table must be a 1-D int32 power-of-two array")
-    if queries.device != table.device or queries.dtype != torch.int32:
+    index = table.get_device()
+    if queries.get_device() != index or queries.dtype != torch.int32:
         raise ValueError("queries must be int32 on the table's device")
     table = table.contiguous()
     q = queries.contiguous()
-    out = torch.empty(q.shape, dtype=torch.int32, device=table.device)
-    check(lib().fdb_searchsorted_i32(
-        table.data_ptr(), n, q.data_ptr(), q.numel(),
-        int(side == "right"), out.data_ptr(),
-        _device.stream_handle(table.device)), "searchsorted_i32")
+    out = torch.empty_like(q)
+    _build.check(_build.lib().fdb_searchsorted_i32(
+        table.data_ptr(), n, q.data_ptr(), q.numel(), int(side == "right"),
+        out.data_ptr(), _device.stream_handle(index)), "searchsorted_i32")
     launches["searchsorted_i32"] += 1
     return out
 
