@@ -97,6 +97,7 @@ N_SHARDS = 4
 SHARD_CAPACITY = 1 << 18      # per shard: ~650K live rows split 4 ways
 # the key id sits in the low 8 bytes (make_batch), so the first byte is
 # always 0: the splits are ids 1M, 2M and 3M, the keyspace's quartiles
+SPLIT_IDS = [i * KEYSPACE // N_SHARDS for i in range(1, N_SHARDS)]
 SHARD_SPLITS = [bytes(8) + (i * KEYSPACE // N_SHARDS).to_bytes(8, "big")
                 for i in range(1, N_SHARDS)]
 SHARDED_CPU_BATCHES = 14      # the sharded path's CPU comparison (~2 min)
@@ -427,6 +428,99 @@ def check_resolve_edges(dev, tag):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def check_sharded_kinds(dev, tag):
+    """K8 against its plain version on the card, on every adversarial
+    batch kind of `foundationdb_tpu_torch.testing` (the shard-edge kind
+    among them) at the sharded cell's shape: 4 shards of 2^18 rows split
+    at key ids 1M, 2M and 3M (the kind's keys spread over them, its
+    history sharded there), 16,384 transactions, reads and writes,
+    16-byte keys; packed with attribution on and off and unpacked, from
+    the fresh sharded state and one step later: every output equal."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    import torch
+    t0 = time.perf_counter()
+    T = N_TXNS
+    lows, highs = (torch.from_numpy(b).to(dev)
+                   for b in tg.shard_bounds(SPLIT_IDS, N_WORDS))
+    conflicts = []
+    for i, kind in enumerate(tg.KINDS):
+        hk, hv, arrays = tg.adversarial_batch(
+            np.random.default_rng(SEED + 100 + i), kind, SHARD_CAPACITY, T,
+            T, T, N_WORDS, splits=SPLIT_IDS)
+        hk, hv = tg.shard_history(hk, hv, *tg.shard_bounds(SPLIT_IDS,
+                                                           N_WORDS))
+        for attribute in (True, False):
+            state = (torch.from_numpy(hk).to(dev),
+                     torch.from_numpy(hv).to(dev))
+            for step, commit in enumerate((tg.COMMIT, tg.COMMIT + 20)):
+                buf = torch.from_numpy(ck.pack_interval_batch(
+                    *arrays, commit, tg.OLDEST)).to(dev)
+                unpacked = ck.interval_unpack(buf, T, T, T, N_WORDS)
+                want = ck.resolve_step_sharded_plain(
+                    *state, *unpacked, lows, highs, attribute=attribute)
+                name = f"K8 edge {kind} step {step} attribute={attribute}"
+                expect_exact(name, ck.resolve_step_sharded_packed(
+                    *state, buf, lows, highs, T, T, T, attribute=attribute),
+                    want)
+                expect_exact(f"{name} unpacked", ck.resolve_step_sharded(
+                    *state, *unpacked, lows, highs, attribute=attribute),
+                    want)
+                state = want[:2]
+                if attribute:
+                    conflicts.append(int(want[3].sum()))
+    print(f"[{tag}] K8 edge batches at {N_SHARDS} x {SHARD_CAPACITY} rows x "
+          f"{T} txns ({', '.join(tg.KINDS)}): bit-exact against plain, "
+          f"packed with attribution on and off and unpacked, fresh and one "
+          f"step on; conflicts {conflicts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def check_point_kinds(dev, tag):
+    """K5 against its plain version on the card, on the point batch
+    kinds of `foundationdb_tpu_torch.testing` (every write on one key,
+    every write invalid, +inf-key writes, a tiny alphabet) at the point
+    cell's shape (a 2^19-row state, 16,384 transactions and reads,
+    16-byte keys) with 16,384 writes, one write and 12,289 writes (no
+    power of two): packed with attribution on and off and unpacked, from
+    the kind's state and one step later: every output equal."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops import point_kernel as pk
+    import torch
+    t0 = time.perf_counter()
+    T = R = N_TXNS
+    widths = (N_TXNS, 1, 12_289)
+    conflicts = []
+    for i, kind in enumerate(tg.POINT_KINDS):
+        for Wr in widths:
+            sk, sv, arrays = tg.point_batch(
+                np.random.default_rng(SEED + 200 + i), kind, POINT_CAPACITY,
+                T, R, Wr, N_WORDS)
+            for attribute in (True, False):
+                state = (torch.from_numpy(sk).to(dev),
+                         torch.from_numpy(sv).to(dev))
+                for step, commit in enumerate((tg.COMMIT, tg.COMMIT + 20)):
+                    buf = torch.from_numpy(pk.pack_point_batch(
+                        *arrays, commit, tg.OLDEST, 9)).to(dev)
+                    unpacked = pk.point_unpack(buf, T, R, Wr, N_WORDS)
+                    want = pk.point_resolve_step_plain(
+                        *state, *unpacked, attribute=attribute)
+                    name = (f"K5 edge {kind} Wr={Wr} step {step} "
+                            f"attribute={attribute}")
+                    expect_exact(name, pk.point_resolve_step_packed(
+                        *state, buf, T, R, Wr, attribute=attribute), want)
+                    expect_exact(f"{name} unpacked", pk.point_resolve_step(
+                        *state, *unpacked, attribute=attribute), want)
+                    state = want[:2]
+                    if attribute:
+                        conflicts.append(int(want[3].sum()))
+    print(f"[{tag}] K5 edge batches at {POINT_CAPACITY} rows x {T} txns, "
+          f"Wr in {widths} ({', '.join(tg.POINT_KINDS)}): "
+          f"bit-exact against plain, packed with attribution on and off "
+          f"and unpacked, from the state and one step on; conflicts "
+          f"{conflicts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def profile_k1(dev, tag) -> dict:
     """K1 and `torch.searchsorted` on the resolve step's search (a
     16,384-entry table, 16,386 queries): device time by the profiler,
@@ -679,8 +773,8 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
     unpacked = ck.interval_unpack(buf, T, R, Wr, N_WORDS)
     cpu_bounds = [b.cpu() for b in bounds]
 
-    # K7: the clip of the batch's reads (K8 launches it for the reads
-    # and for the writes)
+    # K7: the clip of the batch's reads (K8 launches it for the reads;
+    # its writes are clipped inside its survivor partition)
     clip_in = (unpacked[2], unpacked[3], unpacked[5])
     got = keys.clip_to_shards(*clip_in, *bounds)
     err = expect_exact("K7", list(got), list(keys.clip_to_shards_plain(
@@ -1433,14 +1527,13 @@ def compare_steps(i, snap_interval, snap_sharded) -> int:
 
 # the steps' phases by kernel name, for `--trace` (first match wins)
 TRACE_PHASES = (
-    ("K3 endpoint sort (its last pass writes the ranks)",
-     ("ep_block_sort", "ep_merge")),
-    ("K3 rank-space overlap (lane tables + matrix)",
+    ("endpoint sort (K3, K8; its last pass writes the ranks)",
+     ("EpLoad", "EpPlace")),
+    ("K5 write sort", ("WLoad", "NoPlace")),
+    ("rank-space overlap (lane tables + matrix)",
      ("lane_tables", "overlap_rank")),
-    ("K3 survivor compaction", ("surv_count", "surv_place")),
-    ("K8 overlap by row compares", ("overlap_rows",)),
-    ("boundary sort rounds (K8 per shard, K5's writes)",
-     ("ins_build", "sort_round")),
+    ("survivor partition (K3: one list; K8: one a shard)",
+     ("part_count", "part_place")),
     ("fixpoint + attribution", ("fixpoint",)),
     ("merge into the history", ("merge_hist", "merge_ins")),
     ("cover, GC and compaction scans",
@@ -1539,9 +1632,11 @@ def main() -> int:
     check_point_edges(dev)
     print(f"[{tag}] edge shapes: K5, K6 bit-exact against plain",
           flush=True)
+    check_point_kinds(dev, tag)
     check_sharded_edges(dev)
     print(f"[{tag}] edge shapes: K7, K8 bit-exact against plain at 1 and "
           f"{N_SHARDS} shards", flush=True)
+    check_sharded_kinds(dev, tag)
     check_chain_edges(dev)
     print(f"[{tag}] edge shapes: K9, K10 bit-exact against plain over 8 "
           f"chained keys", flush=True)

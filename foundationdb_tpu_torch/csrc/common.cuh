@@ -106,10 +106,14 @@ __device__ int block_excl_scan(int v, int& total) {
 namespace {
 
 // exclusive scan of per-tile aggregates by ONE block (launch <<<1, T>>>);
-// the grand reduction to `total` when it is not null
+// the grand reduction to `total` when it is not null. A launch of
+// <<<(1, S), T>>> scans S rows of n aggregates, row y into total[y].
 template <bool MAX>
 __global__ void scan_tiles_kernel(const int32_t* agg, int32_t* pre, int n,
                                   int32_t* total) {
+  agg += (size_t)blockIdx.y * n;
+  pre += (size_t)blockIdx.y * n;
+  if (total) total += blockIdx.y;
   int carry = 0;
   for (int base = 0; base < n; base += blockDim.x) {
     int i = base + threadIdx.x;

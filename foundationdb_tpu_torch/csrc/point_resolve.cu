@@ -17,8 +17,13 @@
 //      exact probe sequence), then one exact row compare and a version
 //      test; K1 gives the per-transaction read segments;
 //   2. intra-batch order: only the writes are sorted, by (key, txn,
-//      slot) in merge rounds. A read hits iff an alive write of its key
-//      has a smaller txn id, which in that order is a prefix
+//      slot), as records in sort.cuh (tiles of 512 records in shared
+//      memory, then merge-path rounds: 5 at 16,384 writes); a pass over
+//      the sorted records gives each write its key's run start (an
+//      adjacent-key compare and a block max scan; a block whose first
+//      key continues a run finds its start by one warp's 32-way search).
+//      A read hits iff an alive write
+//      of its key has a smaller txn id, which in that order is a prefix
 //      [run start, limit) of the key's run, found once by binary
 //      search. This is the reference's "alive write strictly before me
 //      in my (key, txn<<1|is_write) run" without sorting the reads;
@@ -45,14 +50,18 @@
 // Bound: bytes. The live state rows must be read once and the whole
 // padded state written once (24 bytes per row at W = 4; 12 MiB at cap
 // 2^19), plus the ~1.0 MB feed and the flags: chip_smoke.py computes it
-// from the run's live rows. The write sort (log2(Wr) merge rounds) and
-// the per-row binary searches are the known excess over that bound.
+// from the run's live rows. The write sort (a tile pass and
+// log2(Wr / 512) merge rounds, each a latency chain) and the per-row
+// binary searches are the known excess over that bound. Records hold
+// width + 2 words rounded up to 1, 2, 3, 4, 8, 16 or 32 uint4s, so the
+// step takes keys of up to 126 words.
 
 #include <cooperative_groups.h>
 
 #include <climits>
 
 #include "common.cuh"
+#include "sort.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -127,96 +136,116 @@ __global__ void point_base_kernel(
 }
 
 // ---- 2. the writes in (key, txn, slot) order -------------------------------
-__global__ void point_wsort_build_kernel(
-    In in, uint32_t* wsk, int32_t* wtie, int32_t* idx) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= in.Wr) return;
-  bool valid = fdb::flag_at(in.wvalid, j, in.flag_bytes);
-  const uint32_t* row = in.wk + (size_t)j * in.width;
-  for (int k = 0; k < in.width; ++k)
-    wsk[(size_t)j * in.width + k] = valid ? row[k] : fdb::INF_WORD;
-  wtie[j] = valid ? in.wtxn[j] : TIE_INVALID;
-  idx[j] = j;
-}
+// A record is NV uint4s: the key row (the +inf row for an invalid write),
+// the tie (the txn id, TIE_INVALID for an invalid write) with its sign
+// bit flipped, so that the unsigned word orders it as a signed int, the
+// slot, then zero words. sort.cuh's word order is then (key, txn, slot),
+// a total order, and its padding record (all ones) sorts last.
+constexpr uint32_t SIGN = 0x80000000u;
+constexpr int RUN_THREADS = 256;  // sorted positions per block, runs pass
 
-__device__ __forceinline__ int wcmp(const uint32_t* wsk, const int32_t* wtie,
-                                    int width, int a, int b) {
-  int c = fdb::row_cmp(wsk + (size_t)a * width, wsk + (size_t)b * width,
-                       width);
-  if (c) return c;
-  if (wtie[a] != wtie[b]) return wtie[a] < wtie[b] ? -1 : 1;
-  return a < b ? -1 : (a > b ? 1 : 0);
-}
+int rec_nv(int width) { return fdb::rec_uint4s(width + 2); }
 
-// one merge round of a merge sort over the total order (key, tie, slot)
-__global__ void point_sort_round_kernel(
-    const uint32_t* wsk, const int32_t* wtie, int width, const int32_t* in,
-    int32_t* out, int n, int run) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int me = in[p];
-  int rid = p / run, start = rid * run;
-  int pstart = (rid ^ 1) * run;
-  if (pstart >= n) {
-    out[p] = me;
-    return;
+template <int NV>
+struct WLoad {
+  In in;
+  __device__ fdb::Rec<NV> operator()(int j) const {
+    const int width = in.width;
+    const bool valid = fdb::flag_at(in.wvalid, j, in.flag_bytes);
+    const uint32_t* row = in.wk + (size_t)j * width;
+    const uint32_t tie = (uint32_t)(valid ? in.wtxn[j] : TIE_INVALID) ^ SIGN;
+    fdb::Rec<NV> rec;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      uint32_t x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 4 * i + q;
+        x[q] = k < width        ? (valid ? row[k] : fdb::INF_WORD)
+               : k == width     ? tie
+               : k == width + 1 ? (uint32_t)j
+                                : 0u;
+      }
+      rec.v[i] = make_uint4(x[0], x[1], x[2], x[3]);
+    }
+    return rec;
   }
-  int plen = min(run, n - pstart);
-  int lo = 0, hi = plen;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (wcmp(wsk, wtie, width, in[pstart + mid], me) < 0)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  out[min(start, pstart) + (p - start) + lo] = me;
-}
+};
 
-// first sorted position whose key is >= `key` (key words only)
-__device__ int key_lower(const uint32_t* wsk, const int32_t* sidx, int n,
-                         const uint32_t* key, int width) {
+// the sorted writes: sorted position p's key row at rec + p * stride
+struct Sorted {
+  const uint32_t* rec;
+  int stride;
+  __device__ const uint32_t* key(int p) const {
+    return rec + (size_t)p * stride;
+  }
+};
+
+// first sorted position in [0, n) whose key is >= `key` (key words only)
+__device__ int key_lower(const Sorted& ws, int n, const uint32_t* key,
+                         int width) {
   int lo = 0, hi = n;
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    if (fdb::row_cmp(wsk + (size_t)sidx[mid] * width, key, width) < 0)
-      lo = mid + 1;
-    else
-      hi = mid;
+    if (fdb::row_cmp(ws.key(mid), key, width) < 0) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
-// the run (first position of the key) of every sorted write
-__global__ void point_wrun_kernel(
-    const uint32_t* wsk, const int32_t* sidx, int Wr, int width,
-    int32_t* wrun) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Wr) return;
-  wrun[p] = key_lower(wsk, sidx, p, wsk + (size_t)sidx[p] * width, width);
+// every sorted write's tie (stie: its txn id, or TIE_INVALID) and its
+// key's run (wrun: the first sorted position of its key). A block takes
+// RUN_THREADS consecutive positions: a position starts a run where its
+// key differs from the one before it, and a max scan carries the last
+// start forward from the block's first position's own run start (itself
+// when it starts a run, else one warp's search of the positions before)
+__global__ void __launch_bounds__(RUN_THREADS)
+    point_runs_kernel(Sorted ws, int Wr, int width, int32_t* stie,
+                      int32_t* wrun) {
+  __shared__ int carry;
+  const int base = blockIdx.x * RUN_THREADS, p = base + threadIdx.x;
+  if (threadIdx.x < 32) {
+    const uint32_t* key = ws.key(base);
+    const bool head =
+        base == 0 || fdb::row_cmp(ws.key(base - 1), key, width) != 0;
+    const int c =
+        head ? base
+             : fdb::warp_partition_point(
+                   0, base,
+                   [&](int m) {
+                     return fdb::row_cmp(ws.key(m), key, width) < 0;
+                   },
+                   threadIdx.x);
+    if (threadIdx.x == 0) carry = c;
+  }
+  int cand = 0;
+  if (p < Wr) {
+    stie[p] = (int32_t)(ws.key(p)[width] ^ SIGN);
+    if (p > 0 && fdb::row_cmp(ws.key(p - 1), ws.key(p), width) != 0)
+      cand = p;
+  }
+  int tot;
+  const int run = max(fdb::block_excl_scan<true>(cand, tot), cand);
+  if (p < Wr) wrun[p] = max(run, carry);
 }
 
 // each valid read: the run of its key among the writes (-1 if none) and
 // the end of the run's part with a smaller txn id
-__global__ void point_rrun_kernel(
-    In in, const uint32_t* wsk, const int32_t* wtie, const int32_t* sidx,
-    int32_t* rrun, int32_t* rlim) {
+__global__ void point_rrun_kernel(In in, Sorted ws, const int32_t* stie,
+                                  int32_t* rrun, int32_t* rlim) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= in.R) return;
   const int width = in.width;
   const uint32_t* key = in.rk + (size_t)r * width;
   int run = -1, lim = 0;
   if (fdb::flag_at(in.rvalid, r, in.flag_bytes)) {
-    int lb = key_lower(wsk, sidx, in.Wr, key, width);
-    if (lb < in.Wr &&
-        fdb::row_cmp(wsk + (size_t)sidx[lb] * width, key, width) == 0) {
+    int lb = key_lower(ws, in.Wr, key, width);
+    if (lb < in.Wr && fdb::row_cmp(ws.key(lb), key, width) == 0) {
       int rt = in.rtxn[r];
       int lo = lb, hi = in.Wr;
       while (lo < hi) {
         int mid = (lo + hi) >> 1;
-        int e = sidx[mid];
-        int c = fdb::row_cmp(wsk + (size_t)e * width, key, width);
-        if (c < 0 || (c == 0 && wtie[e] < rt)) lo = mid + 1; else hi = mid;
+        int c = fdb::row_cmp(ws.key(mid), key, width);
+        if (c < 0 || (c == 0 && stie[mid] < rt)) lo = mid + 1; else hi = mid;
       }
       run = lb;
       lim = lo;
@@ -229,8 +258,7 @@ __global__ void point_rrun_kernel(
 // ---- 3. the fixpoint, one cooperative launch ------------------------------
 struct Fix {
   int T, R, Wr, attribute;
-  const int32_t* sidx;
-  const int32_t* wtie;
+  const int32_t* stie;
   const int32_t* wrun;
   const int32_t* rrun;
   const int32_t* rlim;
@@ -251,7 +279,7 @@ struct Fix {
 __device__ void mark_alive(const Fix& f, const uint8_t* c, int gtid,
                            int nthr) {
   for (int p = gtid; p < f.Wr; p += nthr) {
-    int tie = f.wtie[f.sidx[p]];
+    int tie = f.stie[p];
     if (tie != TIE_INVALID && c[txn_slot(tie, f.T)] == 0)
       atomicMin(&f.first_alive[f.wrun[p]], p);
   }
@@ -316,21 +344,19 @@ struct LiveFlag {  // state row i survives GC
 };
 
 struct SurvFlag {  // sorted write p survives and sorts at or below VMASK
-  const uint32_t* wk;
-  const int32_t* wtie;
-  const int32_t* sidx;
+  Sorted ws;
+  const int32_t* stie;
   const uint8_t* cfinal;
   const int32_t* commit;
   int T, width;
   __device__ bool survives(int p) const {
-    int tie = wtie[sidx[p]];
+    int tie = stie[p];
     return tie != TIE_INVALID && cfinal[txn_slot(tie, T)] == 0;
   }
   // a surviving (+inf, commit > VMASK) row sorts after every masked row,
   // so it lands past cap: counted, never stored
   __device__ bool past_masks(int p) const {
-    return *commit > VMASK &&
-           fdb::row_is_inf(wk + (size_t)sidx[p] * width, width);
+    return *commit > VMASK && fdb::row_is_inf(ws.key(p), width);
   }
   __device__ int operator()(int p) const {
     return survives(p) && !past_masks(p);
@@ -387,8 +413,7 @@ __device__ __forceinline__ bool row_less(const uint32_t* a, int32_t va,
 // surviving write strictly below it
 __global__ void point_scatter_live_kernel(
     In in, LiveFlag live, const int32_t* live_pre, const int32_t* slist,
-    const int32_t* sidx, const int32_t* n_s_p, uint32_t* sk_out,
-    int32_t* sv_out) {
+    Sorted ws, const int32_t* n_s_p, uint32_t* sk_out, int32_t* sv_out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.cap || !live(i)) return;
   const int width = in.width;
@@ -397,7 +422,7 @@ __global__ void point_scatter_live_kernel(
   int lo = 0, hi = *n_s_p;
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    const uint32_t* w = in.wk + (size_t)sidx[slist[mid]] * width;
+    const uint32_t* w = ws.key(slist[mid]);
     if (row_less(w, commit, key, v, width)) lo = mid + 1; else hi = mid;
   }
   int pos = live_pre[i] + lo;
@@ -409,12 +434,12 @@ __global__ void point_scatter_live_kernel(
 // surviving write k (in key order): after every surviving write before
 // it and every live state row at or below it (state rows win ties)
 __global__ void point_scatter_surv_kernel(
-    In in, const int32_t* live_pre, const int32_t* slist, const int32_t* sidx,
+    In in, const int32_t* live_pre, const int32_t* slist, Sorted ws,
     const int32_t* n_s_p, uint32_t* sk_out, int32_t* sv_out) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= *n_s_p) return;
   const int width = in.width;
-  const uint32_t* key = in.wk + (size_t)sidx[slist[k]] * width;
+  const uint32_t* key = ws.key(slist[k]);
   const int32_t commit = *in.commit;
   int lo = 0, hi = in.cap;  // state rows <= (key, commit): a prefix
   while (lo < hi) {
@@ -445,11 +470,11 @@ __global__ void point_fill_tail_kernel(
 
 // ---- scratch layout -------------------------------------------------------
 struct Scratch {
-  int32_t *rs, *found, *wtie, *sidx_a, *sidx_b, *wrun, *first_alive;
+  int32_t *rs, *found, *stie, *wrun, *first_alive;
   int32_t *rrun, *rlim, *live_pre, *spre, *slist;
   int32_t *agg_live, *pre_live, *agg_surv, *pre_surv;
   uint8_t *ext_r, *init_r, *base, *ca, *cb, *cfinal, *hit_r;
-  uint32_t* wsk;
+  uint4 *rec_a, *rec_b;
   int *flags, *n_past;
 };
 
@@ -468,10 +493,9 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.hit_r = c.take<uint8_t>(R);
   s.flags = c.take<int>(4);
   s.n_past = c.take<int>(1);
-  s.wsk = c.take<uint32_t>((size_t)Wr * width);
-  s.wtie = c.take<int32_t>(Wr);
-  s.sidx_a = c.take<int32_t>(Wr);
-  s.sidx_b = c.take<int32_t>(Wr);
+  s.rec_a = c.take<uint4>((size_t)Wr * rec_nv(width));
+  s.rec_b = c.take<uint4>((size_t)Wr * rec_nv(width));
+  s.stie = c.take<int32_t>(Wr);
   s.wrun = c.take<int32_t>(Wr);
   s.first_alive = c.take<int32_t>(Wr);
   s.rrun = c.take<int32_t>(R);
@@ -486,14 +510,25 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   return c.off;
 }
 
+// the write sort: the sorted records land in *sorted
+int write_sort(const In& in, const Scratch& s, const uint4** sorted,
+               cudaStream_t st) {
+  return fdb::with_rec_uint4s(in.width + 2, [&](auto nv) -> int {
+    constexpr int NV = decltype(nv)::value;
+    FDB_TRY((fdb::rec_sort<NV>(WLoad<NV>{in}, fdb::NoPlace{}, in.Wr,
+                               s.rec_a, s.rec_b, sorted, st)));
+    return 0;
+  });
+}
+
 int point_impl(const In& in, int attribute, uint32_t* sk_out, int32_t* sv_out,
                int32_t* count_out, uint8_t* conflict_out,
                uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
                cudaStream_t st, long long* launches) {
   const int cap = in.cap, T = in.T, R = in.R, Wr = in.Wr, width = in.width;
   if (cap < 1 || (cap & (cap - 1)) || T < 1 || R < 1 || (R & (R - 1)) ||
-      Wr < 1 || width < 1 || !sk_out || !sv_out || !count_out ||
-      !conflict_out || (attribute && !read_hit_out) ||
+      Wr < 1 || width < 1 || !rec_nv(width) || !sk_out || !sv_out ||
+      !count_out || !conflict_out || (attribute && !read_hit_out) ||
       sk_out == in.sk || sv_out == in.sv)
     return fdb::ERR_BAD_ARGS;
   long long unused[2] = {0, 0};
@@ -519,32 +554,23 @@ int point_impl(const In& in, int attribute, uint32_t* sk_out, int32_t* sv_out,
   FDB_LAUNCHED();
 
   // 2. the writes sorted by (key, txn, slot); runs and read limits
-  point_wsort_build_kernel<<<fdb::blocks_for(Wr, 256), 256, 0, st>>>(
-      in, s.wsk, s.wtie, s.sidx_a);
-  FDB_LAUNCHED();
-  int32_t* cur = s.sidx_a;
-  int32_t* nxt = s.sidx_b;
-  for (int run = 1; run < Wr; run <<= 1) {
-    point_sort_round_kernel<<<fdb::blocks_for(Wr, 256), 256, 0, st>>>(
-        s.wsk, s.wtie, width, cur, nxt, Wr, run);
-    FDB_LAUNCHED();
-    int32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  const int32_t* sidx = cur;
-  point_wrun_kernel<<<fdb::blocks_for(Wr, 256), 256, 0, st>>>(
-      s.wsk, sidx, Wr, width, s.wrun);
+  const uint4* sorted = nullptr;
+  int e = write_sort(in, s, &sorted, st);
+  if (e) return e;
+  const Sorted ws{reinterpret_cast<const uint32_t*>(sorted),
+                  4 * rec_nv(width)};
+  point_runs_kernel<<<fdb::blocks_for(Wr, RUN_THREADS), RUN_THREADS, 0,
+                      st>>>(ws, Wr, width, s.stie, s.wrun);
   FDB_LAUNCHED();
   point_rrun_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(
-      in, s.wsk, s.wtie, sidx, s.rrun, s.rlim);
+      in, ws, s.stie, s.rrun, s.rlim);
   FDB_LAUNCHED();
 
   // 3. fixpoint (+ attribution)
   FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
   FDB_TRY(cudaMemsetAsync(s.first_alive, 0x7F, (size_t)Wr * sizeof(int32_t),
                           st));
-  Fix f{T, R, Wr, attribute, sidx, s.wtie, s.wrun, s.rrun, s.rlim, s.rs,
+  Fix f{T, R, Wr, attribute, s.stie, s.wrun, s.rrun, s.rlim, s.rs,
         s.base, s.ext_r, s.init_r, s.first_alive, s.ca, s.cb, s.cfinal,
         s.hit_r, s.flags, conflict_out, read_hit_out};
   int needed = max(max(fdb::blocks_for(R, FIX_THREADS),
@@ -568,7 +594,7 @@ int point_impl(const In& in, int attribute, uint32_t* sk_out, int32_t* sv_out,
   point_tile_apply_kernel<<<tiles_cap, SCAN_THREADS, 0, st>>>(
       live, cap, s.pre_live, s.live_pre, nullptr);
   FDB_LAUNCHED();
-  SurvFlag surv{in.wk, s.wtie, sidx, s.cfinal, in.commit, T, width};
+  SurvFlag surv{ws, s.stie, s.cfinal, in.commit, T, width};
   point_tile_reduce_kernel<<<tiles_w, SCAN_THREADS, 0, st>>>(surv, Wr,
                                                              s.agg_surv);
   FDB_LAUNCHED();
@@ -583,10 +609,10 @@ int point_impl(const In& in, int attribute, uint32_t* sk_out, int32_t* sv_out,
       surv, Wr, s.n_past);
   FDB_LAUNCHED();
   point_scatter_live_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(
-      in, live, s.live_pre, s.slist, sidx, s.spre + Wr, sk_out, sv_out);
+      in, live, s.live_pre, s.slist, ws, s.spre + Wr, sk_out, sv_out);
   FDB_LAUNCHED();
   point_scatter_surv_kernel<<<fdb::blocks_for(Wr, 256), 256, 0, st>>>(
-      in, s.live_pre, s.slist, sidx, s.spre + Wr, sk_out, sv_out);
+      in, s.live_pre, s.slist, ws, s.spre + Wr, sk_out, sv_out);
   FDB_LAUNCHED();
   point_fill_tail_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(
       sk_out, sv_out, cap, width, s.live_pre + cap, s.spre + Wr, s.n_past,

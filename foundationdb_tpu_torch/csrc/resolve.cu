@@ -10,11 +10,11 @@
 //   2. one endpoint sort per step: the batch's N = 2R + 2Wr endpoints
 //      (rb, wb, we, an invalid one as the +inf row, as the reference
 //      does at :255-257, and re) are sorted as records of the key row
-//      and a tag, (key, end-before-begin, index): tiles of 512 records
-//      (pairs sorted in each thread's registers, then merge-path merges
-//      in shared memory), then merge-path rounds across tiles (warp-wide
-//      splits, shared-memory merges); the last pass writes each
-//      endpoint's sorted position. Ends sort before begins on equal
+//      and a tag, (key, end-before-begin, index), by sort.cuh: tiles of
+//      512 records (pairs sorted in each thread's registers, then
+//      merge-path merges in shared memory), then merge-path rounds across
+//      tiles (warp-wide splits, shared-memory merges); the last pass
+//      writes each endpoint's sorted position. Ends sort before begins on equal
 //      keys, so pos(wb) < pos(re) <=> wb < re and pos(rb) < pos(we) <=>
 //      rb < we for every key, empty and inverted ranges included: the
 //      sorted position is the reference's rank (:271-289) for the two
@@ -49,8 +49,8 @@
 // the run's live rows). The dense overlap matrix (R x Wr bits, 32 MiB at
 // the slice's shapes, written once and read once per fixpoint round)
 // and the scans over the merged rows are the known excess over that
-// bound. Records hold width + 1 words rounded up to 1, 2, 3, 4, 8 or 16
-// uint4s, so the sort takes keys of up to 63 words.
+// bound. Records hold width + 1 words rounded up to 1, 2, 3, 4, 8, 16 or
+// 32 uint4s, so the sort takes keys of up to 127 words.
 //
 // K8: the key-range sharded step (fdb_resolve_sharded[_packed]).
 //
@@ -58,13 +58,23 @@
 // _clip_and_resolve_packed and :77 _clip_and_resolve (launched through
 // :334 and :252 under shard_map), with the cross-shard combine of
 // ops/conflict_kernel.py:182-185. The S shards of a [S, cap, W+1]
-// history run in lockstep on one card, through K3's own phase kernels
-// with per-shard pointers: K7 clips the feed's ranges to every shard
-// once; then per shard the external bounds, K2 over that shard's HV and
-// the external read flags, OR-combined per transaction (the psum's
-// counterpart); ONE overlap matrix and ONE cooperative fixpoint, K3's
-// own; then per shard merge, GC and compaction into that shard's output
-// with its own count. The per-shard phases are a host loop of launches.
+// history run in lockstep on one card, through K3's own phase kernels,
+// each per-shard phase ONE launch with the shard in blockIdx.y: K7 clips
+// the feed's reads to every shard once; the external bounds and flags
+// of every shard (K2 over each shard's HV stays a launch a shard),
+// OR-combined per transaction (the psum's counterpart); K3's endpoint
+// sort of the unclipped ranges, ONE rank-space overlap matrix and ONE
+// cooperative fixpoint; then one stable partition of the sorted
+// endpoints gives every shard its survivors' boundaries, each write
+// clipped to the shard (begin max(wb, lo), end min(we, hi)) and kept
+// where the clip is non-empty, as the reference's clip does; then merge,
+// GC and compaction into each shard's output with its own count.
+// The partition keeps the (key, tie) order of a sort of the clipped
+// boundaries: clipping only raises begins to lo and lowers ends to hi,
+// a kept write has wb < hi and we > lo, so the clipped keys stay
+// non-decreasing along the sorted order, and a begin never ties an end
+// that sorted after it. Only the order among identical (key, tie) rows
+// can differ, which the merge, cover, GC and compaction never read.
 // One matrix is exact: the reference's fixpoint rounds and attribution
 // read, per read, only the OR over shards of (ovp_s[r] & alive), which
 // is (OR_s ovp_s[r]) & alive; and a read and a write clipped to shard s
@@ -73,10 +83,13 @@
 // shard holding max(rb, wb) sees the overlap), that is iff the unclipped
 // ranges are non-empty (rb < re, wb < we) and overlap. So K8's one
 // matrix is K3's over the unclipped ranges with an empty range counted
-// invalid (overlap_rows_kernel): the OR of the S clipped matrices, bit
-// for bit, on any feed. Bound: bytes, as K3's, over the S shards' rows:
+// invalid: the OR of the S clipped matrices, bit for bit, on any feed.
+// The sorted positions decide emptiness too (pos(b) < pos(e) <=> b < e),
+// so the rank-space kernels take it as a template flag (kNonEmpty),
+// which K3 leaves off: the reference's single-shard step keeps an
+// inverted range valid. Bound: bytes, as K3's, over the S shards' rows:
 // each shard's live rows read once, the whole [S, cap] state written
-// once and the feed read once (the clipped ranges are this route's own
+// once and the feed read once (the clipped reads are this route's own
 // intermediate, not counted).
 
 #include <cooperative_groups.h>
@@ -84,6 +97,7 @@
 #include <climits>
 
 #include "common.cuh"
+#include "sort.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -93,20 +107,9 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 8;
 constexpr int TILE = SCAN_THREADS * SCAN_ITEMS;
-constexpr int OV_LANES = 8;    // K8: uint32 lanes (x 32 writes) per block
-constexpr int OV_READS = 128;  // K8: reads per block
 constexpr int FIX_THREADS = 256;
-constexpr int EP_SORT_THREADS = 256;  // threads of a block-sort block
-// records a block-sort thread holds in registers: a tile of 512 records
-// (a bigger tile saves merge rounds but leaves most SMs idle)
-constexpr int EP_SORT_ITEMS = 2;
-constexpr int EP_TILE = EP_SORT_THREADS * EP_SORT_ITEMS;
-constexpr int SURV_ITEMS = 2;      // sorted endpoints per thread, compaction
+constexpr int SURV_ITEMS = 2;      // sorted endpoints per thread, partition
 constexpr int SURV_TILE = SCAN_THREADS * SURV_ITEMS;
-constexpr int EP_CHUNK = 512;      // output records per block of a merge
-                                   // (<= EP_TILE: no block straddles pairs)
-constexpr int EP_THREADS = 128;    // threads of a merge block
-constexpr int EP_ITEMS = EP_CHUNK / EP_THREADS;
 constexpr uint32_t BEGIN_BIT = 0x80000000u;
 
 struct In {
@@ -137,6 +140,14 @@ struct Merged {
   const int32_t* ins_tie;
   const int32_t* src;
   int cap, width, mtot;
+  // shard k's slices of the [S, cap] history, the [S, mtot - cap]
+  // boundaries and the [S, mtot] sequence (K3 has the one shard 0)
+  __device__ Merged shard(int k) const {
+    const size_t n_s = mtot - cap;
+    return Merged{hk + (size_t)k * cap * width, hv + (size_t)k * cap,
+                  ins_k + (size_t)k * n_s * width, ins_tie + (size_t)k * n_s,
+                  src + (size_t)k * mtot, cap, width, mtot};
+  }
   __device__ const uint32_t* key(int p) const {
     int s = src[p];
     return s < cap ? hk + (size_t)s * width
@@ -153,20 +164,23 @@ struct Merged {
 };
 
 // ---- 1. external check ----------------------------------------------------
+// shard k = blockIdx.y: its history, and its reads ([S, R] rows and
+// flags, as K7 clips them; K3's one shard reads the feed's)
 __global__ void ext_bounds_kernel(In in, int32_t* lo, int32_t* hi) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.R) return;
-  size_t o = (size_t)i * in.width;
-  lo[i] = fdb::row_bound(in.hk, in.cap, in.rb + o, in.width, true) - 1;
-  hi[i] = fdb::row_bound(in.hk, in.cap, in.re + o, in.width, false);
+  const uint32_t* hk = in.hk + (size_t)k * in.cap * in.width;
+  const size_t q = (size_t)k * in.R + i, o = q * in.width;
+  lo[q] = fdb::row_bound(hk, in.cap, in.rb + o, in.width, true) - 1;
+  hi[q] = fdb::row_bound(hk, in.cap, in.re + o, in.width, false);
 }
 
 __global__ void ext_flags_kernel(In in, const int32_t* vmax, uint8_t* ext_r) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.R) return;
-  int rt = in.rtxn[i];
+  const int q = blockIdx.y * in.R + i, rt = in.rtxn[i];
   int32_t s = (rt >= 0 && rt < in.T) ? in.snap[rt] : fdb::SNAP_CLAMP;
-  ext_r[i] = fdb::flag_at(in.rvalid, i, in.flag_bytes) && vmax[i] > s;
+  ext_r[q] = fdb::flag_at(in.rvalid, q, in.flag_bytes) && vmax[q] > s;
 }
 
 // base_c = ext | too_old, with the pad entry T fixed at 1; K8's ext is
@@ -193,112 +207,17 @@ __global__ void base_kernel(In in, const int32_t* rs, const uint8_t* ext_r,
   cb[t] = v;
 }
 
-// ---- 2. overlap matrix (K8) -------------------------------------------------
-// ovp[r * n_lanes + l] bit b <=> read r overlaps write 32*l + b of an
-// earlier transaction, both valid and non-empty (as every shard's clip
-// counts them): wb < re and rb < we, by direct row compares.
-__global__ void overlap_rows_kernel(In in, int n_lanes, uint32_t* ovp) {
-  extern __shared__ uint32_t sm[];
-  const int width = in.width, nw = OV_LANES * 32;
-  uint32_t* s_wb = sm;
-  uint32_t* s_we = sm + nw * width;
-  int32_t* s_wt = reinterpret_cast<int32_t*>(s_we + nw * width);
-  int w0 = blockIdx.x * nw;
-  int nwr = min(nw, in.Wr - w0);
-  // write w (lane w / 32, bit w % 32) lives in slot (w % 32) * OV_LANES +
-  // w / 32: the OV_LANES threads of a warp that read bit b of their
-  // lanes then touch consecutive slots, so no two hit one bank
-  for (int k = threadIdx.x; k < nw * width; k += blockDim.x) {
-    int w = k / width;
-    int at = ((w % 32) * OV_LANES + w / 32) * width + (k - w * width);
-    bool ok = w < nwr;
-    s_wb[at] = ok ? in.wb[(size_t)w0 * width + k] : 0u;
-    s_we[at] = ok ? in.we[(size_t)w0 * width + k] : 0u;
-  }
-  for (int k = threadIdx.x; k < nw; k += blockDim.x)
-    s_wt[(k % 32) * OV_LANES + k / 32] =
-        (k < nwr && fdb::flag_at(in.wvalid, w0 + k, in.flag_bytes) &&
-         fdb::row_cmp(in.wb + (size_t)(w0 + k) * width,
-                      in.we + (size_t)(w0 + k) * width, width) < 0)
-            ? in.wtxn[w0 + k] : INT_MAX;  // invalid: never earlier
-  __syncthreads();
-  int lx = threadIdx.x % OV_LANES, ry = threadIdx.x / OV_LANES;
-  int lane = blockIdx.x * OV_LANES + lx;
-  int rstep = blockDim.x / OV_LANES;
-  if (lane >= n_lanes) return;
-  for (int r = blockIdx.y * OV_READS + ry;
-       r < min(in.R, (int)(blockIdx.y + 1) * OV_READS); r += rstep) {
-    uint32_t bits = 0;
-    if (fdb::flag_at(in.rvalid, r, in.flag_bytes)) {
-      int rt = in.rtxn[r];
-      const uint32_t* rbr = in.rb + (size_t)r * width;
-      const uint32_t* rer = in.re + (size_t)r * width;
-      // an empty read: no write is earlier
-      if (fdb::row_cmp(rbr, rer, width) >= 0) rt = INT_MIN;
-      for (int b = 0; b < 32; ++b) {
-        int sl = b * OV_LANES + lx;
-        if (s_wt[sl] < rt &&
-            fdb::row_cmp(s_wb + sl * width, rer, width) < 0 &&
-            fdb::row_cmp(rbr, s_we + sl * width, width) < 0)
-          bits |= 1u << b;
-      }
-    }
-    ovp[(size_t)r * n_lanes + lane] = bits;
-  }
-}
-
-// ---- 2. (K3) the endpoint sort ----------------------------------------------
+// ---- 2. the endpoint sort ---------------------------------------------------
 // A record is NV uint4s: the key row (width words), the tag (BEGIN_BIT
 // for rb and wb, or'ed with the endpoint's index g: rb [0, R), wb
 // [R, R+Wr), we [R+Wr, R+2Wr), re [R+2Wr, N)), then zero words. Records
 // compare word by word, so the order is (key, end before begin, g): a
-// total order. The padding record (all ones) sorts after every real one.
+// total order. sort.cuh's padding record (all ones) sorts after every
+// real one.
 template <int NV>
-struct Rec {
-  uint4 v[NV];
-};
-
-__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
-  if (a.x != b.x) return a.x < b.x ? -1 : 1;
-  if (a.y != b.y) return a.y < b.y ? -1 : 1;
-  if (a.z != b.z) return a.z < b.z ? -1 : 1;
-  if (a.w != b.w) return a.w < b.w ? -1 : 1;
-  return 0;
-}
-
-template <int NV>
-__device__ __forceinline__ bool rec_less(const Rec<NV>& a, const Rec<NV>& b) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    int c = cmp4(a.v[i], b.v[i]);
-    if (c) return c < 0;
-  }
-  return false;
-}
-
-__device__ __forceinline__ uint32_t word_of(uint4 v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-template <int NV>
-__device__ __forceinline__ uint32_t rec_tag(const Rec<NV>& r, int width) {
-  uint32_t tag = 0;
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (width / 4 == i) tag = word_of(r.v[i], width % 4);
-  return tag;
-}
-
-template <int NV>
-__device__ Rec<NV> ep_record(const In& in, int g, int n) {
-  Rec<NV> rec;
+__device__ fdb::Rec<NV> ep_record(const In& in, int g) {
+  fdb::Rec<NV> rec;
   const int R = in.R, Wr = in.Wr, width = in.width;
-  if (g >= n) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      rec.v[i] = make_uint4(FULL, FULL, FULL, FULL);
-    return rec;
-  }
   const uint32_t* row;
   bool inf = false;
   uint32_t tag = (uint32_t)g;
@@ -335,168 +254,35 @@ struct Pos {
   int32_t *r_lo, *r_hi, *w_lo, *w_hi;
 };
 
-__device__ __forceinline__ void ep_place(const In& in, const Pos& P,
-                                         uint32_t tag, int pos) {
-  int g = (int)(tag & ~BEGIN_BIT);
-  const int R = in.R, Wr = in.Wr;
-  if (g < R) P.r_lo[g] = pos;
-  else if (g < R + Wr) P.w_lo[g - R] = pos;
-  else if (g < R + 2 * Wr) P.w_hi[g - R - Wr] = pos;
-  else P.r_hi[g - R - 2 * Wr] = pos;
-}
-
-
 template <int NV>
-__device__ __forceinline__ void ep_cas(Rec<NV>& a, Rec<NV>& b) {
-  if (rec_less(b, a)) {
-    Rec<NV> t = a;
-    a = b;
-    b = t;
+struct EpLoad {
+  In in;
+  __device__ fdb::Rec<NV> operator()(int g) const {
+    return ep_record<NV>(in, g);
   }
-}
+};
 
-// record i of a block's tile in shared memory: one uint4 of padding after
-// each thread's run of EP_SORT_ITEMS records, so the runs' stores hit
-// every bank
+// the last pass: the record's endpoint learns its sorted position
 template <int NV>
-__device__ __forceinline__ Rec<NV>& ep_at(uint4* sm, int i) {
-  return *reinterpret_cast<Rec<NV>*>(sm + i * NV + i / EP_SORT_ITEMS);
-}
+struct EpPlace {
+  In in;
+  Pos P;
+  __device__ void operator()(const fdb::Rec<NV>& rec, int pos) const {
+    const int g = (int)(fdb::rec_word(rec, in.width) & ~BEGIN_BIT);
+    const int R = in.R, Wr = in.Wr;
+    if (g < R) P.r_lo[g] = pos;
+    else if (g < R + Wr) P.w_lo[g - R] = pos;
+    else if (g < R + 2 * Wr) P.w_hi[g - R - Wr] = pos;
+    else P.r_hi[g - R - 2 * Wr] = pos;
+  }
+};
 
-// one tile of EP_TILE records: each thread sorts EP_SORT_ITEMS records in
-// registers (odd-even transposition), then runs of EP_SORT_ITEMS,
-// 2 * EP_SORT_ITEMS, ... merge pairwise in shared memory, each thread
-// finding its outputs' merge path by binary search; `last` when the tile
-// is the whole sort
-template <int NV>
-__global__ void __launch_bounds__(EP_SORT_THREADS)
-    ep_block_sort_kernel(In in, int n, Rec<NV>* out, int last, Pos P) {
-  constexpr int ITEMS = EP_SORT_ITEMS;
-  extern __shared__ uint4 ep_sm[];
-  const int tile = EP_TILE, base = blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  for (int k = 0; k < ITEMS; ++k) {
-    int i = k * EP_SORT_THREADS + tid;
-    ep_at<NV>(ep_sm, i) = ep_record<NV>(in, base + i, n);
-  }
-  __syncthreads();
-  Rec<NV> r[ITEMS];
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) r[k] = ep_at<NV>(ep_sm, tid * ITEMS + k);
-#pragma unroll
-  for (int p = 0; p < ITEMS; ++p)
-#pragma unroll
-    for (int k = p & 1; k + 1 < ITEMS; k += 2) ep_cas(r[k], r[k + 1]);
-  for (int w = ITEMS; w < tile; w <<= 1) {
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) ep_at<NV>(ep_sm, tid * ITEMS + k) = r[k];
-    __syncthreads();
-    const int d0 = tid * ITEMS, pair = d0 / (2 * w) * (2 * w), d = d0 - pair;
-    int lo = max(0, d - w), hi = min(d, w);
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (rec_less(ep_at<NV>(ep_sm, pair + mid),
-                   ep_at<NV>(ep_sm, pair + w + d - 1 - mid)))
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    int ai = lo, bi = d - lo;
-    Rec<NV> ha = ep_at<NV>(ep_sm, pair + min(ai, w - 1));
-    Rec<NV> hb = ep_at<NV>(ep_sm, pair + w + min(bi, w - 1));
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      if (bi >= w || (ai < w && rec_less(ha, hb))) {
-        r[k] = ha;
-        if (++ai < w) ha = ep_at<NV>(ep_sm, pair + ai);
-      } else {
-        r[k] = hb;
-        if (++bi < w) hb = ep_at<NV>(ep_sm, pair + w + bi);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) ep_at<NV>(ep_sm, tid * ITEMS + k) = r[k];
-  __syncthreads();
-  for (int k = 0; k < ITEMS; ++k) {
-    int i = k * EP_SORT_THREADS + tid;
-    if (base + i >= n) break;
-    const Rec<NV>& rec = ep_at<NV>(ep_sm, i);
-    out[base + i] = rec;
-    if (last) ep_place(in, P, rec_tag(rec, in.width), base + i);
-  }
-}
-
-// merge path: the count of A's records among the first d of merge(A, B),
-// found by one warp 32 probes at a time (every lane returns it)
-template <int NV>
-__device__ int merge_split(const Rec<NV>* A, int la, const Rec<NV>* B,
-                           int lb, int d, int lane) {
-  int lo = max(0, d - lb), hi = min(d, la);
-  while (hi - lo > 32) {
-    int step = (hi - lo + 31) / 32;
-    int m = lo + lane * step;
-    bool p = m < hi && rec_less(A[m], B[d - 1 - m]);
-    int k = __popc(__ballot_sync(FULL, p));
-    if (k == 0) return lo;
-    int mk = lo + k * step;
-    lo += (k - 1) * step + 1;
-    if (mk < hi) hi = mk;
-  }
-  int m = lo + lane;
-  bool p = m < hi && rec_less(A[m], B[d - 1 - m]);
-  return lo + __popc(__ballot_sync(FULL, p));
-}
-
-// one merge round: sorted runs of `run` records pair up; a block writes
-// EP_CHUNK outputs of one pair, merged in shared memory
-template <int NV>
-__global__ void __launch_bounds__(EP_THREADS)
-    ep_merge_kernel(In in, const Rec<NV>* src, Rec<NV>* out, int n, int run,
-                    int last, Pos P) {
-  extern __shared__ uint4 ep_sm[];
-  Rec<NV>* s = reinterpret_cast<Rec<NV>*>(ep_sm);
-  __shared__ int split[2];
-  const int o0 = blockIdx.x * EP_CHUNK, o1 = min(o0 + EP_CHUNK, n);
-  const int p0 = o0 / (2 * run) * (2 * run);
-  const int la = min(run, n - p0), lb = max(0, min(run, n - p0 - run));
-  const Rec<NV>* A = src + p0;
-  const Rec<NV>* B = A + la;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < 2) {
-    int a = merge_split(A, la, B, lb, (warp ? o1 : o0) - p0, lane);
-    if (lane == 0) split[warp] = a;
-  }
-  __syncthreads();
-  const int a0 = split[0], b0 = o0 - p0 - a0;
-  const int na = split[1] - a0, nb = o1 - o0 - na;
-  for (int i = threadIdx.x; i < na + nb; i += blockDim.x)
-    s[i] = i < na ? A[a0 + i] : B[b0 + i - na];
-  __syncthreads();
-  const Rec<NV>* sa = s;
-  const Rec<NV>* sb = s + na;
-  int d = threadIdx.x * EP_ITEMS;
-  if (d >= na + nb) return;
-  int lo = max(0, d - nb), hi = min(d, na);
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (rec_less(sa[mid], sb[d - 1 - mid])) lo = mid + 1; else hi = mid;
-  }
-  int ai = lo, bi = d - lo;
-  for (int k = 0; k < EP_ITEMS && d + k < na + nb; ++k) {
-    bool take_a = bi >= nb || (ai < na && rec_less(sa[ai], sb[bi]));
-    Rec<NV> r = take_a ? sa[ai++] : sb[bi++];
-    out[o0 + d + k] = r;
-    if (last) ep_place(in, P, rec_tag(r, in.width), o0 + d + k);
-  }
-}
-
-// ---- 2a. (K3) rank-space overlap --------------------------------------------
+// ---- 2a. rank-space overlap -------------------------------------------------
 // ovp[r * n_lanes + l] bit b <=> read r overlaps write w = 32*l + b of
 // an earlier transaction, both valid: pos(wb) < pos(re) and pos(rb) <
-// pos(we), that is wb < re and rb < we (the reference's :292-294).
+// pos(we), that is wb < re and rb < we (the reference's :292-294). With
+// kNonEmpty (K8), a range with pos(b) > pos(e), that is b >= e, counts
+// invalid too, as every shard's clip counts it.
 //
 // A lane's 32 writes become a table first: their w_lo, w_hi and wtxn
 // each sorted (an invalid write as w_lo = INT_MAX, w_hi = INT_MIN,
@@ -539,12 +325,14 @@ __device__ __forceinline__ uint32_t warp_or(uint32_t m, int lane,
 }
 
 // one warp per lane: its table (LT_STRIDE words) into tab
+template <bool kNonEmpty>
 __global__ void lane_tables_kernel(In in, Pos P, int n_lanes, int32_t* tab) {
   const int l = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int b = threadIdx.x & 31;
   if (l >= n_lanes) return;  // whole warps
   const int w = l * 32 + b;
-  const bool ok = w < in.Wr && fdb::flag_at(in.wvalid, w, in.flag_bytes);
+  const bool ok = w < in.Wr && fdb::flag_at(in.wvalid, w, in.flag_bytes) &&
+                  (!kNonEmpty || P.w_lo[w] < P.w_hi[w]);
   int32_t* t = tab + (size_t)l * LT_STRIDE;
   int key = ok ? P.w_lo[w] : INT_MAX, idx = b;
   warp_sort(key, idx, b);
@@ -593,6 +381,7 @@ __device__ __forceinline__ int count_below(const int32_t* s, int x) {
 // reads at a time, so every search walks one table (no bank conflicts).
 // The words of 32 reads x the block's lanes go out through shared
 // memory, a 32-byte run per read row.
+template <bool kNonEmpty>
 __global__ void __launch_bounds__(OVT_LANES * 32)
     overlap_rank_kernel(In in, Pos P, const int32_t* tab, int n_lanes,
                         uint32_t* ovp) {
@@ -612,7 +401,8 @@ __global__ void __launch_bounds__(OVT_LANES * 32)
     if (r0 >= in.R) break;
     const int r = r0 + t;
     uint32_t bits = 0;
-    if (has && r < in.R && fdb::flag_at(in.rvalid, r, in.flag_bytes)) {
+    if (has && r < in.R && fdb::flag_at(in.rvalid, r, in.flag_bytes) &&
+        (!kNonEmpty || P.r_lo[r] < P.r_hi[r])) {
       const int rt = in.rtxn[r];
       if (rt > tmin) {
         bits = (uint32_t)tb[LT_MA + count_below<false>(tb + LT_SL,
@@ -728,164 +518,137 @@ __global__ void __launch_bounds__(FIX_THREADS) fixpoint_kernel(Fix f) {
   }
 }
 
-// ---- 3. merge ----------------------------------------------------------------
-// K3: the sorted endpoint with tag `tag` is a boundary of a surviving
-// write (a valid write whose transaction did not conflict); `is_b` says
-// whether it is the write's begin
-__device__ __forceinline__ bool survivor(const In& in, const uint8_t* cfinal,
-                                         uint32_t tag, bool& is_b) {
-  int w = (int)(tag & ~BEGIN_BIT) - in.R;
-  if (w < 0 || w >= 2 * in.Wr) return false;
+// ---- 3. merge ---------------------------------------------------------------
+// The survivors' boundaries, per shard, out of the one endpoint sort: a
+// stable partition in two passes (counts per tile, then placement).
+struct Part {
+  const uint32_t* rec;  // the sorted endpoints: records of `stride` words
+  int stride, n;
+  const uint8_t* cfinal;
+  const uint32_t* lows;  // K8: the shards' [lo, hi) bounds
+  const uint32_t* highs;
+};
+
+// the row sorted endpoint p puts into shard k's list, or null: a
+// surviving write's (a valid write whose transaction did not conflict)
+// begin or end; K8 (kClip) clips the write to [lows[k], highs[k]) and
+// keeps it only where the clip is non-empty, as the reference's clip
+// does (ops/keys.py clip_to_shards_plain); `is_b` says whether it is
+// the write's begin
+template <bool kClip>
+__device__ const uint32_t* part_row(const In& in, const Part& pt, int p,
+                                    int k, bool& is_b) {
+  const int width = in.width;
+  int w = (int)(pt.rec[(size_t)p * pt.stride + width] & ~BEGIN_BIT) - in.R;
+  if (w < 0 || w >= 2 * in.Wr) return nullptr;
   is_b = w < in.Wr;
   if (!is_b) w -= in.Wr;
-  int t = min(max(in.wtxn[w], 0), in.T);
-  return fdb::flag_at(in.wvalid, w, in.flag_bytes) && cfinal[t] == 0;
+  const int t = min(max(in.wtxn[w], 0), in.T);
+  if (!fdb::flag_at(in.wvalid, w, in.flag_bytes) || pt.cfinal[t])
+    return nullptr;
+  const uint32_t* b = in.wb + (size_t)w * width;
+  const uint32_t* e = in.we + (size_t)w * width;
+  if (kClip) {
+    const uint32_t* lo = pt.lows + (size_t)k * width;
+    const uint32_t* hi = pt.highs + (size_t)k * width;
+    if (fdb::row_cmp(b, lo, width) < 0) b = lo;
+    if (fdb::row_cmp(hi, e, width) < 0) e = hi;
+    if (fdb::row_cmp(b, e, width) >= 0) return nullptr;
+  }
+  return is_b ? b : e;
 }
 
-// pass A of the compaction: survivors per tile of sorted endpoints
-// (records of `stride` words, the tag at word `width`)
-__global__ void surv_count_kernel(In in, const uint32_t* rec, int stride,
-                                  int n, const uint8_t* cfinal,
-                                  int32_t* agg) {
-  const int base = blockIdx.x * SURV_TILE + threadIdx.x;
+// pass A: shard k = blockIdx.y's survivors per tile of sorted endpoints
+template <bool kClip>
+__global__ void part_count_kernel(In in, Part pt, int32_t* agg) {
+  const int k = blockIdx.y, base = blockIdx.x * SURV_TILE + threadIdx.x;
   int cnt = 0;
 #pragma unroll
-  for (int k = 0; k < SURV_ITEMS; ++k) {
-    int p = base + k * SCAN_THREADS;
+  for (int i = 0; i < SURV_ITEMS; ++i) {
+    int p = base + i * SCAN_THREADS;
     bool is_b;
-    cnt += p < n &&
-           survivor(in, cfinal, rec[(size_t)p * stride + in.width], is_b);
+    cnt += p < pt.n && part_row<kClip>(in, pt, p, k, is_b) != nullptr;
   }
   int tot;
   fdb::block_excl_scan<false>(cnt, tot);
-  if (threadIdx.x == 0) agg[blockIdx.x] = tot;
+  if (threadIdx.x == 0) agg[k * gridDim.x + blockIdx.x] = tot;
 }
 
-// pass B: the survivors' rows in sorted order into ins_k (tie 6 for a
-// begin, 4 for an end), then +inf rows with tie 1 up to 2 * Wr
-__global__ void surv_place_kernel(In in, const uint32_t* rec, int stride,
-                                  int n, const uint8_t* cfinal,
-                                  const int32_t* agg, int n_tiles,
+// pass B: shard k's survivor rows in sorted order into its 2 * Wr slots
+// of ins_k (tie 6 for a begin, 4 for an end), then +inf rows with tie 1,
+// which only the never-kept +inf run sees
+template <bool kClip>
+__global__ void part_place_kernel(In in, Part pt, const int32_t* agg,
                                   uint32_t* __restrict__ ins_k,
                                   int32_t* __restrict__ ins_tie) {
+  const int k = blockIdx.y, n_tiles = gridDim.x, n_s = 2 * in.Wr;
+  const int width = in.width;
+  agg += k * n_tiles;
+  ins_k += (size_t)k * n_s * width;
+  ins_tie += (size_t)k * n_s;
   int before = 0, all = 0;
-  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) {
-    all += agg[k];
-    if (k < (int)blockIdx.x) before += agg[k];
+  for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) {
+    all += agg[i];
+    if (i < (int)blockIdx.x) before += agg[i];
   }
   int pre, total;
   fdb::block_excl_scan<false>(before, pre);
   fdb::block_excl_scan<false>(all, total);
   const int base = blockIdx.x * SURV_TILE + threadIdx.x;
-  bool sv[SURV_ITEMS], bg[SURV_ITEMS];
+  const uint32_t* row[SURV_ITEMS];
+  bool bg[SURV_ITEMS];
 #pragma unroll
-  for (int k = 0; k < SURV_ITEMS; ++k) {
-    int p = base + k * SCAN_THREADS;
-    bg[k] = false;
-    sv[k] = p < n &&
-            survivor(in, cfinal, rec[(size_t)p * stride + in.width], bg[k]);
+  for (int i = 0; i < SURV_ITEMS; ++i) {
+    int p = base + i * SCAN_THREADS;
+    bg[i] = false;
+    row[i] = p < pt.n ? part_row<kClip>(in, pt, p, k, bg[i]) : nullptr;
   }
   // stripe by stripe, so the survivors keep their sorted order
   int pos = pre;
-  for (int k = 0; k < SURV_ITEMS; ++k) {
+  for (int i = 0; i < SURV_ITEMS; ++i) {
     int tot;
-    int at = pos + fdb::block_excl_scan<false>(sv[k], tot);
+    int at = pos + fdb::block_excl_scan<false>(row[i] != nullptr, tot);
     pos += tot;
-    if (!sv[k]) continue;
-    const uint32_t* r = rec + (size_t)(base + k * SCAN_THREADS) * stride;
-    for (int w = 0; w < in.width; ++w)
-      ins_k[(size_t)at * in.width + w] = r[w];
-    ins_tie[at] = bg[k] ? 6 : 4;
+    if (!row[i]) continue;
+    for (int w = 0; w < width; ++w)
+      ins_k[(size_t)at * width + w] = row[i][w];
+    ins_tie[at] = bg[i] ? 6 : 4;
   }
-  for (int j = total + blockIdx.x * blockDim.x + threadIdx.x; j < 2 * in.Wr;
+  for (int j = total + blockIdx.x * blockDim.x + threadIdx.x; j < n_s;
        j += gridDim.x * blockDim.x) {
-    for (int w = 0; w < in.width; ++w)
-      ins_k[(size_t)j * in.width + w] = fdb::INF_WORD;
+    for (int w = 0; w < width; ++w)
+      ins_k[(size_t)j * width + w] = fdb::INF_WORD;
     ins_tie[j] = 1;
   }
 }
 
-// K8: boundary rows of surviving writes: wb with tie 6, we with tie 4;
-// the others become +inf with tie 1 (ops/conflict_kernel.py:348-363)
-__global__ void ins_build_kernel(In in, const uint8_t* cfinal,
-                                 uint32_t* ins_k, int32_t* ins_tie,
-                                 int32_t* idx) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= 2 * in.Wr) return;
-  bool is_b = j < in.Wr;
-  int w = is_b ? j : j - in.Wr;
-  int t = min(max(in.wtxn[w], 0), in.T);
-  bool surv = fdb::flag_at(in.wvalid, w, in.flag_bytes) && cfinal[t] == 0;
-  const uint32_t* row = (is_b ? in.wb : in.we) + (size_t)w * in.width;
-  for (int k = 0; k < in.width; ++k)
-    ins_k[(size_t)j * in.width + k] = surv ? row[k] : fdb::INF_WORD;
-  ins_tie[j] = surv ? (is_b ? 6 : 4) : 1;
-  idx[j] = j;
-}
-
-__device__ __forceinline__ int ins_cmp(const uint32_t* ins_k,
-                                       const int32_t* ins_tie, int width,
-                                       int a, int b) {
-  int c = fdb::row_cmp(ins_k + (size_t)a * width, ins_k + (size_t)b * width,
-                       width);
-  if (c) return c;
-  if (ins_tie[a] != ins_tie[b]) return ins_tie[a] < ins_tie[b] ? -1 : 1;
-  return a < b ? -1 : (a > b ? 1 : 0);
-}
-
-// one merge round of a merge sort over a total order (key, tie, index):
-// runs of `run` sorted elements pair up; an element lands at its offset
-// in its run plus the count of smaller elements in the partner run
-__global__ void sort_round_kernel(const uint32_t* ins_k,
-                                  const int32_t* ins_tie, int width,
-                                  const int32_t* in, int32_t* out, int n,
-                                  int run) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int me = in[p];
-  int rid = p / run, start = rid * run;
-  int pstart = (rid ^ 1) * run;
-  if (pstart >= n) {
-    out[p] = me;
-    return;
-  }
-  int plen = min(run, n - pstart);
-  int lo = 0, hi = plen;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (ins_cmp(ins_k, ins_tie, width, in[pstart + mid], me) < 0)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  out[min(start, pstart) + (p - start) + lo] = me;
-}
-
-// sorted boundary j: preceded by every history row with key <= its key
-// (history rows have tie 1 <= every boundary tie, and come first on
-// ties); ub[j] is that count. The boundaries are ins_k's rows in the
-// order sidx gives, or in their own order when sidx is null (K3's
-// compaction leaves them sorted)
-__global__ void merge_ins_kernel(In in, const uint32_t* ins_k,
-                                 const int32_t* sidx, int n_s, int32_t* ub,
-                                 int32_t* src) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
+// From here on every kernel runs shard blockIdx.y of a launch over the
+// shards (K3: one), on its slices of the [S, ...] buffers.
+//
+// sorted boundary j (ins_k's rows are sorted): preceded by every
+// history row with key <= its key (history rows have tie 1 <= every
+// boundary tie, and come first on ties); ub[j] is that count
+__global__ void merge_ins_kernel(Merged m0, int32_t* ub, int32_t* src) {
+  const int shard = blockIdx.y, n_s = m0.mtot - m0.cap;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n_s) return;
-  int e = sidx ? sidx[j] : j;
-  int u = fdb::row_bound(in.hk, in.cap, ins_k + (size_t)e * in.width,
-                         in.width, true);
-  ub[j] = u;
-  src[j + u] = in.cap + e;
+  const Merged m = m0.shard(shard);
+  int u = fdb::row_bound(m.hk, m.cap, m.ins_k + (size_t)j * m.width, m.width,
+                         true);
+  ub[(size_t)shard * n_s + j] = u;
+  src[(size_t)shard * m.mtot + j + u] = m.cap + j;
 }
 
 // history row i: preceded by every boundary with (key, tie) < (hk[i], 1),
 // that is with key < hk[i]: as the history is sorted, every boundary j
 // with ub[j] <= i. ub is non-decreasing in j, so an int32 search counts
 // them
-__global__ void merge_hist_kernel(In in, const int32_t* ub, int n_s,
+__global__ void merge_hist_kernel(int cap, int n_s, const int32_t* ub,
                                   int32_t* src) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= in.cap) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cap) return;
+  ub += (size_t)blockIdx.y * n_s;
+  src += (size_t)blockIdx.y * (cap + n_s);
   int lo = 0, hi = n_s;
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
@@ -896,8 +659,10 @@ __global__ void merge_hist_kernel(In in, const int32_t* ub, int n_s,
 
 // pass A of the first scan: per tile, the last history-or-masked row
 // (max index) and the coverage delta sum
-__global__ void cover_reduce_kernel(Merged m, int32_t* agg_max,
+__global__ void cover_reduce_kernel(Merged m0, int32_t* agg_max,
                                     int32_t* agg_sum) {
+  const Merged m = m0.shard(blockIdx.y);
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
   int tmax = 0, tsum = 0;
   for (int k = 0; k < SCAN_ITEMS; ++k) {
@@ -910,16 +675,19 @@ __global__ void cover_reduce_kernel(Merged m, int32_t* agg_max,
   fdb::block_excl_scan<true>(tmax, totm);
   fdb::block_excl_scan<false>(tsum, tots);
   if (threadIdx.x == 0) {
-    agg_max[blockIdx.x] = totm;
-    agg_sum[blockIdx.x] = tots;
+    agg_max[tile] = totm;
+    agg_sum[tile] = tots;
   }
 }
 
 // pass B: covering version (carry-last over history rows) and coverage
 // (inclusive delta sum) per merged row; covered rows take the commit
-__global__ void cover_apply_kernel(Merged m, const int32_t* pre_max,
+__global__ void cover_apply_kernel(Merged m0, const int32_t* pre_max,
                                    const int32_t* pre_sum,
                                    const int32_t* commit_p, int32_t* mv) {
+  const Merged m = m0.shard(blockIdx.y);
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  mv += (size_t)blockIdx.y * m.mtot;
   int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
   int cand[SCAN_ITEMS], d[SCAN_ITEMS];
   int tmax = 0, tsum = 0;
@@ -935,9 +703,8 @@ __global__ void cover_apply_kernel(Merged m, const int32_t* pre_max,
     tsum += d[k];
   }
   int totm, tots;
-  int runm =
-      max(pre_max[blockIdx.x], fdb::block_excl_scan<true>(tmax, totm));
-  int runs = pre_sum[blockIdx.x] + fdb::block_excl_scan<false>(tsum, tots);
+  int runm = max(pre_max[tile], fdb::block_excl_scan<true>(tmax, totm));
+  int runs = pre_sum[tile] + fdb::block_excl_scan<false>(tsum, tots);
   const int32_t commit = *commit_p;
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     int p = base + k;
@@ -950,7 +717,7 @@ __global__ void cover_apply_kernel(Merged m, const int32_t* pre_max,
   }
 }
 
-// ---- 4. GC + compaction ------------------------------------------------------
+// ---- 4. GC + compaction -----------------------------------------------------
 __device__ bool keep_row(const Merged& m, const int32_t* mv, int p,
                          int32_t oldest2) {
   const uint32_t* kp = m.key(p);
@@ -967,10 +734,13 @@ __device__ bool keep_row(const Merged& m, const int32_t* mv, int p,
 // the keep flags and their count per tile; a tile's rows are taken
 // striped (row k * SCAN_THREADS + t of the tile by thread t), so a warp
 // reads consecutive rows
-__global__ void keep_reduce_kernel(Merged m, const int32_t* mv,
+__global__ void keep_reduce_kernel(Merged m0, const int32_t* mv,
                                    const int32_t* oldest_p,
                                    uint8_t* __restrict__ keepf,
                                    int32_t* agg) {
+  const Merged m = m0.shard(blockIdx.y);
+  mv += (size_t)blockIdx.y * m.mtot;
+  keepf += (size_t)blockIdx.y * m.mtot;
   const int base = blockIdx.x * TILE + threadIdx.x;
   int32_t oldest2 = max(*oldest_p, 0);
   bool kp[SCAN_ITEMS];
@@ -988,16 +758,21 @@ __global__ void keep_reduce_kernel(Merged m, const int32_t* mv,
   }
   int tot;
   fdb::block_excl_scan<false>(cnt, tot);
-  if (threadIdx.x == 0) agg[blockIdx.x] = tot;
+  if (threadIdx.x == 0) agg[blockIdx.y * gridDim.x + blockIdx.x] = tot;
 }
 
 // the kept rows of a tile, packed from pre[tile] on in merged order: one
 // block scan per stripe of SCAN_THREADS consecutive rows, so the kept
 // rows of a stripe are written side by side
-__global__ void compact_kernel(Merged m, const int32_t* mv,
+__global__ void compact_kernel(Merged m0, const int32_t* mv,
                                const uint8_t* keepf, const int32_t* pre,
                                uint32_t* __restrict__ hk_out,
                                int32_t* __restrict__ hv_out) {
+  const Merged m = m0.shard(blockIdx.y);
+  mv += (size_t)blockIdx.y * m.mtot;
+  keepf += (size_t)blockIdx.y * m.mtot;
+  hk_out += (size_t)blockIdx.y * m.cap * m.width;
+  hv_out += (size_t)blockIdx.y * m.cap;
   const int base = blockIdx.x * TILE + threadIdx.x;
   int f[SCAN_ITEMS], at[SCAN_ITEMS];
 #pragma unroll
@@ -1005,7 +780,7 @@ __global__ void compact_kernel(Merged m, const int32_t* mv,
     int p = base + k * SCAN_THREADS;
     f[k] = p < m.mtot ? keepf[p] : 0;
   }
-  int pos = pre[blockIdx.x];
+  int pos = pre[blockIdx.y * gridDim.x + blockIdx.x];
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     int tot;
     at[k] = pos + fdb::block_excl_scan<false>(f[k], tot);
@@ -1026,7 +801,9 @@ __global__ void compact_kernel(Merged m, const int32_t* mv,
 // rows [count, cap) of the output become +inf / VDEAD, word by word
 __global__ void fill_tail_kernel(uint32_t* hk_out, int32_t* hv_out, int cap,
                                  int width, const int32_t* count) {
-  const long long n0 = min(max(*count, 0), cap);
+  hk_out += (size_t)blockIdx.y * cap * width;
+  hv_out += (size_t)blockIdx.y * cap;
+  const long long n0 = min(max(count[blockIdx.y], 0), cap);
   const long long step = (long long)gridDim.x * blockDim.x;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   for (long long i = n0 * width + t; i < (long long)cap * width; i += step)
@@ -1034,21 +811,20 @@ __global__ void fill_tail_kernel(uint32_t* hk_out, int32_t* hv_out, int cap,
   for (long long q = n0 + t; q < cap; q += step) hv_out[q] = fdb::VDEAD;
 }
 
-// ---- scratch layout ------------------------------------------------------------
-// per shard: the external read flags; with the clip (K8): the clipped
-// read and write ranges and their flags, 4 bytes a flag at most, and the
-// boundary sort's index arrays. K3 is the S = 1 layout without the clip,
-// with the endpoint sort's two record buffers and positions instead.
+// ---- scratch layout ---------------------------------------------------------
+// per shard: the external bounds and flags and every buffer of the merge;
+// with the clip (K8): the clipped reads and their flags, 4 bytes a flag
+// at most. K3 is the S = 1 layout without the clip.
 struct Scratch {
   int32_t *lo, *hi, *vmax, *rs;
   char* rmq;
   uint8_t *ext_r, *base, *ca, *cb, *cfinal, *hit_r, *keepf;
   int* flags;
   uint32_t *alive_p, *ovp, *ins_k;
-  int32_t *ins_tie, *sidx_a, *sidx_b, *ub, *src, *mv;
+  int32_t *ins_tie, *ub, *src, *mv;
   int32_t *agg_max, *agg_sum, *pre_max, *pre_sum, *agg_keep, *pre_keep;
-  uint32_t *crb, *cre, *cwb, *cwe;
-  char *crv, *cwv;
+  uint32_t *crb, *cre;
+  char* crv;
   uint4 *rec_a, *rec_b;
   Pos pos;
   int32_t *agg_surv, *lane_tab;
@@ -1056,24 +832,17 @@ struct Scratch {
 
 // uint4s per endpoint record (width + 1 words, rounded up), 0 when the
 // keys are too wide for the endpoint sort
-int rec_nv(int width) {
-  static const int kNV[] = {1, 2, 3, 4, 8, 16};
-  int need = (width + 1 + 3) / 4;
-  for (int nv : kNV)
-    if (need <= nv) return nv;
-  return 0;
-}
+int rec_nv(int width) { return fdb::rec_uint4s(width + 1); }
 
 size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
              int width, int S, bool clip) {
   fdb::Carver c{base, 0};
-  int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
-  int n_tiles = (mtot + TILE - 1) / TILE;
-  int n_ep = clip ? 0 : 2 * R + 2 * Wr;
-  size_t nc = clip ? S : 0, ns = clip ? n_s : 0;
-  s.lo = c.take<int32_t>(R);
-  s.hi = c.take<int32_t>(R);
-  s.vmax = c.take<int32_t>(R);
+  const int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
+  const int n_tiles = (mtot + TILE - 1) / TILE;
+  const size_t n_ep = 2 * (size_t)R + 2 * (size_t)Wr, nc = clip ? S : 0;
+  s.lo = c.take<int32_t>((size_t)S * R);
+  s.hi = c.take<int32_t>((size_t)S * R);
+  s.vmax = c.take<int32_t>((size_t)S * R);
   s.rmq = c.take<char>(fdb_range_max_scratch(cap));
   s.rs = c.take<int32_t>(T + 2);
   s.ext_r = c.take<uint8_t>((size_t)S * R);
@@ -1085,163 +854,104 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.alive_p = c.take<uint32_t>(n_lanes);
   s.hit_r = c.take<uint8_t>(R);
   s.ovp = c.take<uint32_t>((size_t)R * n_lanes);
-  s.ins_k = c.take<uint32_t>((size_t)n_s * width);
-  s.ins_tie = c.take<int32_t>(n_s);
-  s.sidx_a = c.take<int32_t>(ns);
-  s.sidx_b = c.take<int32_t>(ns);
-  s.ub = c.take<int32_t>(n_s);
-  s.src = c.take<int32_t>(mtot);
-  s.mv = c.take<int32_t>(mtot);
-  s.keepf = c.take<uint8_t>(mtot);
-  s.agg_max = c.take<int32_t>(n_tiles);
-  s.agg_sum = c.take<int32_t>(n_tiles);
-  s.pre_max = c.take<int32_t>(n_tiles);
-  s.pre_sum = c.take<int32_t>(n_tiles);
-  s.agg_keep = c.take<int32_t>(n_tiles);
-  s.pre_keep = c.take<int32_t>(n_tiles);
+  s.ins_k = c.take<uint32_t>((size_t)S * n_s * width);
+  s.ins_tie = c.take<int32_t>((size_t)S * n_s);
+  s.ub = c.take<int32_t>((size_t)S * n_s);
+  s.src = c.take<int32_t>((size_t)S * mtot);
+  s.mv = c.take<int32_t>((size_t)S * mtot);
+  s.keepf = c.take<uint8_t>((size_t)S * mtot);
+  s.agg_max = c.take<int32_t>((size_t)S * n_tiles);
+  s.agg_sum = c.take<int32_t>((size_t)S * n_tiles);
+  s.pre_max = c.take<int32_t>((size_t)S * n_tiles);
+  s.pre_sum = c.take<int32_t>((size_t)S * n_tiles);
+  s.agg_keep = c.take<int32_t>((size_t)S * n_tiles);
+  s.pre_keep = c.take<int32_t>((size_t)S * n_tiles);
   s.crb = c.take<uint32_t>(nc * R * width);
   s.cre = c.take<uint32_t>(nc * R * width);
-  s.cwb = c.take<uint32_t>(nc * Wr * width);
-  s.cwe = c.take<uint32_t>(nc * Wr * width);
   s.crv = c.take<char>(nc * R * 4);
-  s.cwv = c.take<char>(nc * Wr * 4);
-  size_t rec = clip ? 0 : (size_t)n_ep * rec_nv(width);
-  s.rec_a = c.take<uint4>(rec);
-  s.rec_b = c.take<uint4>(rec);
-  s.pos.r_lo = c.take<int32_t>(clip ? 0 : R);
-  s.pos.r_hi = c.take<int32_t>(clip ? 0 : R);
-  s.pos.w_lo = c.take<int32_t>(clip ? 0 : n_lanes * 32);
-  s.pos.w_hi = c.take<int32_t>(clip ? 0 : n_lanes * 32);
-  s.agg_surv =
-      c.take<int32_t>(clip ? 0 : (n_ep + SURV_TILE - 1) / SURV_TILE);
-  s.lane_tab = c.take<int32_t>(clip ? 0 : (size_t)n_lanes * LT_STRIDE);
+  s.rec_a = c.take<uint4>(n_ep * rec_nv(width));
+  s.rec_b = c.take<uint4>(n_ep * rec_nv(width));
+  s.pos.r_lo = c.take<int32_t>(R);
+  s.pos.r_hi = c.take<int32_t>(R);
+  s.pos.w_lo = c.take<int32_t>(n_lanes * 32);
+  s.pos.w_hi = c.take<int32_t>(n_lanes * 32);
+  s.agg_surv = c.take<int32_t>((size_t)S * fdb::blocks_for(n_ep, SURV_TILE));
+  s.lane_tab = c.take<int32_t>((size_t)n_lanes * LT_STRIDE);
   return c.off;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// K3's endpoint sort: the sorted records land in *sorted, every
+// the endpoint sort: the sorted records land in *sorted, every
 // endpoint's position in s.pos
-template <int NV>
 int endpoint_sort(const In& in, const Scratch& s, const uint4** sorted,
                   cudaStream_t st) {
-  const int n = 2 * in.R + 2 * in.Wr, tile = EP_TILE;
-  Rec<NV>* cur = reinterpret_cast<Rec<NV>*>(s.rec_a);
-  Rec<NV>* nxt = reinterpret_cast<Rec<NV>*>(s.rec_b);
-  size_t smem = ((size_t)tile * NV + EP_SORT_THREADS) * sizeof(uint4);
-  FDB_TRY(allow_smem(ep_block_sort_kernel<NV>, smem));
-  ep_block_sort_kernel<NV><<<fdb::blocks_for(n, tile), EP_SORT_THREADS, smem,
-                             st>>>(in, n, cur, n <= tile, s.pos);
-  FDB_LAUNCHED();
-  smem = (size_t)EP_CHUNK * sizeof(Rec<NV>);
-  FDB_TRY(allow_smem(ep_merge_kernel<NV>, smem));
-  for (int run = tile; run < n; run <<= 1) {
-    ep_merge_kernel<NV><<<fdb::blocks_for(n, EP_CHUNK), EP_THREADS, smem,
-                          st>>>(in, cur, nxt, n, run, 2 * run >= n, s.pos);
-    FDB_LAUNCHED();
-    Rec<NV>* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  *sorted = reinterpret_cast<const uint4*>(cur);
-  return 0;
+  return fdb::with_rec_uint4s(in.width + 1, [&](auto nv) -> int {
+    constexpr int NV = decltype(nv)::value;
+    FDB_TRY((fdb::rec_sort<NV>(EpLoad<NV>{in}, EpPlace<NV>{in, s.pos},
+                               2 * in.R + 2 * in.Wr, s.rec_a, s.rec_b,
+                               sorted, st)));
+    return 0;
+  });
 }
 
-int endpoint_sort(const In& in, const Scratch& s, const uint4** sorted,
-                  cudaStream_t st) {
-  switch (rec_nv(in.width)) {
-    case 1: return endpoint_sort<1>(in, s, sorted, st);
-    case 2: return endpoint_sort<2>(in, s, sorted, st);
-    case 3: return endpoint_sort<3>(in, s, sorted, st);
-    case 4: return endpoint_sort<4>(in, s, sorted, st);
-    case 8: return endpoint_sort<8>(in, s, sorted, st);
-    case 16: return endpoint_sort<16>(in, s, sorted, st);
-  }
-  return fdb::ERR_BAD_ARGS;
-}
-
-// K8, per shard: the 2*Wr boundary rows (survivors' wb / we, the rest
-// +inf with tie 1) sorted by merge rounds over (key, tie, index); the
-// order lands in *sidx
-int sort_boundaries(const In& in, const Scratch& s, const int32_t** sidx,
-                    cudaStream_t st) {
-  const int n_s = 2 * in.Wr;
-  ins_build_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
-      in, s.cfinal, s.ins_k, s.ins_tie, s.sidx_a);
+// 3. the survivors' boundaries of every shard out of the sorted
+// endpoints (K8 clips them to the shards' bounds `lows`/`highs`; K3
+// passes none)
+int partition(const In& in, const Scratch& s, const uint4* sorted,
+              const uint32_t* lows, const uint32_t* highs, int S,
+              cudaStream_t st) {
+  const int n = 2 * in.R + 2 * in.Wr;
+  Part pt{reinterpret_cast<const uint32_t*>(sorted), 4 * rec_nv(in.width), n,
+          s.cfinal, lows, highs};
+  dim3 grid(fdb::blocks_for(n, SURV_TILE), S);
+  (lows ? part_count_kernel<true> : part_count_kernel<false>)
+      <<<grid, SCAN_THREADS, 0, st>>>(in, pt, s.agg_surv);
   FDB_LAUNCHED();
-  int32_t* cur = s.sidx_a;
-  int32_t* nxt = s.sidx_b;
-  for (int run = 1; run < n_s; run <<= 1) {
-    sort_round_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
-        s.ins_k, s.ins_tie, in.width, cur, nxt, n_s, run);
-    FDB_LAUNCHED();
-    int32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  *sidx = cur;
-  return 0;
-}
-
-// K3: the survivors' boundaries compacted out of the sorted endpoints
-int compact_survivors(const In& in, const Scratch& s, const uint4* sorted,
-                      cudaStream_t st) {
-  const int n = 2 * in.R + 2 * in.Wr, tiles = fdb::blocks_for(n, SURV_TILE);
-  const int stride = 4 * rec_nv(in.width);
-  const uint32_t* rec = reinterpret_cast<const uint32_t*>(sorted);
-  surv_count_kernel<<<tiles, SCAN_THREADS, 0, st>>>(in, rec, stride, n,
-                                                    s.cfinal, s.agg_surv);
-  FDB_LAUNCHED();
-  surv_place_kernel<<<tiles, SCAN_THREADS, 0, st>>>(
-      in, rec, stride, n, s.cfinal, s.agg_surv, tiles, s.ins_k, s.ins_tie);
+  (lows ? part_place_kernel<true> : part_place_kernel<false>)
+      <<<grid, SCAN_THREADS, 0, st>>>(in, pt, s.agg_surv, s.ins_k,
+                                      s.ins_tie);
   FDB_LAUNCHED();
   return 0;
 }
 
-// 3. + 4. for one shard: interleave the 2*Wr boundaries (in sidx's order,
-// or sorted as they lie when sidx is null) with the history, cover, then
-// GC and compaction into (hk_out, hv_out)
-int merge_gc(const In& in, const Scratch& s, const int32_t* sidx,
-             uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
-             cudaStream_t st) {
+// 3. + 4. for every shard at once: interleave its 2*Wr sorted boundaries
+// with its history, cover, then GC and compaction into its slice of
+// (hk_out, hv_out) and count_out[k]
+int merge_gc(const In& in, const Scratch& s, int S, uint32_t* hk_out,
+             int32_t* hv_out, int32_t* count_out, cudaStream_t st) {
   const int cap = in.cap, width = in.width, n_s = 2 * in.Wr;
   const int mtot = cap + n_s, n_tiles = (mtot + TILE - 1) / TILE;
-  merge_ins_kernel<<<fdb::blocks_for(n_s, 256), 256, 0, st>>>(
-      in, s.ins_k, sidx, n_s, s.ub, s.src);
-  FDB_LAUNCHED();
-  merge_hist_kernel<<<fdb::blocks_for(cap, 256), 256, 0, st>>>(in, s.ub, n_s,
-                                                               s.src);
-  FDB_LAUNCHED();
   Merged m{in.hk, in.hv, s.ins_k, s.ins_tie, s.src, cap, width, mtot};
-  cover_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.agg_max,
-                                                        s.agg_sum);
+  const dim3 tiles(n_tiles, S), one(1, S);
+  merge_ins_kernel<<<dim3(fdb::blocks_for(n_s, 256), S), 256, 0, st>>>(
+      m, s.ub, s.src);
   FDB_LAUNCHED();
-  fdb::scan_tiles_kernel<true><<<1, 1024, 0, st>>>(s.agg_max, s.pre_max,
-                                                   n_tiles, nullptr);
+  merge_hist_kernel<<<dim3(fdb::blocks_for(cap, 256), S), 256, 0, st>>>(
+      cap, n_s, s.ub, s.src);
   FDB_LAUNCHED();
-  fdb::scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_sum, s.pre_sum,
-                                                    n_tiles, nullptr);
+  cover_reduce_kernel<<<tiles, SCAN_THREADS, 0, st>>>(m, s.agg_max,
+                                                      s.agg_sum);
   FDB_LAUNCHED();
-  cover_apply_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(
+  fdb::scan_tiles_kernel<true><<<one, 1024, 0, st>>>(s.agg_max, s.pre_max,
+                                                     n_tiles, nullptr);
+  FDB_LAUNCHED();
+  fdb::scan_tiles_kernel<false><<<one, 1024, 0, st>>>(s.agg_sum, s.pre_sum,
+                                                      n_tiles, nullptr);
+  FDB_LAUNCHED();
+  cover_apply_kernel<<<tiles, SCAN_THREADS, 0, st>>>(
       m, s.pre_max, s.pre_sum, in.commit, s.mv);
   FDB_LAUNCHED();
-  keep_reduce_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, in.oldest,
-                                                       s.keepf, s.agg_keep);
+  keep_reduce_kernel<<<tiles, SCAN_THREADS, 0, st>>>(m, s.mv, in.oldest,
+                                                     s.keepf, s.agg_keep);
   FDB_LAUNCHED();
-  fdb::scan_tiles_kernel<false><<<1, 1024, 0, st>>>(s.agg_keep, s.pre_keep,
-                                                    n_tiles, count_out);
+  fdb::scan_tiles_kernel<false><<<one, 1024, 0, st>>>(
+      s.agg_keep, s.pre_keep, n_tiles, count_out);
   FDB_LAUNCHED();
-  compact_kernel<<<n_tiles, SCAN_THREADS, 0, st>>>(m, s.mv, s.keepf,
-                                                   s.pre_keep, hk_out, hv_out);
+  compact_kernel<<<tiles, SCAN_THREADS, 0, st>>>(m, s.mv, s.keepf,
+                                                 s.pre_keep, hk_out, hv_out);
   FDB_LAUNCHED();
-  fill_tail_kernel<<<fdb::blocks_for((long long)cap * width, 256 * 8), 256,
-                     0, st>>>(hk_out, hv_out, cap, width, count_out);
+  fill_tail_kernel<<<dim3(fdb::blocks_for((long long)cap * width, 256 * 8),
+                          S),
+                     256, 0, st>>>(hk_out, hv_out, cap, width, count_out);
   FDB_LAUNCHED();
   return 0;
 }
@@ -1258,8 +968,8 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   const bool clip = lows != nullptr;
   if (cap < fdb::RMQ_BLOCK || (cap & (cap - 1)) || T < 1 || R < 1 ||
       (R & (R - 1)) || Wr < 1 || width < 1 || S < 1 || (clip && !highs) ||
-      (!clip && !rec_nv(width)) || !hk_out || !hv_out || !count_out ||
-      !conflict_out || (attribute && !read_hit_out))
+      !rec_nv(width) || !hk_out || !hv_out || !count_out || !conflict_out ||
+      (attribute && !read_hit_out))
     return fdb::ERR_BAD_ARGS;
   long long unused[3] = {0, 0, 0};
   if (!launches) launches = unused;
@@ -1269,74 +979,53 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width, S, clip);
   const int n_lanes = (Wr + 31) / 32, fb = in.flag_bytes;
 
-  // 0. the shard clip (K7): every range against every shard's bounds
+  // 0. the shard clip of the reads (K7), for the external check
+  In rd = in;
   if (clip) {
     FDB_TRY(fdb_clip_launch(in.rb, in.re, in.rvalid, fb, lows, highs, S, R,
                             width, s.crb, s.cre, s.crv, fb, st));
-    FDB_TRY(fdb_clip_launch(in.wb, in.we, in.wvalid, fb, lows, highs, S, Wr,
-                            width, s.cwb, s.cwe, s.cwv, fb, st));
-    launches[2] += 2;
+    launches[2] += 1;
+    rd.rb = s.crb;
+    rd.re = s.cre;
+    rd.rvalid = s.crv;
   }
-  auto shard = [&](int k) {
-    In x = in;
-    x.hk = in.hk + (size_t)k * cap * width;
-    x.hv = in.hv + (size_t)k * cap;
-    if (clip) {
-      x.rb = s.crb + (size_t)k * R * width;
-      x.re = s.cre + (size_t)k * R * width;
-      x.rvalid = s.crv + (size_t)k * R * fb;
-      x.wb = s.cwb + (size_t)k * Wr * width;
-      x.we = s.cwe + (size_t)k * Wr * width;
-      x.wvalid = s.cwv + (size_t)k * Wr * fb;
-    }
-    return x;
-  };
 
-  // 1. external check: K1 segment starts; per shard bounds, K2 range max
+  // 1. external check: K1 segment starts; every shard's bounds, K2 range
+  // max over each shard's HV, every shard's flags
   FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
   launches[0] += 1;
+  const dim3 per_read(fdb::blocks_for(R, 256), S);
+  ext_bounds_kernel<<<per_read, 256, 0, st>>>(rd, s.lo, s.hi);
+  FDB_LAUNCHED();
   for (int k = 0; k < S; ++k) {
-    In x = shard(k);
-    ext_bounds_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(x, s.lo,
-                                                                s.hi);
-    FDB_LAUNCHED();
-    FDB_TRY(fdb_range_max_launch(x.hv, cap, s.lo, s.hi, R, s.vmax, s.rmq,
-                                 st));
+    FDB_TRY(fdb_range_max_launch(in.hv + (size_t)k * cap, cap,
+                                 s.lo + (size_t)k * R, s.hi + (size_t)k * R,
+                                 R, s.vmax + (size_t)k * R, s.rmq, st));
     launches[1] += 1;
-    ext_flags_kernel<<<fdb::blocks_for(R, 256), 256, 0, st>>>(
-        x, s.vmax, s.ext_r + (size_t)k * R);
-    FDB_LAUNCHED();
   }
+  ext_flags_kernel<<<per_read, 256, 0, st>>>(rd, s.vmax, s.ext_r);
+  FDB_LAUNCHED();
   (clip ? base_kernel<true> : base_kernel<false>)
       <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, s.ext_r,
                                                      s.base, s.ca, s.cb, S);
   FDB_LAUNCHED();
 
-  // 2. the overlap matrix: K3's from the endpoint sort's positions; K8's
-  // one matrix of the unclipped ranges (the OR of the shards' clipped
-  // matrices, see the note above) by row compares. Then the fixpoint
-  // (+ attribution).
+  // 2. the endpoint sort of the (unclipped) ranges, the overlap matrix
+  // from its positions (K8's one matrix is the OR of the shards' clipped
+  // ones, see the note above), then the fixpoint (+ attribution)
   const uint4* sorted = nullptr;
-  if (clip) {
-    size_t ov_smem =
-        (size_t)OV_LANES * 32 * (2 * width + 1) * sizeof(uint32_t);
-    FDB_TRY(allow_smem(overlap_rows_kernel, ov_smem));
-    dim3 ov_grid((n_lanes + OV_LANES - 1) / OV_LANES,
-                 (R + OV_READS - 1) / OV_READS);
-    overlap_rows_kernel<<<ov_grid, 256, ov_smem, st>>>(in, n_lanes, s.ovp);
-    FDB_LAUNCHED();
-  } else {
-    int e = endpoint_sort(in, s, &sorted, st);
-    if (e) return e;
-    lane_tables_kernel<<<fdb::blocks_for((long long)n_lanes * 32, 256), 256,
-                         0, st>>>(in, s.pos, n_lanes, s.lane_tab);
-    FDB_LAUNCHED();
-    dim3 ov_grid((n_lanes + OVT_LANES - 1) / OVT_LANES,
-                 (R + 32 * OVT_CHUNKS - 1) / (32 * OVT_CHUNKS));
-    overlap_rank_kernel<<<ov_grid, OVT_LANES * 32, 0, st>>>(
-        in, s.pos, s.lane_tab, n_lanes, s.ovp);
-    FDB_LAUNCHED();
-  }
+  int e = endpoint_sort(in, s, &sorted, st);
+  if (e) return e;
+  (clip ? lane_tables_kernel<true> : lane_tables_kernel<false>)
+      <<<fdb::blocks_for((long long)n_lanes * 32, 256), 256, 0, st>>>(
+          in, s.pos, n_lanes, s.lane_tab);
+  FDB_LAUNCHED();
+  dim3 ov_grid((n_lanes + OVT_LANES - 1) / OVT_LANES,
+               (R + 32 * OVT_CHUNKS - 1) / (32 * OVT_CHUNKS));
+  (clip ? overlap_rank_kernel<true> : overlap_rank_kernel<false>)
+      <<<ov_grid, OVT_LANES * 32, 0, st>>>(in, s.pos, s.lane_tab, n_lanes,
+                                           s.ovp);
+  FDB_LAUNCHED();
   FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
   Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
         s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
@@ -1353,22 +1042,11 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
                                       args, 0, st));
   FDB_LAUNCHED();
 
-  // 3. + 4. merge, GC and compaction, shard by shard
-  if (!clip) {
-    int e = compact_survivors(in, s, sorted, st);
-    if (!e) e = merge_gc(in, s, nullptr, hk_out, hv_out, count_out, st);
-    return e;
-  }
-  for (int k = 0; k < S; ++k) {
-    In x = shard(k);
-    const int32_t* sidx = nullptr;
-    int e = sort_boundaries(x, s, &sidx, st);
-    if (!e)
-      e = merge_gc(x, s, sidx, hk_out + (size_t)k * cap * width,
-                   hv_out + (size_t)k * cap, count_out + k, st);
-    if (e) return e;
-  }
-  return 0;
+  // 3. + 4. every shard's survivors out of the one sort, then merge, GC
+  // and compaction, each phase one launch over the shards
+  e = partition(in, s, sorted, lows, highs, S, st);
+  if (!e) e = merge_gc(in, s, S, hk_out, hv_out, count_out, st);
+  return e;
 }
 
 // the packed feed (ops/conflict_kernel.py:465-478): the 12 inputs are

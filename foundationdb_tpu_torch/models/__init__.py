@@ -19,13 +19,18 @@ from .failover import (
     ShadowResolveMismatch,
     create_resilient_conflict_set,
 )
-from .native_backend import CONFLICT_BACKENDS, create_conflict_set
+from .native_backend import (
+    CONFLICT_BACKENDS,
+    NativeConflictSet,
+    create_conflict_set,
+    native_available,
+)
 
 __all__ = [
     "COMMITTED", "CONFLICT", "CONFLICT_BACKENDS", "DEVICE_BACKENDS",
     "TOO_OLD", "BruteForceConflictSet", "ConflictSetBase",
-    "ConflictSetCheckpoint", "FailoverConflictSet", "PyConflictSet",
-    "ResolvePipeline", "ResolveTicket", "ResolverTransaction",
-    "ShadowResolveMismatch", "create_conflict_set",
-    "create_resilient_conflict_set",
+    "ConflictSetCheckpoint", "FailoverConflictSet", "NativeConflictSet",
+    "PyConflictSet", "ResolvePipeline", "ResolveTicket",
+    "ResolverTransaction", "ShadowResolveMismatch", "create_conflict_set",
+    "create_resilient_conflict_set", "native_available",
 ]

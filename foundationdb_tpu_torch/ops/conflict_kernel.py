@@ -32,10 +32,12 @@ history, each on the batch's ranges clipped to its shard, with the
 external verdicts, every fixpoint round and the attribution OR-combined
 over the shards (the reference's psum across chips). The plain version
 (`resolve_step_sharded_plain`) does just that, one overlap matrix per
-shard. K8 clips only for the external check and the merge: it builds
-ONE matrix over the unclipped ranges, an empty range counted invalid,
-which is the OR of the shards' clipped matrices bit for bit when the
-shards tile the key space (see csrc/resolve.cu).
+shard. K8 clips only the reads, for the external check: it sorts the
+batch's unclipped endpoints once, as K3 does, builds ONE matrix from
+their ranks, an empty range counted invalid, which is the OR of the
+shards' clipped matrices bit for bit when the shards tile the key space,
+and gives every shard its surviving writes, clipped, by one stable
+partition of the same sort (see csrc/resolve.cu).
 
 The plain version (`resolve_step_plain`) follows the reference line by
 line with PyTorch calls: key words widen to int64 (PyTorch's uint32

@@ -1,10 +1,10 @@
-"""Seeded adversarial batches for the interval resolve step (K3).
+"""Seeded adversarial batches for the resolve steps (K3, K8, K5).
 
 `adversarial_batch(rng, kind, cap, T, R, Wr, n_words)` returns a
 canonical history (HK, HV) and one padded batch as the 10 host arrays
 the marshaller produces (snapshots, tooOld, rb, re, rtxn, rvalid, wb,
 we, wtxn, wvalid), for commit offset COMMIT and oldest offset OLDEST.
-Every kind aims at a corner of the step:
+Every kind aims at a corner of the interval step:
 
   duplicates       endpoints from a tiny alphabet: equal keys across
                    reads, writes and the history
@@ -16,6 +16,30 @@ Every kind aims at a corner of the step:
   chain            transaction t reads what t-1 writes, so the fixpoint
                    needs one round per link (up to `chain` links)
   mixed            all of the above, range by range
+  split_edges      the key-range shards' corners (`splits`, the key ids
+                   the shards split at; the alphabet's quartiles by
+                   default): ranges that begin or end exactly on a split
+                   key, span every shard, are clipped to the same lower
+                   or upper bound of one shard, or cover exactly one
+                   shard (empty in the others); no write reaches the
+                   last shard, so it has no survivors
+
+With `splits`, the keys spread over [0, splits[-1] + splits[0]) in every
+kind, and the duplicates kind's tiny alphabet straddles the middle
+split, so a [S, cap] sharded history (`shard_history`) holds rows in
+every shard. `shard_bounds` gives the shards' (lows, highs) rows as the
+sharded resolver builds them.
+
+`point_batch(rng, kind, cap, T, R, Wr, n_words)` returns a point state
+(SK, SV) and one padded batch as its 8 host arrays (snapshots, tooOld,
+rk, rtxn, rvalid, wk, wtxn, wvalid) for K5's corners (POINT_KINDS):
+
+  one_key          every write, and a quarter of the reads, on one key
+                   that the state holds several versions of
+  invalid_writes   every write slot invalid, its rows left as garbage
+  inf_writes       writes and reads of the +inf row and of the longest
+                   all-0xFF key
+  mixed            keys from a tiny alphabet, some slots invalid
 
 Transaction ids are non-decreasing with pad slots = T, as every
 marshaller lays them out. Numpy only: the tests feed the arrays to the
@@ -30,7 +54,9 @@ VDEAD = -(1 << 30)
 INF = np.uint32(0xFFFFFFFF)
 COMMIT, OLDEST = 70, 20
 KINDS = ("duplicates", "empty_inverted", "inf_rows", "no_valid_writes",
-         "chain", "mixed")
+         "chain", "mixed", "split_edges")
+POINT_KINDS = ("one_key", "invalid_writes", "inf_writes", "mixed")
+N_SHARDS = 4
 
 
 def key_rows(ids, n_words: int) -> np.ndarray:
@@ -53,11 +79,12 @@ def _special_rows(n_words: int) -> np.ndarray:
                      np.full(n_words + 1, INF, np.uint32)])
 
 
-def history(rng, cap: int, n_words: int, alphabet: int, n_rows: int):
+def history(rng, cap: int, n_words: int, alphabet: int, n_rows: int,
+            offset: int = 0):
     """A canonical history: the empty key first, sorted unique rows
-    drawn from `alphabet` ids (and the all-0xFF key), +inf / VDEAD
-    padding; versions in [-5, 60], a few below the window."""
-    ids = rng.integers(0, alphabet, n_rows)
+    drawn from ids offset + [0, alphabet) (and the all-0xFF key), +inf /
+    VDEAD padding; versions in [-5, 60], a few below the window."""
+    ids = offset + rng.integers(0, alphabet, n_rows)
     rows = np.concatenate([key_rows(ids, n_words),
                            _special_rows(n_words)[1:2]])
     rows = np.unique(rows, axis=0)[:cap - 2]
@@ -71,11 +98,12 @@ def history(rng, cap: int, n_words: int, alphabet: int, n_rows: int):
     return hk, hv
 
 
-def _ranges(rng, kind: str, n: int, n_words: int, alphabet: int):
+def _ranges(rng, kind: str, n: int, n_words: int, alphabet: int,
+            offset: int = 0):
     """n (begin, end) row pairs for one of the range kinds."""
     special = _special_rows(n_words)
-    b = key_rows(rng.integers(0, alphabet, n), n_words)
-    e = key_rows(rng.integers(0, alphabet, n), n_words)
+    b = key_rows(offset + rng.integers(0, alphabet, n), n_words)
+    e = key_rows(offset + rng.integers(0, alphabet, n), n_words)
     if kind in ("plain", "duplicates"):
         lo, hi = np.minimum(b, e), np.maximum(b, e)   # word-wise: same ids
         swap = rng.random(n) < (0.1 if kind == "duplicates" else 0.0)
@@ -96,6 +124,75 @@ def _ranges(rng, kind: str, n: int, n_words: int, alphabet: int):
     return b, e
 
 
+def split_ids(alphabet: int, n_shards: int = N_SHARDS) -> list:
+    """The key ids the shards split at: the alphabet's quantiles."""
+    return [alphabet * k // n_shards for k in range(1, n_shards)]
+
+
+def shard_bounds(splits, n_words: int):
+    """[S, W+1] (lows, highs) for the shards split at key ids `splits`,
+    as the sharded resolver builds them: lows[0] the empty key, highs[k]
+    = lows[k+1], highs[-1] the +inf row."""
+    lows = np.concatenate([np.zeros((1, n_words + 1), np.uint32),
+                           key_rows(splits, n_words)])
+    highs = np.full_like(lows, INF)
+    highs[:-1] = lows[1:]
+    return lows, highs
+
+
+def _split_ranges(rng, n: int, n_words: int, splits, alphabet: int,
+                  writes: bool):
+    """n (begin, end) row pairs at the shards' corners (see KINDS); the
+    writes end at the last split at the latest."""
+    edges = np.asarray(splits, np.int64)
+    top = int(edges[-1]) if writes else alphabet
+    k = rng.integers(0, len(edges), n)                 # a split per range
+    below = rng.integers(0, edges[k])                  # under split k
+    above = edges[k] + 1 + rng.integers(0, np.maximum(top - edges[k], 1))
+    nxt = np.append(edges[1:], top)[k]                 # the next split
+    inside = edges[k] + rng.integers(0, np.maximum(nxt - edges[k], 1))
+    lo_all = rng.integers(0, edges[0], n)
+    hi_all = edges[-1] + rng.integers(0 if writes else 1,
+                                      max(top - edges[-1], 0) + 1, n)
+    pick = rng.integers(0, 6, n)
+    b = np.choose(pick, [edges[k], below, lo_all, below, inside, edges[k]])
+    e = np.choose(pick, [above, edges[k], hi_all, inside, above, nxt])
+    e = np.minimum(e, top)
+    return key_rows(b, n_words), key_rows(e, n_words)
+
+
+def shard_history(hk, hv, lows, highs):
+    """A history split into [S, cap] shards as the sharded resolver
+    holds it: shard k's rows are its lower bound, at the version the
+    history has there, then the history's rows strictly inside (lows[k],
+    highs[k]); +inf / VDEAD padding."""
+    cap, width = hk.shape
+    real = ~(hk == INF).all(axis=1)
+    rows, vers = hk[real], hv[real]
+
+    def lt(r):                       # rows < r, lexicographically
+        out = np.zeros(len(rows), bool)
+        eq = np.ones(len(rows), bool)
+        for w in range(width):
+            out |= eq & (rows[:, w] < r[w])
+            eq &= rows[:, w] == r[w]
+        return out, eq
+
+    shk = np.full((len(lows), cap, width), INF, np.uint32)
+    shv = np.full((len(lows), cap), VDEAD, np.int32)
+    for k, (lo, hi) in enumerate(zip(lows, highs)):
+        below, at = lt(lo)
+        inside = ~below & ~at & lt(hi)[0]
+        n_le = int((below | at).sum())
+        part_k = np.concatenate([lo[None], rows[inside]])
+        part_v = np.concatenate([[vers[n_le - 1] if n_le else VDEAD],
+                                 vers[inside]])
+        if len(part_k) > cap:
+            raise ValueError("a shard's rows exceed the capacity")
+        shk[k, :len(part_k)], shv[k, :len(part_k)] = part_k, part_v
+    return shk, shv
+
+
 def _chain(T: int, n_words: int, links: int, base: int):
     """Transaction t < links reads key base + t and writes key
     base + t + 1: each conflicts with the previous one."""
@@ -110,13 +207,24 @@ def _chain(T: int, n_words: int, links: int, base: int):
 
 
 def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
-                      n_words: int, chain: int = 512):
+                      n_words: int, chain: int = 512, splits=None):
     """(HK, HV, (snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
-    wvalid)) for `kind` (see KINDS) at one shape bucket."""
+    wvalid)) for `kind` (see KINDS) at one shape bucket; `splits` are
+    the key ids a sharded step splits at (see above)."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    alphabet = 6 if kind == "duplicates" else max(16, 4 * T)
-    hk, hv = history(rng, cap, n_words, alphabet, min(cap // 2, 8 * T))
+    alphabet = max(16, 4 * T)
+    if splits is not None:
+        alphabet = max(alphabet, splits[-1] + splits[0])
+    elif kind == "split_edges":
+        splits = split_ids(alphabet)
+    offset = 0
+    if kind == "duplicates":
+        if splits is not None:
+            offset = splits[len(splits) // 2] - 3
+        alphabet = 6
+    hk, hv = history(rng, cap, n_words, alphabet, min(cap // 2, 8 * T),
+                     offset)
     nt = T if kind == "chain" else int(rng.integers(max(1, T // 2), T + 1))
     if kind == "mixed":
         kinds = ("duplicates", "empty_inverted", "inf_rows", None)
@@ -130,9 +238,12 @@ def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
         re = np.choose(pr[:, None], [p[1] for p in parts_r])
         wb = np.choose(pw[:, None], [p[0] for p in parts_w])
         we = np.choose(pw[:, None], [p[1] for p in parts_w])
+    elif kind == "split_edges":
+        rb, re = _split_ranges(rng, R, n_words, splits, alphabet, False)
+        wb, we = _split_ranges(rng, Wr, n_words, splits, alphabet, True)
     else:
-        rb, re = _ranges(rng, kind, R, n_words, alphabet)
-        wb, we = _ranges(rng, kind, Wr, n_words, alphabet)
+        rb, re = _ranges(rng, kind, R, n_words, alphabet, offset)
+        wb, we = _ranges(rng, kind, Wr, n_words, alphabet, offset)
     rt = np.sort(rng.integers(0, nt, R)).astype(np.int32)
     wt = np.sort(rng.integers(0, nt, Wr)).astype(np.int32)
     snap = rng.integers(0, 70, T).astype(np.int32)
@@ -167,3 +278,52 @@ def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
     snap[nt:] = 0
     too_old[nt:] = False
     return hk, hv, (snap, too_old, rb, re, rt, rv, wb, we, wt, wv)
+
+
+def point_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
+                n_words: int):
+    """(SK, SV, (snap, too_old, rk, rtxn, rvalid, wk, wtxn, wvalid)) for
+    `kind` (see POINT_KINDS): a state sorted by (key, version) with
+    duplicate keys and rows below OLDEST, half full, and one batch whose
+    txn ids are non-decreasing with pad slots = T. Any Wr >= 1 (the
+    reference's step takes powers of two only)."""
+    if kind not in POINT_KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    alphabet = 8 if kind == "mixed" else max(16, 2 * T)
+    n = cap // 2
+    keys = key_rows(rng.integers(0, alphabet, n), n_words)
+    if kind == "inf_writes":
+        keys[: n // 8] = _special_rows(n_words)[1]
+    vers = rng.integers(-5, 60, n).astype(np.int32)
+    order = np.lexsort([vers] + [keys[:, w] for w in range(n_words, -1, -1)])
+    sk = np.full((cap, n_words + 1), INF, np.uint32)
+    sv = np.full(cap, VDEAD, np.int32)
+    sk[:n], sv[:n] = keys[order], vers[order]
+    rk = key_rows(rng.integers(0, alphabet, R), n_words)
+    wk = key_rows(rng.integers(0, alphabet, Wr), n_words)
+    if kind == "one_key":
+        one = sk[int(rng.integers(0, n))]
+        wk[:] = one
+        rk[rng.random(R) < 0.25] = one
+    elif kind == "inf_writes":
+        special = _special_rows(n_words)[1:]
+        wk[rng.random(Wr) < 0.5] = special[rng.integers(0, 2)]
+        rk[rng.random(R) < 0.25] = special[rng.integers(0, 2)]
+    elif kind == "invalid_writes":
+        wk[:] = rng.integers(0, 1 << 32, wk.shape, dtype=np.uint64)
+    nt = int(rng.integers(max(1, T // 2), T + 1))
+    rt = np.sort(rng.integers(0, nt, R)).astype(np.int32)
+    wt = np.sort(rng.integers(0, nt, Wr)).astype(np.int32)
+    n_r = int(rng.integers(R // 2, R + 1))
+    n_w = int(rng.integers((Wr + 1) // 2, Wr + 1))
+    rt[n_r:] = T
+    wt[n_w:] = T
+    rv = (rng.random(R) < (0.8 if kind == "mixed" else 1.0)) & (rt < T)
+    wv = (rng.random(Wr) < (0.8 if kind == "mixed" else 1.0)) & (wt < T)
+    if kind == "invalid_writes":
+        wv[:] = False
+    snap = rng.integers(0, 70, T).astype(np.int32)
+    too_old = rng.random(T) < 0.05
+    snap[nt:] = 0
+    too_old[nt:] = False
+    return sk, sv, (snap, too_old, rk, rt, rv, wk, wt, wv)

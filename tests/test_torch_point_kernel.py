@@ -10,8 +10,13 @@ unpacked entry matches too, and so does a batch whose surviving
 the last transaction's read is checked when no pad slot exists; and the
 plain row search, its per-query-side
 variant and the row order (K6's plain version) match the reference,
-the no-pad cap-1 answer included. Every output is integer or boolean:
-equality is exact."""
+the no-pad cap-1 answer included. The point batch kinds of
+`foundationdb_tpu_torch.testing` (every write on one key, every write
+invalid, +inf-key writes, a tiny alphabet) match the reference too, at
+Wr = 32 and Wr = 1. Every output is integer or boolean: equality is
+exact. On a card, K5 is held to the plain step on the same kinds, also
+at a Wr that is no power of two, over several sort tiles, and at keys
+of 41 and 101 words."""
 
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from foundationdb_tpu.ops import keys as ref_keys  # noqa: E402
 from foundationdb_tpu.ops import point_kernel as ref  # noqa: E402
+from foundationdb_tpu_torch import testing as tg  # noqa: E402
 from foundationdb_tpu_torch.ops import keys as port_keys  # noqa: E402
 from foundationdb_tpu_torch.ops import point_kernel as port  # noqa: E402
 
@@ -32,6 +38,7 @@ BUCKETS = [  # (cap, T, R, Wr, W)
     (128, 16, 32, 64, 4),
 ]
 COMMIT, OLDEST = 70, 20
+POINT_EDGE_SHAPES = [(64, 16, 32, 32, 2), (64, 16, 32, 1, 2)]
 
 
 @pytest.fixture
@@ -264,6 +271,23 @@ def test_plain_row_search_matches_reference(cap):
                 np.asarray(fn_ref(jnp.asarray(a), jnp.asarray(b))))
 
 
+@pytest.mark.parametrize("kind", tg.POINT_KINDS)
+@pytest.mark.parametrize("attribute", [True, False])
+def test_plain_step_matches_reference_on_point_kinds(kind, attribute):
+    for cap, T, R, Wr, W in POINT_EDGE_SHAPES:
+        jfn = ref.make_point_resolve_packed_fn(cap, T, R, Wr, W,
+                                               attribute=attribute,
+                                               donate=False)
+        for seed in (0, 1):
+            sk, sv, arrays = tg.point_batch(np.random.default_rng(seed),
+                                            kind, cap, T, R, Wr, W)
+            buf = ref.pack_point_batch(*arrays, COMMIT, OLDEST, 9)
+            got = port.point_resolve_step_packed(
+                torch.from_numpy(sk), torch.from_numpy(sv),
+                torch.from_numpy(buf), T, R, Wr, attribute=attribute)
+            _assert_outputs(got, list(jfn(sk, sv, buf)))
+
+
 def test_packed_step_rejects_mismatched_buffer():
     cap, T, R, Wr, W = BUCKETS[0]
     sk, sv = rand_state(np.random.default_rng(1), cap, W)
@@ -349,3 +373,39 @@ def test_row_search_kernel_matches_plain(cuda):
                 table.to(cuda), q.to(cuda), mask.to(cuda))
             assert torch.equal(got.cpu(), port_keys.searchsorted_rows_mixed(
                 table, q, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", tg.POINT_KINDS)
+def test_point_kernel_matches_plain_on_point_kinds(cuda, kind):
+    """K5 against its plain step on the point kinds: Wr = 32 and 1, Wr =
+    3000 (no power of two, two sort tiles and a merge round), and keys
+    of 41 and 101 words (sort records of 16 and 32 uint4s); packed and
+    unpacked, attributed and not, from the kind's state and one step
+    later."""
+    shapes = POINT_EDGE_SHAPES + [(4096, 1024, 1024, 3000, 4),
+                                  (256, 64, 64, 64, 40),
+                                  (256, 64, 64, 64, 100)]
+    for cap, T, R, Wr, W in shapes:
+        sk, sv, arrays = tg.point_batch(np.random.default_rng(cap + Wr + W),
+                                        kind, cap, T, R, Wr, W)
+        for attribute in (True, False):
+            state = (torch.from_numpy(sk), torch.from_numpy(sv))
+            for commit in (COMMIT, COMMIT + 20):
+                buf = torch.from_numpy(port.pack_point_batch(
+                    *arrays, commit, OLDEST, 9))
+                want = port.point_resolve_step_packed(
+                    *state, buf, T, R, Wr, attribute=attribute)
+                before = port.launches["point_resolve"]
+                got = port.point_resolve_step_packed(
+                    state[0].to(cuda), state[1].to(cuda), buf.to(cuda), T,
+                    R, Wr, attribute=attribute)
+                got_u = port.point_resolve_step(
+                    state[0].to(cuda), state[1].to(cuda),
+                    *[torch.from_numpy(a).to(cuda) for a in arrays], commit,
+                    OLDEST, 9, attribute=attribute)
+                assert port.launches["point_resolve"] == before + 2
+                for outs in (got, got_u):
+                    _assert_outputs([None if g is None else g.cpu()
+                                     for g in outs], want)
+                state = want[:2]

@@ -6,9 +6,11 @@ write invalid, a conflict chain that makes the fixpoint run one round
 per link, and a mix of them) go through the reference's jitted steps on
 the JAX CPU backend and through the port's plain steps: every output
 equal, bit for bit, with attribution on and off, packed and unpacked.
-On a card, K3 is held to the plain version on the same batches, and K1
-to its plain version on unsorted tables and at n = 1, 2 and 2^16 (the
-table larger than the kernel stages in shared memory). Every output is
+On a card, K3 is held to the plain version on the same batches (and at
+keys of 41 and 101 words, which take the endpoint sort's two widest
+record sizes), and K1 to its plain version on unsorted tables and at
+n = 1, 2 and 2^16 (the table larger than the kernel stages in shared
+memory). Every output is
 integer or boolean: equality is exact."""
 
 import numpy as np
@@ -130,6 +132,23 @@ def test_resolve_kernel_matches_plain_on_edges(cuda, kind, attribute):
                 if wnt is not None:
                     assert torch.equal(g.cpu(), wnt), kind
                     assert torch.equal(gu.cpu(), wnt), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [40, 100])
+def test_resolve_kernel_matches_plain_at_wide_keys(cuda, n_words):
+    for kind in ("mixed", "split_edges"):
+        hk, hv, arrays = tg.adversarial_batch(
+            np.random.default_rng(n_words), kind, CAP, T, R, WR, n_words)
+        buf = torch.from_numpy(port.pack_interval_batch(
+            *arrays, tg.COMMIT, tg.OLDEST))
+        want = port.resolve_step_packed(
+            torch.from_numpy(hk), torch.from_numpy(hv), buf, T, R, WR)
+        got = port.resolve_step_packed(
+            torch.from_numpy(hk).to(cuda), torch.from_numpy(hv).to(cuda),
+            buf.to(cuda), T, R, WR)
+        for g, wnt in zip(got, want):
+            assert torch.equal(g.cpu(), wnt), kind
 
 
 @pytest.mark.cuda

@@ -15,10 +15,17 @@ ShardedTpuConflictSet on the 8 virtual CPU devices:
   - the reference's own sharded cases, one for one (cross-shard range,
     intra-batch across shards, randomized parity with the brute-force
     model, growth, attribution, the pipeline cases);
-  - the factory, the split-key contract, and no card without asking.
+  - the factory, the split-key contract, and no card without asking;
+  - the adversarial batch kinds of `foundationdb_tpu_torch.testing`
+    (the shard-edge kind among them) on a history sharded at the
+    kind's quartiles: the port's plain sharded step against the
+    reference's shard_map'd packed step, from the fresh state and one
+    step later, attributed and not.
 
 Every output is integer or boolean: equality is exact. The CUDA-marked
-cases hold K8 to its plain version on the card."""
+cases hold K8 to its plain version on the card, on those kinds at 1
+and 4 shards and at key widths that take the endpoint sort's two widest
+record sizes."""
 
 import random
 
@@ -36,6 +43,7 @@ from foundationdb_tpu.models import BruteForceConflictSet  # noqa: E402
 from foundationdb_tpu.models import PyConflictSet as RefPy  # noqa: E402
 from foundationdb_tpu.parallel import ShardedTpuConflictSet  # noqa: E402
 from foundationdb_tpu_torch import device as fdev  # noqa: E402
+from foundationdb_tpu_torch import testing as tg  # noqa: E402
 from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS  # noqa: E402
 from foundationdb_tpu_torch.models import (  # noqa: E402
     CONFLICT_BACKENDS,
@@ -294,6 +302,76 @@ def test_step_rejects_bad_shapes():
         ck.resolve_step_sharded_packed(hk[0], hv[0],
                                        torch.zeros(7, dtype=torch.uint32),
                                        lows, lows, 16, 32, 32)
+
+
+KIND_SHAPE = (1024, 32, 64, 64)  # cap, T, R, Wr
+
+
+def kind_case(kind, n_shards, n_words=W, seed=0):
+    """A kind's batch on its history sharded at the quantiles of the
+    kind's keys: (HK[S], HV[S], lows, highs, arrays, T, R, Wr)."""
+    cap, T, R, Wr = KIND_SHAPE
+    splits = tg.split_ids(4 * T, n_shards)
+    hk, hv, arrays = tg.adversarial_batch(
+        np.random.default_rng(seed), kind, cap, T, R, Wr, n_words,
+        splits=splits or None)
+    lows, highs = tg.shard_bounds(splits, n_words)
+    shk, shv = tg.shard_history(hk, hv, lows, highs)
+    return shk, shv, lows, highs, arrays, T, R, Wr
+
+
+@pytest.fixture(scope="module")
+def ref4():
+    """One reference sharded resolver at the kinds' shape: its jitted
+    packed steps are compiled once for every kind."""
+    return ShardedTpuConflictSet(capacity=KIND_SHAPE[0], n_shards=4,
+                                 key_bytes=KEY_BYTES)
+
+
+@pytest.mark.parametrize("kind", tg.KINDS)
+@pytest.mark.parametrize("attribute", [True, False])
+def test_packed_step_matches_reference_on_kinds(ref4, kind, attribute):
+    shk, shv, lows, highs, arrays, T, R, Wr = kind_case(kind, 4)
+    fn = ref4._get_shard_packed_fn(T, R, Wr, attribute)
+    bounds = ref4._make_bounds(lows)
+    state = (shk, shv)
+    for commit in (tg.COMMIT, tg.COMMIT + 20):   # fresh, then a step on
+        buf = ck.pack_interval_batch(*arrays, commit, tg.OLDEST)
+        dev_state = jax.device_put(state,
+                                   NamedSharding(ref4._mesh, P(ref4.AXIS)))
+        want = _np(fn(*bounds, *dev_state, ref4._feed(buf)))
+        got = _np(ck.resolve_step_sharded_packed(
+            torch.from_numpy(state[0]), torch.from_numpy(state[1]),
+            torch.from_numpy(buf), torch.from_numpy(lows),
+            torch.from_numpy(highs), T, R, Wr, attribute=attribute))
+        for name, g, w in zip(("HK", "HV", "count", "conflict", "read_hit"),
+                              got, want):
+            np.testing.assert_array_equal(g, w, err_msg=f"{kind} {name}")
+        state = (want[0], want[1])
+
+
+def test_split_edges_kind_hits_its_corners():
+    """The shard-edge kind's ranges start and end on split keys, span
+    every shard, and no write reaches the last shard, which so has no
+    survivor."""
+    shk, _shv, lows, highs, arrays, T, R, Wr = kind_case("split_edges", 4)
+    rb, re, wb, we, wv = arrays[2], arrays[3], arrays[6], arrays[7], \
+        arrays[9]
+    splits = [tuple(x) for x in lows[1:]]
+    assert any(tuple(x) in splits for x in rb)
+    assert any(tuple(x) in splits for x in re)
+    assert any(tuple(b) < splits[0] and tuple(e) > splits[-1]
+               for b, e in zip(rb, re))
+    assert all(tuple(e) <= splits[-1] for e in we[wv])
+    out = ck.resolve_step_sharded_packed(
+        torch.from_numpy(shk), torch.from_numpy(_shv),
+        torch.from_numpy(ck.pack_interval_batch(*arrays, tg.COMMIT,
+                                                tg.OLDEST)),
+        torch.from_numpy(lows), torch.from_numpy(highs), T, R, Wr)
+    # the history holds versions below the commit: only survivors write
+    # it, into every shard but the last
+    wrote = (out[1] == tg.COMMIT).any(dim=1).tolist()
+    assert wrote == [True, True, True, False]
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +742,51 @@ def test_k8_matches_plain(cuda, n_shards, kind):
                 assert (g is None) == (w is None)
                 if g is not None:
                     assert torch.equal(g.cpu(), w)
+
+
+def _k8_against_plain(cuda, shk, shv, lows, highs, arrays, T, R, Wr):
+    """K8, packed and unpacked, attributed and not, against its plain
+    version from the given state and from the state one step later."""
+    lows_t, highs_t = torch.from_numpy(lows), torch.from_numpy(highs)
+    for attribute in (True, False):
+        state = (torch.from_numpy(shk), torch.from_numpy(shv))
+        for commit in (tg.COMMIT, tg.COMMIT + 20):
+            buf = torch.from_numpy(ck.pack_interval_batch(*arrays, commit,
+                                                          tg.OLDEST))
+            want = ck.resolve_step_sharded_packed(
+                *state, buf, lows_t, highs_t, T, R, Wr, attribute=attribute)
+            before = ck.launches["resolve_sharded"]
+            got = ck.resolve_step_sharded_packed(
+                state[0].to(cuda), state[1].to(cuda), buf.to(cuda),
+                lows_t.to(cuda), highs_t.to(cuda), T, R, Wr,
+                attribute=attribute)
+            got_u = ck.resolve_step_sharded(
+                state[0].to(cuda), state[1].to(cuda),
+                *[torch.from_numpy(a).to(cuda) for a in arrays], commit,
+                tg.OLDEST, lows_t.to(cuda), highs_t.to(cuda),
+                attribute=attribute)
+            assert ck.launches["resolve_sharded"] == before + 2
+            for outs in (got, got_u):
+                for g, w in zip(outs, want):
+                    assert (g is None) == (w is None)
+                    if g is not None:
+                        assert torch.equal(g.cpu(), w)
+            state = want[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", tg.KINDS)
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_k8_matches_plain_on_kinds(cuda, kind, n_shards):
+    _k8_against_plain(cuda, *kind_case(kind, n_shards))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [40, 100])
+def test_k8_matches_plain_at_wide_keys(cuda, n_words):
+    """Keys of 41 and 101 words: endpoint records of 16 and 32 uint4s,
+    the second with the sort's smaller tiles."""
+    _k8_against_plain(cuda, *kind_case("mixed", 4, n_words))
 
 
 @pytest.mark.cuda
