@@ -173,20 +173,29 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def traced_us(fn, reps: int = 50) -> float:
+def traced_ms(fn, reps: int = 50, tries: int = 3):
     """Device time of one call by torch.profiler: every CUDA kernel and
-    copy it launched, summed over `reps` calls, over `reps`."""
+    copy it launched, summed over `reps` calls, over `reps`, in ms. A
+    window in which the profiler recorded no device time is taken again
+    (it has come back empty on the card); None if every try did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return total / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if total > 0:
+            return total / reps / 1e3
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def host_profile(tag, label, fn, calls: int = 2000, top: int = 10) -> float:
@@ -347,19 +356,25 @@ def check_edges(dev):
             expect_exact(f"K1 edge n={n}", [keys.searchsorted_i32(
                 table.to(dev), q.to(dev), side)],
                 [keys.searchsorted_i32_plain(table, q, side)])
-    for n in (128, 256, 8192):
-        vals = torch.from_numpy(rng.integers(rmq.VDEAD, 1000, n)
+    for n_arrays, n in ((1, 128), (1, 256), (1, 8192), (4, 128),
+                        (4, 8192), (4, 1 << 15)):
+        vals = torch.from_numpy(rng.integers(rmq.VDEAD, 1000, (n_arrays, n))
                                 .astype(np.int32))
-        lo = rng.integers(0, n, 3000)
-        hi = np.clip(lo + rng.integers(-3, 300, 3000), 0, n)
-        # then: whole, empty, reversed, cross-block, and ranges that
-        # overhang either end or lie past it (ends clamp into [0, n-1])
-        lo = np.concatenate([lo, [0, 5, 0, 127, 100, n - 3, n + 4, -7]]
-                            ).astype(np.int32)
-        hi = np.concatenate([hi, [n, 5, 0, min(n, 129), 90, n + 50, n + 9,
-                                  3]]).astype(np.int32)
-        lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
-        expect_exact(f"K2 edge n={n}", [rmq.range_max(
+        lo = rng.integers(0, n, (n_arrays, 3000))
+        hi = np.clip(lo + rng.integers(-3, 300, (n_arrays, 3000)), 0, n)
+        # then: whole, empty, reversed, cross-block, over 129 blocks and
+        # more, and ranges that overhang either end or lie past it (ends
+        # clamp into [0, n-1])
+        edge_lo = [0, 5, 0, 127, 100, n - 3, n + 4, -7, 3, 64]
+        edge_hi = [n, 5, 0, min(n, 129), 90, n + 50, n + 9, 3,
+                   min(n, 129 * rmq.BLOCK + 5), n - 1]
+        lo = np.concatenate([lo, np.tile(edge_lo, (n_arrays, 1))], axis=1)
+        hi = np.concatenate([hi, np.tile(edge_hi, (n_arrays, 1))], axis=1)
+        lo_t = torch.from_numpy(lo.astype(np.int32))
+        hi_t = torch.from_numpy(hi.astype(np.int32))
+        if n_arrays == 1:
+            vals, lo_t, hi_t = vals[0], lo_t[0], hi_t[0]
+        expect_exact(f"K2 edge S={n_arrays} n={n}", [rmq.range_max(
             vals.to(dev), lo_t.to(dev), hi_t.to(dev))],
             [rmq.range_max_plain(vals, lo_t, hi_t)])
     hv = torch.from_numpy(rng.integers(rmq.VDEAD, 1 << 30, 4099)
@@ -530,9 +545,8 @@ def profile_k1(dev, tag) -> dict:
     table = torch.arange(N_TXNS, dtype=torch.int32, device=dev)
     q = torch.arange(N_TXNS + 2, dtype=torch.int32, device=dev)
     return dict(
-        traced_ms=traced_us(lambda: keys.searchsorted_i32(table, q)) / 1e3,
-        library_traced_ms=traced_us(
-            lambda: torch.searchsorted(table, q)) / 1e3,
+        traced_ms=traced_ms(lambda: keys.searchsorted_i32(table, q)),
+        library_traced_ms=traced_ms(lambda: torch.searchsorted(table, q)),
         host_us=host_profile(tag, "K1 searchsorted_i32",
                              lambda: keys.searchsorted_i32(table, q)),
         library_host_us=host_profile(tag, "torch.searchsorted",
@@ -579,6 +593,7 @@ def measure_kernels(dev, mid, batch, version):
     out["range_max"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rmq.range_max(hv, lo, hi), 50),
+        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo, hi)),
         plain_ms=time_ms(lambda: rmq.range_max_plain(hv, lo, hi), 5),
         library_ms=None,
         bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3)
@@ -752,14 +767,14 @@ def check_sharded_edges(dev):
 
 
 def measure_sharded_kernels(dev, mid, batch, version, bounds):
-    """K7 and K8 against their plain versions on the card at the sharded
-    path's shapes, with device times. `mid` is a mid-stream state of the
-    sharded path (HK[S], HV[S], base, oldest), `batch` the batch it
-    resolved next, at `version` (commit, new oldest), and `bounds` the
-    shards' (lows, highs) on the card."""
+    """K2 over the shards, K7 and K8 against their plain versions on the
+    card at the sharded path's shapes, with device times. `mid` is a
+    mid-stream state of the sharded path (HK[S], HV[S], base, oldest),
+    `batch` the batch it resolved next, at `version` (commit, new
+    oldest), and `bounds` the shards' (lows, highs) on the card."""
     import torch
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
-    from foundationdb_tpu_torch.ops import keys
+    from foundationdb_tpu_torch.ops import keys, rmq
     out = {}
     hk, hv, base, oldest = mid
     n_shards, cap, width = hk.shape
@@ -786,10 +801,32 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
     out["shard_clip"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: keys.clip_to_shards(*clip_in, *bounds), 50),
+        traced_ms=traced_ms(
+            lambda: keys.clip_to_shards(*clip_in, *bounds)),
         plain_ms=time_ms(lambda: keys.clip_to_shards_plain(*clip_in,
                                                            *bounds), 5),
         library_ms=None,
         bound_ms=k7_bytes / HBM_BYTES_PER_S * 1e3)
+
+    # K2 over every shard's HV in one call: point reads in each shard's
+    # live rows, R a shard, as the step's external check makes them
+    rng = np.random.default_rng(8)
+    live = (hk[:, :, -1] != 0xFFFFFFFF).to(torch.int64).sum(1).tolist()
+    lo = np.stack([rng.integers(0, max(c - 2, 1), R) for c in live])
+    hi = lo + rng.integers(1, 3, (n_shards, R))
+    lo_t = torch.from_numpy(lo.astype(np.int32)).to(dev)
+    hi_t = torch.from_numpy(hi.astype(np.int32)).to(dev)
+    got = rmq.range_max(hv, lo_t, hi_t)
+    err = expect_exact("K2 over the shards", [got], [rmq.range_max_plain(
+        hv.cpu(), lo_t.cpu(), hi_t.cpu())])
+    k2_bytes = sum(32 * sectors_touched(lo[k], hi[k], cap)
+                   for k in range(n_shards)) + 12 * n_shards * R
+    out["range_max_sharded"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rmq.range_max(hv, lo_t, hi_t), 50),
+        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo_t, hi_t)),
+        plain_ms=time_ms(lambda: rmq.range_max_plain(hv, lo_t, hi_t), 5),
+        bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3)
 
     # K8: the packed step the main path ran for `batch`, on its state
     outs = (torch.empty_like(hk), torch.empty_like(hv))
@@ -877,6 +914,39 @@ def check_point_edges(dev):
                              t_t.to(dev), q_t.to(dev), mask.to(dev))],
                          [keys.searchsorted_rows_mixed_plain(t_t, q_t,
                                                              mask)])
+    # tables of long runs of equal rows at caps 2^11, 2^12 and the point
+    # cell's 2^19, at widths 1, 5 (the cells' keys) and 127 (the widest
+    # the steps take; past the kernel's 8-word row load)
+    def rows(ids, width):
+        ids = np.asarray(ids, np.uint32)
+        return ids[:, None].copy() if width == 1 else _point_rows(
+            ids, width, 8)
+
+    for width, caps in ((1, (2048, 4096)), (5, (2048, 4096, 1 << 19)),
+                        (127, (64, 128))):
+        for cap in caps:
+            for pad in (False, True):
+                ids = np.sort(rng.integers(0, max(1, cap // 37), cap))
+                table = rows(ids * 2 + 2, width)
+                if pad:
+                    table[cap - cap // 4:] = 0xFFFFFFFF
+                q = np.concatenate([
+                    table[rng.integers(0, cap, 2000)],            # equal
+                    rows(rng.integers(0, cap // 18 + 4, 2000) * 2 + 1,
+                         width),                                  # between
+                    rows([0, 1], width),                          # below
+                    rows([cap + 9], width),                       # above
+                    np.full((1, width), 0xFFFFFFFF, np.uint32)])
+                t_t, q_t = torch.from_numpy(table), torch.from_numpy(q)
+                what = f"K6 edge table width={width} cap={cap} pad={pad}"
+                for side in ("left", "right"):
+                    expect_exact(f"{what} {side}", [keys.searchsorted_rows(
+                        t_t.to(dev), q_t.to(dev), side)],
+                        [keys.searchsorted_rows_plain(t_t, q_t, side)])
+                mask = torch.from_numpy(rng.random(q.shape[0]) < 0.5)
+                expect_exact(f"{what} mixed", [keys.searchsorted_rows_mixed(
+                    t_t.to(dev), q_t.to(dev), mask.to(dev))],
+                    [keys.searchsorted_rows_mixed_plain(t_t, q_t, mask)])
 
     cap, T, R, Wr = 64, 16, 32, 32
     commit, oldest, init_off = 70, 20, 25
@@ -975,6 +1045,8 @@ def measure_point_kernels(dev, mid, batch, version):
     out["searchsorted_rows"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: keys.searchsorted_rows(sk, rk, "right"), 50),
+        traced_ms=traced_ms(
+            lambda: keys.searchsorted_rows(sk, rk, "right")),
         plain_ms=time_ms(lambda: keys.searchsorted_rows_plain(sk, rk,
                                                               "right"), 5),
         library_ms=None,
@@ -1102,6 +1174,8 @@ def measure_chain_kernels(dev, ctl0):
         max_abs_err=err,
         ms=time_ms(lambda: bc.chain_gen(got, *rows, snap, commit, oldest,
                                         KEYSPACE), 50),
+        traced_ms=traced_ms(lambda: bc.chain_gen(
+            got, *rows, snap, commit, oldest, KEYSPACE)),
         plain_ms=time_ms(lambda: bc.chain_gen_plain(
             got, *rows, snap, commit, oldest, KEYSPACE), 5),
         library_ms=None,
@@ -1125,6 +1199,7 @@ def measure_chain_kernels(dev, ctl0):
     out["chain_tally"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: bc.chain_tally(got, flags, N_TXNS), 50),
+        traced_ms=traced_ms(lambda: bc.chain_tally(got, flags, N_TXNS)),
         plain_ms=time_ms(lambda: bc.chain_tally_plain(got, flags, N_TXNS),
                          5),
         library_ms=time_ms(lambda: torch.sum(flags[:N_TXNS]), 50),
@@ -1539,8 +1614,15 @@ TRACE_PHASES = (
     ("cover, GC and compaction scans",
      ("cover_", "keep_reduce", "compact_kernel", "fill_tail",
       "scan_tiles")),
-    ("external check (K1, K2 or K6, bounds, flags)",
-     ("searchsorted", "rmq_", "ext_bounds", "ext_flags", "base_kernel")),
+    # the external check, kernel by kernel: "searchsorted" names both
+    # K6 and K1, so K6 comes first; "base_kernel" matches K5's
+    # point_base_kernel and "point_ext" its flags, before "point_"
+    ("external check: K6 row search", ("searchsorted_rows",)),
+    ("external check: K1 segment starts", ("searchsorted_i32",)),
+    ("external check: K2 range max", ("rmq_",)),
+    ("external check: bounds search (K3, K8)", ("ext_bounds",)),
+    ("external check: flags and base",
+     ("ext_flags", "point_ext", "base_kernel")),
     ("K5 runs, scatters and scans", ("point_",)),
     ("shard clip (K7)", ("clip",)),
     ("feed and result copies", ("Memcpy", "memcpy", "Memset", "memset")),
@@ -1821,6 +1903,8 @@ def main() -> int:
         dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
         (shards._lows, shards._highs)))
     kern.update(measure_chain_kernels(dev, chain_ctl))
+    kern["range_max"].update({f"sharded_{k}": v for k, v in
+                              kern.pop("range_max_sharded").items()})
     sources = {
         "searchsorted_i32": ("foundationdb_tpu_torch/csrc/searchsorted.cu",
                              "foundationdb_tpu/ops/keys.py:166"),
@@ -1902,8 +1986,15 @@ def main() -> int:
         if m["library_ms"] is not None:
             extra += f"; library {m['library_ms']:.4f} ms"
         if "traced_ms" in m:
-            extra += (f"; traced {m['traced_ms']:.4f} ms, library traced "
-                      f"{m['library_traced_ms']:.4f} ms; host "
+            extra += f"; traced {fmt_ms(m['traced_ms'])}"
+        if "sharded_ms" in m:
+            extra += (f"; over {N_SHARDS} shards {m['sharded_ms']:.4f} ms, "
+                      f"traced {fmt_ms(m['sharded_traced_ms'])}, plain "
+                      f"{m['sharded_plain_ms']:.3f} ms, bound "
+                      f"{m['sharded_bound_ms']:.6f} ms")
+        if "library_traced_ms" in m:
+            extra += (f", library traced "
+                      f"{fmt_ms(m['library_traced_ms'])}; host "
                       f"{m['host_us']:.2f} us a call, library "
                       f"{m['library_host_us']:.2f} us")
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
@@ -1919,7 +2010,8 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m.get("bound_by", "bytes"),
-                     "library_ms": m["library_ms"]})
+                     "library_ms": m["library_ms"],
+                     "traced_ms": m.get("traced_ms")})
     for kind, step in (("point", "point_resolve"), ("interval", "resolve")):
         gen = kern["chain_gen"]
         bound = (kern[step]["bound_ms"] + kern["chain_tally"]["bound_ms"]

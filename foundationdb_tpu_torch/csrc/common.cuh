@@ -179,8 +179,9 @@ cudaError_t fdb_searchsorted_rows_launch(const uint32_t* table, int cap,
                                          int q, const uint8_t* right_mask,
                                          int right, int32_t* out,
                                          cudaStream_t stream);
-size_t fdb_range_max_scratch(int n);
-cudaError_t fdb_range_max_launch(const int32_t* vals, int n,
+// K2 over S arrays: vals [S, n], lo/hi/out [S, q]
+size_t fdb_range_max_scratch(int S, int n);
+cudaError_t fdb_range_max_launch(const int32_t* vals, int S, int n,
                                  const int32_t* lo, const int32_t* hi, int q,
                                  int32_t* out, void* scratch,
                                  cudaStream_t stream);

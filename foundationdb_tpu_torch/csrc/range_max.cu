@@ -1,8 +1,15 @@
-// K2: range max of an int32 version array over [lo, hi) per query.
+// K2: range max of S int32 version arrays over [lo, hi) per query.
 //
 // Replaces foundationdb_tpu/ops/rmq.py:36 build_range_max_table,
 // :57 _block_range_max and :69 range_max (the resolve step's external
-// check, ops/conflict_kernel.py:223).
+// check, ops/conflict_kernel.py:223; the sharded step's over every
+// shard's HV at once).
+//
+// For array k and query i: the max of vals[k][lo..hi) with both ends of
+// a non-empty range clamped into [0, n-1] and the answer floored at
+// VDEAD; VDEAD for an empty or inverted range (hi <= lo). Values are
+// version offsets, never below VDEAD, so this is the reference's
+// sparse-table answer bit for bit.
 //
 // Bound: bytes. The function must read the 32-byte sectors of the
 // values that its ranges touch, read (lo, hi) and write one answer per
@@ -10,155 +17,180 @@
 // values, so 16,384 queries touch about 16K sectors: ~0.5 MB plus
 // 192 KB, ~0.2 us at 3.35 TB/s (chip_smoke.py computes it from the
 // run's ranges).
-// Design: the TPU structure kept as it is: one warp per 128-value block
-// computes the in-block prefix and suffix max with shuffles (coalesced,
-// one pass), and a doubling sparse table covers only the n/128 block
-// maxima (14 levels of 8,192 at the slice's shapes, built by one
-// block). A query is then at most three reads, or a short scan inside
-// one block. The build reads all n values, so on short ranges the
-// kernel moves ~6x the bytes the bound counts; a build-free path for
-// short ranges is the known excess to remove. Empty ranges give VDEAD,
-// every answer is floored at VDEAD, and indices are clamped to
-// [0, n-1] as in the plain version.
-
-#include <climits>
+//
+// Design: two launches for all S arrays, and no table per query shape.
+//  1. rmq_summary_kernel: a block per super-block of RMQ_SUPER blocks of
+//     128 values, a warp per block (coalesced loads, one __reduce_max),
+//     writes every block's max and every super-block's max: n/128 +
+//     n/8192 int32 an array. It reads each value once, spread over
+//     S * n / 8192 blocks (128 at the cells' shapes), not one SM.
+//  2. rmq_query_kernel: a thread per query. A range of at most
+//     RMQ_SHORT values, as every point read is, is read by its own
+//     thread. Then the warp takes its long ranges one at a time, all 32
+//     lanes on one range: the two partial blocks, the block maxima out
+//     to the super-block edges, the super-block maxima between, reduced
+//     with __reduce_max_sync. So short and long scans never share a
+//     diverging warp, and a long range costs a lane about
+//     (256 + 128 + n/8192) / 32 loads.
+// The prefix and suffix arrays and the one-block sparse table of the
+// reference's structure are gone: on point reads they were built over
+// all of HV (12 MB written at 2^20) and went unread.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int SUPER = 64;          // blocks of 128 values a super-block
+constexpr int SUM_WARPS = 8;       // SUPER / SUM_WARPS blocks a warp
+constexpr int RMQ_SHORT = 8;       // values a thread scans by itself
+constexpr int Q_THREADS = 256;
 
-__global__ void rmq_blocks_kernel(const int32_t* __restrict__ v, int nb,
-                                  int32_t* __restrict__ pre,
-                                  int32_t* __restrict__ suf,
-                                  int32_t* __restrict__ bmax) {
-  int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (warp >= nb) return;  // whole warps exit together
-  size_t base = (size_t)warp * fdb::RMQ_BLOCK + lane * 4;
-  int32_t a0 = v[base], a1 = v[base + 1], a2 = v[base + 2], a3 = v[base + 3];
-  int32_t p0 = a0, p1 = max(p0, a1), p2 = max(p1, a2), p3 = max(p2, a3);
-  int32_t incl = p3;
-  for (int off = 1; off < 32; off <<= 1) {
-    int32_t y = __shfl_up_sync(FULL, incl, off);
-    if (lane >= off) incl = max(incl, y);
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+    rmq_summary_kernel(const int32_t* __restrict__ vals, int n, int nb,
+                       int nsb, int32_t* __restrict__ bmax,
+                       int32_t* __restrict__ smax) {
+  __shared__ int32_t wmax[SUM_WARPS];
+  const int k = blockIdx.y, sb = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t* v = vals + (size_t)k * n;
+  constexpr int PER = SUPER / SUM_WARPS;
+  int32_t x[PER][4];
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int blk = sb * SUPER + t * SUM_WARPS + warp;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[t][j] = blk < nb ? v[(size_t)blk * fdb::RMQ_BLOCK + j * 32 + lane]
+                         : fdb::VDEAD;
   }
-  int32_t excl = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) excl = INT_MIN;
-  pre[base] = max(excl, p0);
-  pre[base + 1] = max(excl, p1);
-  pre[base + 2] = max(excl, p2);
-  pre[base + 3] = max(excl, p3);
-  int32_t s3 = a3, s2 = max(a2, s3), s1 = max(a1, s2), s0 = max(a0, s1);
-  int32_t sincl = s0;
-  for (int off = 1; off < 32; off <<= 1) {
-    int32_t y = __shfl_down_sync(FULL, sincl, off);
-    if (lane + off < 32) sincl = max(sincl, y);
-  }
-  int32_t sexcl = __shfl_down_sync(FULL, sincl, 1);
-  if (lane == 31) sexcl = INT_MIN;
-  suf[base] = max(sexcl, s0);
-  suf[base + 1] = max(sexcl, s1);
-  suf[base + 2] = max(sexcl, s2);
-  suf[base + 3] = max(sexcl, s3);
-  if (lane == 31) bmax[warp] = incl;
-}
-
-// tab[0] holds the block maxima; level k is max over 2^k blocks
-__global__ void rmq_table_kernel(int32_t* tab, int nb, int levels) {
-  for (int k = 1; k < levels; ++k) {
-    int half = 1 << (k - 1);
-    const int32_t* prev = tab + (size_t)(k - 1) * nb;
-    int32_t* cur = tab + (size_t)k * nb;
-    for (int j = threadIdx.x; j < nb; j += blockDim.x)
-      cur[j] = max(prev[j], j + half < nb ? prev[j + half] : fdb::VDEAD);
-    __syncthreads();
-  }
-}
-
-__global__ void rmq_query_kernel(const int32_t* __restrict__ v,
-                                 const int32_t* __restrict__ pre,
-                                 const int32_t* __restrict__ suf,
-                                 const int32_t* __restrict__ tab, int nb,
-                                 const int32_t* __restrict__ lo_a,
-                                 const int32_t* __restrict__ hi_a, int q,
-                                 int32_t* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  int lo = lo_a[i], hi = hi_a[i];
   int32_t m = fdb::VDEAD;
-  if (hi > lo) {
-    // clamp both ends into [0, n-1], as the plain version's gathers do
-    int n_last = nb * fdb::RMQ_BLOCK - 1;
-    lo = min(max(lo, 0), n_last);
-    int last = min(max(hi - 1, 0), n_last);
-    int lb = lo / fdb::RMQ_BLOCK, hb = last / fdb::RMQ_BLOCK;
-    if (lb == hb) {
-      for (int j = lo; j <= last; ++j) m = max(m, v[j]);
-    } else {
-      m = max(m, max(suf[lo], pre[last]));
-      int a = lb + 1, len = hb - a;
-      if (len > 0) {
-        int k = 31 - __clz(len);
-        m = max(m, max(tab[(size_t)k * nb + a],
-                       tab[(size_t)k * nb + hb - (1 << k)]));
-      }
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int blk = sb * SUPER + t * SUM_WARPS + warp;
+    int32_t b = __reduce_max_sync(fdb::FULL_MASK,
+                                  max(max(x[t][0], x[t][1]),
+                                      max(x[t][2], x[t][3])));
+    if (lane == 0 && blk < nb) bmax[(size_t)k * nb + blk] = b;
+    m = max(m, b);
+  }
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < SUM_WARPS; ++w) m = max(m, wmax[w]);
+    smax[(size_t)k * nsb + sb] = m;
+  }
+}
+
+// the max of v[a..b] (inclusive, a <= b, both in range) by the whole
+// warp, every lane calling with the same range; each lane gets it
+__device__ int32_t warp_range_max(const int32_t* __restrict__ v,
+                                  const int32_t* __restrict__ bm,
+                                  const int32_t* __restrict__ sm, int a,
+                                  int b, int lane) {
+  int32_t m = fdb::VDEAD;
+  const int ab = a / fdb::RMQ_BLOCK, bb = b / fdb::RMQ_BLOCK;
+  if (ab == bb) {
+    for (int j = a + lane; j <= b; j += 32) m = max(m, v[j]);
+  } else {
+    for (int j = a + lane; j < (ab + 1) * fdb::RMQ_BLOCK; j += 32)
+      m = max(m, v[j]);
+    for (int j = bb * fdb::RMQ_BLOCK + lane; j <= b; j += 32)
+      m = max(m, v[j]);
+    const int x = ab + 1, y = bb - 1;  // the whole blocks between
+    const int sx = x / SUPER, sy = y / SUPER;
+    if (x <= y && sy - sx <= 1) {
+      for (int j = x + lane; j <= y; j += 32) m = max(m, bm[j]);
+    } else if (x <= y) {
+      for (int j = x + lane; j < (sx + 1) * SUPER; j += 32)
+        m = max(m, bm[j]);
+      for (int j = sy * SUPER + lane; j <= y; j += 32) m = max(m, bm[j]);
+      for (int j = sx + 1 + lane; j < sy; j += 32) m = max(m, sm[j]);
     }
   }
-  out[i] = m;
+  return __reduce_max_sync(fdb::FULL_MASK, m);
 }
 
-int levels_for(int nb) {
-  int k = 1;
-  while ((1 << k) <= nb) ++k;
-  return k;
+__global__ void __launch_bounds__(Q_THREADS)
+    rmq_query_kernel(const int32_t* __restrict__ vals,
+                     const int32_t* __restrict__ bmax,
+                     const int32_t* __restrict__ smax, int n, int nb,
+                     int nsb, const int32_t* __restrict__ lo_a,
+                     const int32_t* __restrict__ hi_a, int q,
+                     long long total, int32_t* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < total;   // dead lanes still join the warp's work
+  const int k = live ? (int)(i / q) : 0;
+  const int lo = live ? lo_a[i] : 0, hi = live ? hi_a[i] : 0;
+  const bool any = hi > lo;
+  const int a = min(max(lo, 0), n - 1);
+  const int b = min(max(hi - 1, 0), n - 1);
+  const bool is_long = any && b - a >= RMQ_SHORT;
+  const int32_t* v = vals + (size_t)k * n;
+  int32_t m = fdb::VDEAD;
+  if (any && !is_long)
+    for (int j = a; j <= b; ++j) m = max(m, v[j]);
+  for (unsigned longs = __ballot_sync(fdb::FULL_MASK, is_long); longs;
+       longs &= longs - 1) {
+    const int src = __ffs(longs) - 1;
+    const int la = __shfl_sync(fdb::FULL_MASK, a, src);
+    const int lb = __shfl_sync(fdb::FULL_MASK, b, src);
+    const int lk = __shfl_sync(fdb::FULL_MASK, k, src);
+    const int32_t r =
+        warp_range_max(vals + (size_t)lk * n, bmax + (size_t)lk * nb,
+                       smax + (size_t)lk * nsb, la, lb, lane);
+    if (lane == src) m = r;
+  }
+  if (live) out[i] = m;
 }
+
+int supers_for(int nb) { return (nb + SUPER - 1) / SUPER; }
 
 }  // namespace
 
-size_t fdb_range_max_scratch(int n) {
-  int nb = n / fdb::RMQ_BLOCK;
+size_t fdb_range_max_scratch(int S, int n) {
+  const int nb = n / fdb::RMQ_BLOCK;
   fdb::Carver c{nullptr, 0};
-  c.take<int32_t>(n);
-  c.take<int32_t>(n);
-  c.take<int32_t>((size_t)levels_for(nb) * nb);
+  c.take<int32_t>((size_t)S * nb);
+  c.take<int32_t>((size_t)S * supers_for(nb));
   return c.off;
 }
 
-cudaError_t fdb_range_max_launch(const int32_t* vals, int n,
+cudaError_t fdb_range_max_launch(const int32_t* vals, int S, int n,
                                  const int32_t* lo, const int32_t* hi, int q,
                                  int32_t* out, void* scratch,
                                  cudaStream_t stream) {
-  if (n < fdb::RMQ_BLOCK || n % fdb::RMQ_BLOCK || q < 0)
+  if (S < 1 || S > 65535 || n < fdb::RMQ_BLOCK || n % fdb::RMQ_BLOCK ||
+      q < 0)
     return cudaErrorInvalidValue;
-  int nb = n / fdb::RMQ_BLOCK, levels = levels_for(nb);
+  if (q == 0) return cudaSuccess;
+  const int nb = n / fdb::RMQ_BLOCK, nsb = supers_for(nb);
   fdb::Carver c{static_cast<char*>(scratch), 0};
-  int32_t* pre = c.take<int32_t>(n);
-  int32_t* suf = c.take<int32_t>(n);
-  int32_t* tab = c.take<int32_t>((size_t)levels * nb);
-  rmq_blocks_kernel<<<fdb::blocks_for((long long)nb * 32, 256), 256, 0,
-                      stream>>>(vals, nb, pre, suf, tab);
+  int32_t* bmax = c.take<int32_t>((size_t)S * nb);
+  int32_t* smax = c.take<int32_t>((size_t)S * nsb);
+  rmq_summary_kernel<<<dim3(nsb, S), SUM_WARPS * 32, 0, stream>>>(
+      vals, n, nb, nsb, bmax, smax);
   cudaError_t e = cudaGetLastError();
   if (e) return e;
-  if (levels > 1) {
-    rmq_table_kernel<<<1, 1024, 0, stream>>>(tab, nb, levels);
-    if ((e = cudaGetLastError())) return e;
-  }
-  if (q == 0) return cudaSuccess;
-  rmq_query_kernel<<<fdb::blocks_for(q, 256), 256, 0, stream>>>(
-      vals, pre, suf, tab, nb, lo, hi, q, out);
+  const long long total = (long long)S * q;
+  rmq_query_kernel<<<fdb::blocks_for(total, Q_THREADS), Q_THREADS, 0,
+                     stream>>>(vals, bmax, smax, n, nb, nsb, lo, hi, q,
+                               total, out);
   return cudaGetLastError();
 }
 
-FDB_API size_t fdb_range_max_scratch_bytes(int n) {
-  return fdb_range_max_scratch(n);
+FDB_API size_t fdb_range_max_scratch_bytes(int S, int n) {
+  return fdb_range_max_scratch(S, n);
 }
 
-FDB_API int fdb_range_max(const int32_t* vals, int n, const int32_t* lo,
-                          const int32_t* hi, int q, int32_t* out,
-                          void* scratch, size_t scratch_bytes, void* stream) {
-  if (scratch_bytes < fdb_range_max_scratch(n)) return fdb::ERR_SCRATCH;
+// vals [S, n], lo/hi/out [S, q]
+FDB_API int fdb_range_max(const int32_t* vals, int S, int n,
+                          const int32_t* lo, const int32_t* hi, int q,
+                          int32_t* out, void* scratch, size_t scratch_bytes,
+                          void* stream) {
+  if (S < 1 || n < 0) return fdb::ERR_BAD_ARGS;
+  if (scratch_bytes < fdb_range_max_scratch(S, n)) return fdb::ERR_SCRATCH;
   return static_cast<int>(fdb_range_max_launch(
-      vals, n, lo, hi, q, out, scratch, static_cast<cudaStream_t>(stream)));
+      vals, S, n, lo, hi, q, out, scratch, static_cast<cudaStream_t>(stream)));
 }

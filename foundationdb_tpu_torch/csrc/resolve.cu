@@ -61,7 +61,7 @@
 // history run in lockstep on one card, through K3's own phase kernels,
 // each per-shard phase ONE launch with the shard in blockIdx.y: K7 clips
 // the feed's reads to every shard once; the external bounds and flags
-// of every shard (K2 over each shard's HV stays a launch a shard),
+// of every shard (K2 over every shard's HV in one call),
 // OR-combined per transaction (the psum's counterpart); K3's endpoint
 // sort of the unclipped ranges, ONE rank-space overlap matrix and ONE
 // cooperative fixpoint; then one stable partition of the sorted
@@ -843,7 +843,7 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.lo = c.take<int32_t>((size_t)S * R);
   s.hi = c.take<int32_t>((size_t)S * R);
   s.vmax = c.take<int32_t>((size_t)S * R);
-  s.rmq = c.take<char>(fdb_range_max_scratch(cap));
+  s.rmq = c.take<char>(fdb_range_max_scratch(S, cap));
   s.rs = c.take<int32_t>(T + 2);
   s.ext_r = c.take<uint8_t>((size_t)S * R);
   s.base = c.take<uint8_t>(T + 1);
@@ -991,18 +991,15 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   }
 
   // 1. external check: K1 segment starts; every shard's bounds, K2 range
-  // max over each shard's HV, every shard's flags
+  // max over every shard's HV in one call, every shard's flags
   FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
   launches[0] += 1;
   const dim3 per_read(fdb::blocks_for(R, 256), S);
   ext_bounds_kernel<<<per_read, 256, 0, st>>>(rd, s.lo, s.hi);
   FDB_LAUNCHED();
-  for (int k = 0; k < S; ++k) {
-    FDB_TRY(fdb_range_max_launch(in.hv + (size_t)k * cap, cap,
-                                 s.lo + (size_t)k * R, s.hi + (size_t)k * R,
-                                 R, s.vmax + (size_t)k * R, s.rmq, st));
-    launches[1] += 1;
-  }
+  FDB_TRY(fdb_range_max_launch(in.hv, S, cap, s.lo, s.hi, R, s.vmax, s.rmq,
+                               st));
+  launches[1] += 1;
   ext_flags_kernel<<<per_read, 256, 0, st>>>(rd, s.vmax, s.ext_r);
   FDB_LAUNCHED();
   (clip ? base_kernel<true> : base_kernel<false>)

@@ -14,33 +14,69 @@
 // answers cap-1, not cap (the reference's contract needs a pad row; the
 // answer is kept as it is, bit for bit, for any table).
 //
-// Bound: bytes. One thread per query walks log2(cap) dependent probes
-// of one row each. At the point path's shapes (a 2^19-row, 12 MiB
-// state; 16,384 queries of 5 words) the least traffic is the queries
-// read once and the answers written once, plus the state sectors the
-// probes touch; the top levels of the search are shared by every query
-// and stay in L1/L2, so the kernel is latency-bound on its 19
-// dependent loads, which many resident warps hide.
+// Bound: bytes. At the point path's shapes (a 2^19-row, 12 MiB state;
+// 16,384 queries of 5 words) the least traffic is the queries read
+// once, the answers written once and the state sectors the probes
+// touch (chip_smoke.py counts them): under 1 us at 3.35 TB/s. A query's
+// 19 probes are a chain of dependent row reads; the top ~7 levels are
+// the same few rows for a block's queries and stay in L1, the rest are
+// scattered rows of the state. What the design does about it:
+//  - A probed row's first CW words load together, before any compare,
+//    so a probe costs one memory round trip whatever the keys' common
+//    prefix (a word-by-word compare paid one per equal word: the point
+//    cell's keys share their first 8 bytes).
+//  - 128-thread blocks, one query a thread: 16,384 queries spread over
+//    128 SMs.
+// Tried on the H100 in diagnostic builds and left out (PERF.md, PR 7):
+// staging the top 11 levels in shared memory (slower: every block
+// gathers the same 2,047 scattered rows at once), staging 6 or 8 levels
+// (no faster than L1), loading with each probe the two rows the next
+// probe may take (2 levels a round on 3 rows: slower), 16-byte loads of
+// a row (no faster), and a row's second sector read only on a tie
+// (slower).
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void searchsorted_rows_kernel(const uint32_t* __restrict__ table,
-                                         int cap, int logn, int width,
-                                         const uint32_t* __restrict__ queries,
-                                         int q,
-                                         const uint8_t* __restrict__ right_mask,
-                                         int right,
-                                         int32_t* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int RS_THREADS = 128;
+constexpr int CW = 8;   // words of a row loaded together
+
+// -1, 0 or 1 for row `p` against the query `qr`, the first CW words of
+// each already loaded (zeros past `width`); later words only on a tie
+__device__ __forceinline__ int cmp_row(const uint32_t (&x)[CW],
+                                       const uint32_t* p,
+                                       const uint32_t (&qw)[CW],
+                                       const uint32_t* qr, int width) {
+#pragma unroll
+  for (int j = 0; j < CW; ++j)
+    if (x[j] != qw[j]) return x[j] < qw[j] ? -1 : 1;
+  for (int w = CW; w < width; ++w)
+    if (p[w] != qr[w]) return p[w] < qr[w] ? -1 : 1;
+  return 0;
+}
+
+__global__ void __launch_bounds__(RS_THREADS)
+    searchsorted_rows_kernel(const uint32_t* __restrict__ table, int logn,
+                             int width, const uint32_t* __restrict__ queries,
+                             int q, const uint8_t* __restrict__ right_mask,
+                             int right, int32_t* __restrict__ out) {
+  const int i = blockIdx.x * RS_THREADS + threadIdx.x;
   if (i >= q) return;
   const uint32_t* qr = queries + (size_t)i * width;
-  bool upper = right_mask ? right_mask[i] != 0 : right != 0;
+  uint32_t qw[CW];
+#pragma unroll
+  for (int j = 0; j < CW; ++j) qw[j] = j < width ? qr[j] : 0u;
+  const bool upper = right_mask ? right_mask[i] != 0 : right != 0;
+  const int cap = 1 << logn;
   int pos = 0;
-  for (int k = 0; k < logn; ++k) {
-    int step = cap >> (k + 1);
-    int c = fdb::row_cmp(table + (size_t)(pos + step - 1) * width, qr, width);
+  for (int lv = 0; lv < logn; ++lv) {
+    const int step = cap >> (lv + 1);
+    const uint32_t* p = table + (size_t)(pos + step - 1) * width;
+    uint32_t x[CW];
+#pragma unroll
+    for (int j = 0; j < CW; ++j) x[j] = j < width ? p[j] : 0u;
+    const int c = cmp_row(x, p, qw, qr, width);
     pos += (upper ? c <= 0 : c < 0) ? step : 0;
   }
   out[i] = pos;
@@ -58,8 +94,9 @@ cudaError_t fdb_searchsorted_rows_launch(const uint32_t* table, int cap,
   if (q == 0) return cudaSuccess;
   int logn = 0;
   while ((1 << logn) < cap) ++logn;
-  searchsorted_rows_kernel<<<fdb::blocks_for(q, 256), 256, 0, stream>>>(
-      table, cap, logn, width, queries, q, right_mask, right, out);
+  searchsorted_rows_kernel<<<fdb::blocks_for(q, RS_THREADS), RS_THREADS, 0,
+                             stream>>>(table, logn, width, queries, q,
+                                       right_mask, right, out);
   return cudaGetLastError();
 }
 

@@ -113,8 +113,8 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "fdb_error_string": ([_I], ctypes.c_char_p),
     "fdb_searchsorted_i32": ([_P, _I, _P, _I, _I, _P, _P], _I),
-    "fdb_range_max_scratch_bytes": ([_I], _SZ),
-    "fdb_range_max": ([_P, _I, _P, _P, _I, _P, _P, _SZ, _P], _I),
+    "fdb_range_max_scratch_bytes": ([_I, _I], _SZ),
+    "fdb_range_max": ([_P, _I, _I, _P, _P, _I, _P, _P, _SZ, _P], _I),
     "fdb_resolve_scratch_bytes": ([_I, _I, _I, _I, _I], _SZ),
     "fdb_resolve": ([_P] * 14 + [_I] * 7 + [_P] * 5 + [_P, _SZ, _P, _P],
                     _I),

@@ -1,11 +1,13 @@
 """Range max over int32 version arrays (K2).
 
 For each query [lo, hi) the max of `vals[lo:hi]`, VDEAD for an empty
-range. The plain version is the reference's block structure written in
-PyTorch: 128-wide blocks with in-block prefix and suffix maxima, and a
-doubling sparse table over the block maxima. The kernel
-(csrc/range_max.cu) keeps the same structure. Values are version
-offsets, never below VDEAD.
+range; over S arrays at once, `vals` [S, n] and `lo`/`hi` [S, q]. The
+plain version is the reference's block structure written in PyTorch:
+128-wide blocks with in-block prefix and suffix maxima, and a doubling
+sparse table over the block maxima, one array at a time. The kernel
+(csrc/range_max.cu) reads short ranges directly and long ones through
+block and super-block maxima, for all S arrays in one call. Values are
+version offsets, never below VDEAD.
 """
 
 from __future__ import annotations
@@ -96,33 +98,45 @@ def range_max_query(table: RangeMaxTable, lo: torch.Tensor,
 
 def range_max_plain(vals: torch.Tensor, lo: torch.Tensor,
                     hi: torch.Tensor) -> torch.Tensor:
+    """`vals` [n] with lo/hi [q], or [S, n] with lo/hi [S, q]: one
+    array's table and queries at a time."""
+    if vals.dim() == 2:
+        return torch.stack([range_max_plain(v, a, b)
+                            for v, a, b in zip(vals, lo, hi)])
     return range_max_query(build_range_max_table(vals), lo, hi)
 
 
 def range_max(vals: torch.Tensor, lo: torch.Tensor,
               hi: torch.Tensor) -> torch.Tensor:
-    """K2 on a CUDA tensor (build + query, one call), the plain version
-    on a CPU tensor. `vals` int32 [n], n a multiple of BLOCK; lo/hi
-    int32 [q]. A non-empty range's ends clamp into [0, n-1]."""
+    """K2 on a CUDA tensor (one call for all arrays), the plain version
+    on a CPU tensor. `vals` int32 [n] with lo/hi int32 [q], or [S, n]
+    with lo/hi [S, q]; n a multiple of BLOCK. A non-empty range's ends
+    clamp into [0, n-1]."""
     if not _device.is_cuda(vals):
         return range_max_plain(vals, lo, hi)
     from ._build import check, lib
-    n = vals.shape[0]
-    if vals.dtype != torch.int32 or vals.dim() != 1 or n % BLOCK or not n:
-        raise ValueError("vals must be 1-D int32 of a multiple of 128")
+    n = vals.shape[-1]
+    if vals.dtype != torch.int32 or vals.dim() not in (1, 2) \
+            or n % BLOCK or not n or not vals.numel():
+        raise ValueError("vals must be [n] or [S, n] int32, n a multiple "
+                         "of 128")
+    n_arrays = vals.shape[0] if vals.dim() == 2 else 1
     for t in (lo, hi):
         if t.device != vals.device or t.dtype != torch.int32:
             raise ValueError("lo/hi must be int32 on the values' device")
-    if lo.shape != hi.shape:
-        raise ValueError("lo and hi must have one shape")
+    if lo.shape != hi.shape or lo.dim() != vals.dim() \
+            or lo.shape[:-1] != vals.shape[:-1]:
+        raise ValueError("lo and hi must be [q] for [n] values, [S, q] "
+                         "for [S, n]")
     vals, lo, hi = vals.contiguous(), lo.contiguous(), hi.contiguous()
     L = lib()
-    nbytes = L.fdb_range_max_scratch_bytes(n)
+    nbytes = L.fdb_range_max_scratch_bytes(n_arrays, n)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=vals.device)
     out = torch.empty(lo.shape, dtype=torch.int32, device=vals.device)
-    check(L.fdb_range_max(vals.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
-                          lo.numel(), out.data_ptr(), scratch.data_ptr(),
-                          nbytes, _device.stream_handle(vals.device)),
+    check(L.fdb_range_max(vals.data_ptr(), n_arrays, n, lo.data_ptr(),
+                          hi.data_ptr(), lo.shape[-1], out.data_ptr(),
+                          scratch.data_ptr(), nbytes,
+                          _device.stream_handle(vals.device)),
           "range_max")
     launches["range_max"] += 1
     return out

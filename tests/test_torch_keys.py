@@ -1,7 +1,10 @@
 """Port parity for ops/keys.py: the numpy key encoders are byte-identical
-to the reference's, and the int32 binary search (K1) matches the
+to the reference's, the int32 binary search (K1) matches the
 reference's searchsorted_i32 exactly, on both sides, including queries
-above every element. Every value is an integer: equality is exact."""
+above every element, and the row search (K6) matches the reference's
+searchsorted_rows and _mixed on tables with long runs of equal rows,
+with and without a +inf pad row, at caps 1 to 2^19 and widths 1 to
+127. Every value is an integer: equality is exact."""
 
 import numpy as np
 import pytest
@@ -101,3 +104,100 @@ def test_searchsorted_kernel_matches_plain(cuda, side):
         assert port.launches["searchsorted_i32"] == before + 1
         assert torch.equal(got.cpu(),
                            port.searchsorted_i32_plain(table, q, side))
+
+
+def _id_rows(ids, width):
+    """[n, width] rows ordered as their ids: the id in base 2^16 over
+    the words before the length word (leading words mostly zero, as
+    real keys share prefixes), the length word 8; width 1 is the id."""
+    ids = np.asarray(ids, np.int64)
+    rows = np.zeros((len(ids), width), np.uint32)
+    if width == 1:
+        rows[:, 0] = ids
+        return rows
+    for j in range(width - 1):
+        shift = 16 * (width - 2 - j)
+        rows[:, j] = (ids >> shift) & 0xFFFF if shift < 64 else 0
+    rows[:, -1] = 8
+    return rows
+
+
+def _edge_table(rng, cap, width, pad):
+    """A sorted [cap, width] table of even ids >= 2 in runs of ~37 equal
+    rows; with `pad`, its last quarter (at least one row) +inf."""
+    ids = 2 * np.sort(rng.integers(0, max(1, cap // 37), cap)) + 2
+    table = _id_rows(ids, width)
+    if pad:
+        table[cap - max(1, cap // 4):] = 0xFFFFFFFF
+    return table
+
+
+def _edge_row_queries(rng, table, width, n):
+    """Rows of the table, ids between and beyond them, below every row
+    and above every row (the +inf row among them)."""
+    top = int(rng.integers(1, 1 << 20))
+    return np.concatenate([
+        table[rng.integers(0, table.shape[0], n)],
+        _id_rows(rng.integers(0, 2 * top + 8, n), width),
+        _id_rows([0, 1], width),
+        _id_rows([1 << 40], width),
+        np.full((1, width), 0xFFFFFFFF, np.uint32)])
+
+
+@pytest.mark.parametrize("width", [1, 5, 9])
+@pytest.mark.parametrize("cap", [1, 2, 2048, 4096])
+def test_row_search_plain_matches_reference_on_edge_tables(cap, width):
+    """K6's plain version against the reference at caps 1, 2, 2^11 and
+    2^12, on tables with long runs of equal rows, with and without a pad
+    row, on both sides and a mixed mask."""
+    rng = np.random.default_rng(cap * 10 + width)
+    for pad in (True, False):
+        table = _edge_table(rng, cap, width, pad)
+        q = _edge_row_queries(rng, table, width, 150)
+        t_t, q_t = torch.from_numpy(table), torch.from_numpy(q)
+        for side in ("left", "right"):
+            want = np.asarray(ref.searchsorted_rows(
+                jnp.asarray(table), jnp.asarray(q), side=side))
+            np.testing.assert_array_equal(
+                port.searchsorted_rows(t_t, q_t, side).numpy(), want)
+        mask = rng.random(q.shape[0]) < 0.5
+        want = np.asarray(ref.searchsorted_rows_mixed(
+            jnp.asarray(table), jnp.asarray(q), jnp.asarray(mask)))
+        np.testing.assert_array_equal(port.searchsorted_rows_mixed(
+            t_t, q_t, torch.from_numpy(mask)).numpy(), want)
+        if not pad:   # above every row: cap-1, not cap
+            assert int(port.searchsorted_rows(t_t, q_t[-1:], "right")[0]) \
+                == cap - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,caps", [
+    (1, (1, 2, 2048, 4096, 1 << 19)),
+    (5, (1, 2, 2048, 4096, 1 << 19)),
+    (9, (2, 1024, 2048, 1 << 15)),
+    (127, (1, 2, 64, 128, 4096))])
+def test_row_search_kernel_matches_plain_on_edge_tables(cuda, width, caps):
+    """The kernel against its plain version at caps from 1 to the point
+    cell's 2^19 (2^11 and 2^12 at widths 1 and 5; at width 9 a row
+    spans the kernel's 8-word load; 127 is the widest key the steps
+    take), on tables with long runs of equal rows, with and without a
+    pad row, on both sides and a mixed mask, queries equal to rows,
+    between them, below and above every row."""
+    rng = np.random.default_rng(width)
+    for cap in caps:
+        for pad in (True, False):
+            table = torch.from_numpy(_edge_table(rng, cap, width, pad))
+            q = torch.from_numpy(_edge_row_queries(rng, table.numpy(),
+                                                   width, 3000))
+            mask = torch.from_numpy(rng.random(q.shape[0]) < 0.5)
+            for side in ("left", "right"):
+                before = port.launches["searchsorted_rows"]
+                got = port.searchsorted_rows(table.to(cuda), q.to(cuda),
+                                             side)
+                assert port.launches["searchsorted_rows"] == before + 1
+                assert torch.equal(got.cpu(), port.searchsorted_rows_plain(
+                    table, q, side)), (cap, pad, side)
+            got = port.searchsorted_rows_mixed(table.to(cuda), q.to(cuda),
+                                               mask.to(cuda))
+            assert torch.equal(got.cpu(), port.searchsorted_rows_mixed_plain(
+                table, q, mask)), (cap, pad)
