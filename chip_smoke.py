@@ -110,6 +110,7 @@ THREEFRY_OPS = 77      # 20 rounds x (add, rotate, xor), 5 injections x 3, 2
 CHAIN_BATCHES = 100    # the reference bench's FDBTPU_BENCH_BATCHES
 CHAIN_PREFIX = 8       # the chains' CPU comparison
 CHAIN_REPEATS = 3
+TALLY_EDGES = (1, 15, 17, 16_383, 16_385)   # K10's edge lengths
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
 SEED = 20260729
 
@@ -788,8 +789,9 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
     unpacked = ck.interval_unpack(buf, T, R, Wr, N_WORDS)
     cpu_bounds = [b.cpu() for b in bounds]
 
-    # K7: the clip of the batch's reads (K8 launches it for the reads;
-    # its writes are clipped inside its survivor partition)
+    # K7: the standalone clip of the batch's reads (K8 runs the same
+    # clip fused into its bounds search for the reads, and inside its
+    # survivor partition for the writes)
     clip_in = (unpacked[2], unpacked[3], unpacked[5])
     got = keys.clip_to_shards(*clip_in, *bounds)
     err = expect_exact("K7", list(got), list(keys.clip_to_shards_plain(
@@ -843,9 +845,8 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
                                          *cpu_bounds, attribute=True)
     expect_exact("K8 unpacked, attributed", [g.cpu() for g in got], want)
     # bound: each shard's real rows read once, the whole [S, cap] state
-    # written once, the feed read, the flags and counts written (the
-    # clipped ranges are K8's own intermediate: a step that clips on the
-    # fly needs none)
+    # written once, the feed read, the flags and counts written (K8
+    # clips on the fly: no clipped range is written)
     rows = int((hk[:, :, -1] != 0xFFFFFFFF).to(torch.int64).sum())
     row_bytes = width * 4 + 4
     k8_bytes = ((rows + n_shards * cap) * row_bytes + buf.numel() * 4
@@ -1112,7 +1113,8 @@ def check_chain_edges(dev):
     PRNGKey(7): at 1, 7 and 16,384 slots, keyspaces 1, 2^16+1, 4,000,000
     and 2^31-1, with and without end rows; K10 tallies flags taken from
     the step's rows, so they differ step by step, and records each
-    step's count."""
+    step's count. Then K10 alone at the lengths TALLY_EDGES, on flags
+    aligned to 16 bytes and one byte off."""
     import torch
     from foundationdb_tpu_torch.ops import bench_chain as bc
     for slots, keyspace in ((1, 1), (7, 2**16 + 1), (7, 2**31 - 1),
@@ -1141,6 +1143,29 @@ def check_chain_edges(dev):
                              f"{keyspace} step {i}", got, want)
             expect_exact("K10 edge per-step counts", [runs[1][1]],
                          [runs[0][1]])
+    # K10 alone around a 16-byte word and around 16,384 flags, on flags
+    # that start 16-byte aligned and one byte off (a view into an aligned
+    # buffer), with a per_step that holds the step and one too short
+    rng = np.random.default_rng(10)
+    for n in TALLY_EDGES:
+        for offset in (0, 1):
+            buf = torch.zeros(n + 32, dtype=torch.bool, device=dev)
+            flags = buf[offset:offset + n]
+            flags.copy_(torch.from_numpy(rng.random(n) < 0.5))
+            if flags.data_ptr() % 16 != offset:
+                raise AssertionError("K10 edge: the view is not offset")
+            ctl = torch.from_numpy(rng.integers(
+                0, 2**32, bc.C_WORDS, dtype=np.uint64).astype(np.uint32))
+            ctl[bc.C_STEP] = 3
+            for per_len in (8, 3):
+                got, want = ctl.to(dev), ctl.clone()
+                per_got = torch.full((per_len,), -1, dtype=torch.int32,
+                                     device=dev)
+                per_want = per_got.cpu()
+                bc.chain_tally(got, flags, n, per_got)
+                bc.chain_tally(want, flags.cpu(), n, per_want)
+                expect_exact(f"K10 edge n={n} offset={offset}",
+                             [got, per_got], [want, per_want])
 
 
 def measure_chain_kernels(dev, ctl0):
@@ -1203,6 +1228,7 @@ def measure_chain_kernels(dev, ctl0):
         plain_ms=time_ms(lambda: bc.chain_tally_plain(got, flags, N_TXNS),
                          5),
         library_ms=time_ms(lambda: torch.sum(flags[:N_TXNS]), 50),
+        library_traced_ms=traced_ms(lambda: torch.sum(flags[:N_TXNS])),
         bound_ms=k10_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     return out
 
@@ -1620,7 +1646,8 @@ TRACE_PHASES = (
     ("external check: K6 row search", ("searchsorted_rows",)),
     ("external check: K1 segment starts", ("searchsorted_i32",)),
     ("external check: K2 range max", ("rmq_",)),
-    ("external check: bounds search (K3, K8)", ("ext_bounds",)),
+    ("external check: bounds search + shard clip (K3, K8)",
+     ("ext_bounds",)),
     ("external check: flags and base",
      ("ext_flags", "point_ext", "base_kernel")),
     ("K5 runs, scatters and scans", ("point_",)),
@@ -1721,7 +1748,8 @@ def main() -> int:
     check_sharded_kinds(dev, tag)
     check_chain_edges(dev)
     print(f"[{tag}] edge shapes: K9, K10 bit-exact against plain over 8 "
-          f"chained keys", flush=True)
+          f"chained keys; K10 at n in {TALLY_EDGES}, aligned and one byte "
+          f"off", flush=True)
 
     # the deployment's batches, made once from the seed
     rng = np.random.default_rng(SEED)
@@ -1993,9 +2021,9 @@ def main() -> int:
                       f"{m['sharded_plain_ms']:.3f} ms, bound "
                       f"{m['sharded_bound_ms']:.6f} ms")
         if "library_traced_ms" in m:
-            extra += (f", library traced "
-                      f"{fmt_ms(m['library_traced_ms'])}; host "
-                      f"{m['host_us']:.2f} us a call, library "
+            extra += f", library traced {fmt_ms(m['library_traced_ms'])}"
+        if "host_us" in m:
+            extra += (f"; host {m['host_us']:.2f} us a call, library "
                       f"{m['library_host_us']:.2f} us")
         print(f"[{tag}] {name}: {m['ms']:.4f} ms (plain {m['plain_ms']:.3f} "
               f"ms, bound {m['bound_ms']:.6f} ms by "
@@ -2011,7 +2039,13 @@ def main() -> int:
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m.get("bound_by", "bytes"),
                      "library_ms": m["library_ms"],
-                     "traced_ms": m.get("traced_ms")})
+                     "traced_ms": m.get("traced_ms"),
+                     "library_traced_ms": m.get("library_traced_ms")})
+        if name == "shard_clip":
+            # the standalone clip is timed above; on the sharded path K7
+            # runs fused into the step's bounds search
+            rows[-1]["fused_into"] = ("foundationdb_tpu_torch/csrc/"
+                                      "resolve.cu ext_bounds_kernel<true>")
     for kind, step in (("point", "point_resolve"), ("interval", "resolve")):
         gen = kern["chain_gen"]
         bound = (kern[step]["bound_ms"] + kern["chain_tally"]["bound_ms"]

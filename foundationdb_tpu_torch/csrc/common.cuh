@@ -37,17 +37,102 @@ __device__ __forceinline__ bool row_is_inf(const uint32_t* a, int width) {
   return true;
 }
 
+// A row read the one way the searches read it: its first ROW_CW words
+// loaded together, before any compare (zeros past the width), so a
+// compare costs one memory round trip whatever prefix the keys share (a
+// word-by-word compare pays one per equal word); the words past them
+// are read from `p` only on a tie.
+constexpr int ROW_CW = 8;
+
+struct Row {
+  uint32_t w[ROW_CW];
+  const uint32_t* p;
+};
+
+__device__ __forceinline__ Row load_row(const uint32_t* p, int width) {
+  Row r;
+  r.p = p;
+#pragma unroll
+  for (int j = 0; j < ROW_CW; ++j) r.w[j] = j < width ? p[j] : 0u;
+  return r;
+}
+
+// -1, 0 or 1: the lexicographic order of two loaded rows
+__device__ __forceinline__ int cmp_rows(const Row& a, const Row& b,
+                                        int width) {
+#pragma unroll
+  for (int j = 0; j < ROW_CW; ++j)
+    if (a.w[j] != b.w[j]) return a.w[j] < b.w[j] ? -1 : 1;
+  for (int w = ROW_CW; w < width; ++w) {
+    uint32_t x = a.p[w], y = b.p[w];
+    if (x != y) return x < y ? -1 : 1;
+  }
+  return 0;
+}
+
+// N searches at once in a sorted table of n >= 0 rows: out[j] = the
+// count of rows < q[j], or <= q[j] where upper[j] (a true lower or
+// upper bound, in [0, n]). The probes halve [base, base + len], which
+// holds the answer, until len is 1, then one last probe at base decides
+// between base and base + 1; the probe count depends on n alone, so a
+// warp's lanes, and the N searches of a thread, probe in lockstep and
+// the N rows of a round load together. At n = 2^k the probes are K6's
+// sequence plus that last probe.
+template <int N>
+__device__ __forceinline__ void row_bounds(const uint32_t* tab, int n,
+                                           const Row (&q)[N],
+                                           const bool (&upper)[N],
+                                           int width, int (&out)[N]) {
+  int base[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) base[j] = 0;
+  if (n == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = 0;
+    return;
+  }
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    Row x[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      x[j] = load_row(tab + (size_t)(base[j] + half - 1) * width, width);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      base[j] += cmp_rows(x[j], q[j], width) < (int)upper[j] ? half : 0;
+    len -= half;
+  }
+  Row x[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    x[j] = load_row(tab + (size_t)base[j] * width, width);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    out[j] = base[j] + (cmp_rows(x[j], q[j], width) < (int)upper[j]);
+}
+
 // count of rows < q (upper=false) or <= q (upper=true) in a sorted table
 __device__ __forceinline__ int row_bound(const uint32_t* tab, int n,
                                          const uint32_t* q, int width,
                                          bool upper) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    int c = row_cmp(tab + (size_t)mid * width, q, width);
-    if (upper ? c <= 0 : c < 0) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+  const Row qs[1] = {load_row(q, width)};
+  const bool up[1] = {upper};
+  int out[1];
+  row_bounds<1>(tab, n, qs, up, width, out);
+  return out[0];
+}
+
+// K7's clip of the range [b, e) to a shard's [lo, hi): b' = max(b, lo),
+// e' = min(e, hi), as the reference's rows_max / rows_min do
+// (foundationdb_tpu/parallel/sharded_resolver.py:49-65); true when the
+// clipped range is non-empty (lt_rows(b', e')). The one definition: the
+// standalone clip, the sharded step's external check and its survivor
+// partition all call it.
+__device__ __forceinline__ bool clip_range(Row& b, Row& e, const Row& lo,
+                                           const Row& hi, int width) {
+  if (cmp_rows(b, lo, width) < 0) b = lo;
+  if (cmp_rows(hi, e, width) < 0) e = hi;
+  return cmp_rows(b, e, width) < 0;
 }
 
 // a flag array is bool (1 byte) in the unpacked feed and uint32 in the
@@ -169,8 +254,8 @@ struct Carver {
   } while (0)
 #define FDB_LAUNCHED() FDB_TRY(cudaGetLastError())
 
-// launchers shared between translation units (K3 launches K1 and K2;
-// K5 launches K1 and K6; the sharded step K8 launches K1, K2 and K7)
+// launchers shared between translation units (K3 and the sharded step
+// K8 launch K1 and K2; K5 launches K1 and K6)
 cudaError_t fdb_searchsorted_launch(const int32_t* table, int n,
                                     const int32_t* queries, int q, int right,
                                     int32_t* out, cudaStream_t stream);
@@ -185,9 +270,3 @@ cudaError_t fdb_range_max_launch(const int32_t* vals, int S, int n,
                                  const int32_t* lo, const int32_t* hi, int q,
                                  int32_t* out, void* scratch,
                                  cudaStream_t stream);
-cudaError_t fdb_clip_launch(const uint32_t* b, const uint32_t* e,
-                            const void* valid, int valid_bytes,
-                            const uint32_t* lows, const uint32_t* highs,
-                            int S, int n, int width, uint32_t* out_b,
-                            uint32_t* out_e, void* out_valid, int out_bytes,
-                            cudaStream_t stream);

@@ -4,9 +4,12 @@
 // (step :187-425), entered packed (:586 make_resolve_packed_fn, :551
 // make_interval_unpack) or unpacked (:431 make_resolve_fn). It computes
 // the same function, (HK', HV', count, conflict[T], read_hit[R]):
-//   1. external check: one binary search per read bound into HK (the
-//      history is sorted), then K2 range max over HV and K1 for the
-//      per-transaction read segments;
+//   1. external check: two searches per read into HK (the history is
+//      sorted; ext_bounds_kernel: common.cuh row_bounds, the read's two
+//      searches interleaved so each round's two probed rows load
+//      together, each probed row's first ROW_CW words loaded at once,
+//      the row load K6 shares), then K2 range max over HV and K1 for
+//      the per-transaction read segments;
 //   2. one endpoint sort per step: the batch's N = 2R + 2Wr endpoints
 //      (rb, wb, we, an invalid one as the +inf row, as the reference
 //      does at :255-257, and re) are sorted as records of the key row
@@ -59,10 +62,12 @@
 // :334 and :252 under shard_map), with the cross-shard combine of
 // ops/conflict_kernel.py:182-185. The S shards of a [S, cap, W+1]
 // history run in lockstep on one card, through K3's own phase kernels,
-// each per-shard phase ONE launch with the shard in blockIdx.y: K7 clips
-// the feed's reads to every shard once; the external bounds and flags
-// of every shard (K2 over every shard's HV in one call),
-// OR-combined per transaction (the psum's counterpart); K3's endpoint
+// each per-shard phase ONE launch with the shard in blockIdx.y: the
+// external bounds of every shard, each read clipped to the shard in
+// registers first (K7 fused into the bounds search, ext_bounds_kernel
+// <true>: no clipped row is written), the flags of every shard (K2
+// over every shard's HV in one call), OR-combined per transaction (the
+// psum's counterpart); K3's endpoint
 // sort of the unclipped ranges, ONE rank-space overlap matrix and ONE
 // cooperative fixpoint; then one stable partition of the sorted
 // endpoints gives every shard its survivors' boundaries, each write
@@ -89,8 +94,7 @@
 // which K3 leaves off: the reference's single-shard step keeps an
 // inverted range valid. Bound: bytes, as K3's, over the S shards' rows:
 // each shard's live rows read once, the whole [S, cap] state written
-// once and the feed read once (the clipped reads are this route's own
-// intermediate, not counted).
+// once and the feed read once.
 
 #include <cooperative_groups.h>
 
@@ -108,6 +112,10 @@ constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 8;
 constexpr int TILE = SCAN_THREADS * SCAN_ITEMS;
 constexpr int FIX_THREADS = 256;
+// the bounds search's blocks: at R = 16,384 reads, 128 blocks, about
+// one an SM (blocks of 256 left half the SMs idle, and the search is
+// bound by each SM's scattered row loads)
+constexpr int BOUNDS_THREADS = 128;
 constexpr int SURV_ITEMS = 2;      // sorted endpoints per thread, partition
 constexpr int SURV_TILE = SCAN_THREADS * SURV_ITEMS;
 constexpr uint32_t BEGIN_BIT = 0x80000000u;
@@ -164,23 +172,46 @@ struct Merged {
 };
 
 // ---- 1. external check ----------------------------------------------------
-// shard k = blockIdx.y: its history, and its reads ([S, R] rows and
-// flags, as K7 clips them; K3's one shard reads the feed's)
-__global__ void ext_bounds_kernel(In in, int32_t* lo, int32_t* hi) {
+// Read i against shard k = blockIdx.y's history: lo = #(rows <= rb) - 1
+// and hi = #(rows < re), the range K2 takes the max over, and ok, the
+// read's validity. With kClip (K8) the read is first clipped to the
+// shard (K7's clip_range, in registers; the S threads of a read load
+// the same feed rows, out of L1/L2), and ok is the clipped flag; K3
+// (S = 1) searches the feed's rows as they are. Both searches run in
+// lockstep (common.cuh row_bounds), a probed row's first ROW_CW words
+// loaded together: the interval and the sharded step share this kernel.
+template <bool kClip>
+__global__ void ext_bounds_kernel(In in, const uint32_t* lows,
+                                  const uint32_t* highs, int32_t* lo,
+                                  int32_t* hi, uint8_t* rok) {
   const int k = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.R) return;
-  const uint32_t* hk = in.hk + (size_t)k * in.cap * in.width;
-  const size_t q = (size_t)k * in.R + i, o = q * in.width;
-  lo[q] = fdb::row_bound(hk, in.cap, in.rb + o, in.width, true) - 1;
-  hi[q] = fdb::row_bound(hk, in.cap, in.re + o, in.width, false);
+  const int width = in.width;
+  fdb::Row q[2] = {fdb::load_row(in.rb + (size_t)i * width, width),
+                   fdb::load_row(in.re + (size_t)i * width, width)};
+  bool ok = fdb::flag_at(in.rvalid, i, in.flag_bytes);
+  if (kClip)
+    ok &= fdb::clip_range(q[0], q[1],
+                          fdb::load_row(lows + (size_t)k * width, width),
+                          fdb::load_row(highs + (size_t)k * width, width),
+                          width);
+  const bool upper[2] = {true, false};
+  int n[2];
+  fdb::row_bounds<2>(in.hk + (size_t)k * in.cap * width, in.cap, q, upper,
+                     width, n);
+  const size_t o = (size_t)k * in.R + i;
+  lo[o] = n[0] - 1;
+  hi[o] = n[1];
+  rok[o] = ok;
 }
 
-__global__ void ext_flags_kernel(In in, const int32_t* vmax, uint8_t* ext_r) {
+__global__ void ext_flags_kernel(In in, const uint8_t* rok,
+                                 const int32_t* vmax, uint8_t* ext_r) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.R) return;
   const int q = blockIdx.y * in.R + i, rt = in.rtxn[i];
   int32_t s = (rt >= 0 && rt < in.T) ? in.snap[rt] : fdb::SNAP_CLAMP;
-  ext_r[q] = fdb::flag_at(in.rvalid, q, in.flag_bytes) && vmax[q] > s;
+  ext_r[q] = rok[q] && vmax[q] > s;
 }
 
 // base_c = ext | too_old, with the pad entry T fixed at 1; K8's ext is
@@ -533,7 +564,7 @@ struct Part {
 // surviving write's (a valid write whose transaction did not conflict)
 // begin or end; K8 (kClip) clips the write to [lows[k], highs[k]) and
 // keeps it only where the clip is non-empty, as the reference's clip
-// does (ops/keys.py clip_to_shards_plain); `is_b` says whether it is
+// does (common.cuh clip_range, K7's clip); `is_b` says whether it is
 // the write's begin
 template <bool kClip>
 __device__ const uint32_t* part_row(const In& in, const Part& pt, int p,
@@ -546,16 +577,15 @@ __device__ const uint32_t* part_row(const In& in, const Part& pt, int p,
   const int t = min(max(in.wtxn[w], 0), in.T);
   if (!fdb::flag_at(in.wvalid, w, in.flag_bytes) || pt.cfinal[t])
     return nullptr;
-  const uint32_t* b = in.wb + (size_t)w * width;
-  const uint32_t* e = in.we + (size_t)w * width;
-  if (kClip) {
-    const uint32_t* lo = pt.lows + (size_t)k * width;
-    const uint32_t* hi = pt.highs + (size_t)k * width;
-    if (fdb::row_cmp(b, lo, width) < 0) b = lo;
-    if (fdb::row_cmp(hi, e, width) < 0) e = hi;
-    if (fdb::row_cmp(b, e, width) >= 0) return nullptr;
-  }
-  return is_b ? b : e;
+  if (!kClip) return (is_b ? in.wb : in.we) + (size_t)w * width;
+  fdb::Row b = fdb::load_row(in.wb + (size_t)w * width, width);
+  fdb::Row e = fdb::load_row(in.we + (size_t)w * width, width);
+  if (!fdb::clip_range(b, e,
+                       fdb::load_row(pt.lows + (size_t)k * width, width),
+                       fdb::load_row(pt.highs + (size_t)k * width, width),
+                       width))
+    return nullptr;
+  return is_b ? b.p : e.p;
 }
 
 // pass A: shard k = blockIdx.y's survivors per tile of sorted endpoints
@@ -812,19 +842,16 @@ __global__ void fill_tail_kernel(uint32_t* hk_out, int32_t* hv_out, int cap,
 }
 
 // ---- scratch layout ---------------------------------------------------------
-// per shard: the external bounds and flags and every buffer of the merge;
-// with the clip (K8): the clipped reads and their flags, 4 bytes a flag
-// at most. K3 is the S = 1 layout without the clip.
+// per shard: the external bounds and flags and every buffer of the merge
+// (no clipped row: K8 clips in registers). K3 is the S = 1 layout.
 struct Scratch {
   int32_t *lo, *hi, *vmax, *rs;
   char* rmq;
-  uint8_t *ext_r, *base, *ca, *cb, *cfinal, *hit_r, *keepf;
+  uint8_t *rok, *ext_r, *base, *ca, *cb, *cfinal, *hit_r, *keepf;
   int* flags;
   uint32_t *alive_p, *ovp, *ins_k;
   int32_t *ins_tie, *ub, *src, *mv;
   int32_t *agg_max, *agg_sum, *pre_max, *pre_sum, *agg_keep, *pre_keep;
-  uint32_t *crb, *cre;
-  char* crv;
   uint4 *rec_a, *rec_b;
   Pos pos;
   int32_t *agg_surv, *lane_tab;
@@ -835,16 +862,17 @@ struct Scratch {
 int rec_nv(int width) { return fdb::rec_uint4s(width + 1); }
 
 size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
-             int width, int S, bool clip) {
+             int width, int S) {
   fdb::Carver c{base, 0};
   const int n_lanes = (Wr + 31) / 32, n_s = 2 * Wr, mtot = cap + n_s;
   const int n_tiles = (mtot + TILE - 1) / TILE;
-  const size_t n_ep = 2 * (size_t)R + 2 * (size_t)Wr, nc = clip ? S : 0;
+  const size_t n_ep = 2 * (size_t)R + 2 * (size_t)Wr;
   s.lo = c.take<int32_t>((size_t)S * R);
   s.hi = c.take<int32_t>((size_t)S * R);
   s.vmax = c.take<int32_t>((size_t)S * R);
   s.rmq = c.take<char>(fdb_range_max_scratch(S, cap));
   s.rs = c.take<int32_t>(T + 2);
+  s.rok = c.take<uint8_t>((size_t)S * R);
   s.ext_r = c.take<uint8_t>((size_t)S * R);
   s.base = c.take<uint8_t>(T + 1);
   s.ca = c.take<uint8_t>(T + 1);
@@ -866,9 +894,6 @@ size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
   s.pre_sum = c.take<int32_t>((size_t)S * n_tiles);
   s.agg_keep = c.take<int32_t>((size_t)S * n_tiles);
   s.pre_keep = c.take<int32_t>((size_t)S * n_tiles);
-  s.crb = c.take<uint32_t>(nc * R * width);
-  s.cre = c.take<uint32_t>(nc * R * width);
-  s.crv = c.take<char>(nc * R * 4);
   s.rec_a = c.take<uint4>(n_ep * rec_nv(width));
   s.rec_b = c.take<uint4>(n_ep * rec_nv(width));
   s.pos.r_lo = c.take<int32_t>(R);
@@ -958,7 +983,7 @@ int merge_gc(const In& in, const Scratch& s, int S, uint32_t* hk_out,
 
 // K3 (lows == nullptr, S = 1) and K8 (S shards of [cap] rows each, the
 // ranges clipped to [lows[k], highs[k]) for shard k). launches: [0] K1,
-// [1] K2, [2] K7 (K8 only).
+// [1] K2, [2] K7 (K8 only: the bounds search its clip is fused into).
 int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
                  int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
                  int32_t* count_out, uint8_t* conflict_out,
@@ -974,33 +999,26 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   long long unused[3] = {0, 0, 0};
   if (!launches) launches = unused;
   Scratch s;
-  if (carve(s, nullptr, cap, T, R, Wr, width, S, clip) > scratch_bytes)
+  if (carve(s, nullptr, cap, T, R, Wr, width, S) > scratch_bytes)
     return fdb::ERR_SCRATCH;
-  carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width, S, clip);
-  const int n_lanes = (Wr + 31) / 32, fb = in.flag_bytes;
+  carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width, S);
+  const int n_lanes = (Wr + 31) / 32;
 
-  // 0. the shard clip of the reads (K7), for the external check
-  In rd = in;
-  if (clip) {
-    FDB_TRY(fdb_clip_launch(in.rb, in.re, in.rvalid, fb, lows, highs, S, R,
-                            width, s.crb, s.cre, s.crv, fb, st));
-    launches[2] += 1;
-    rd.rb = s.crb;
-    rd.re = s.cre;
-    rd.rvalid = s.crv;
-  }
-
-  // 1. external check: K1 segment starts; every shard's bounds, K2 range
-  // max over every shard's HV in one call, every shard's flags
+  // 1. external check: K1 segment starts; every shard's bounds (K8: each
+  // read clipped to the shard first, K7 fused), K2 range max over every
+  // shard's HV in one call, every shard's flags
   FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
   launches[0] += 1;
-  const dim3 per_read(fdb::blocks_for(R, 256), S);
-  ext_bounds_kernel<<<per_read, 256, 0, st>>>(rd, s.lo, s.hi);
+  (clip ? ext_bounds_kernel<true> : ext_bounds_kernel<false>)
+      <<<dim3(fdb::blocks_for(R, BOUNDS_THREADS), S), BOUNDS_THREADS, 0,
+         st>>>(in, lows, highs, s.lo, s.hi, s.rok);
   FDB_LAUNCHED();
+  if (clip) launches[2] += 1;
   FDB_TRY(fdb_range_max_launch(in.hv, S, cap, s.lo, s.hi, R, s.vmax, s.rmq,
                                st));
   launches[1] += 1;
-  ext_flags_kernel<<<per_read, 256, 0, st>>>(rd, s.vmax, s.ext_r);
+  ext_flags_kernel<<<dim3(fdb::blocks_for(R, 256), S), 256, 0, st>>>(
+      in, s.rok, s.vmax, s.ext_r);
   FDB_LAUNCHED();
   (clip ? base_kernel<true> : base_kernel<false>)
       <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, s.ext_r,
@@ -1077,13 +1095,13 @@ In unpack_feed(const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
 FDB_API size_t fdb_resolve_scratch_bytes(int cap, int T, int R, int Wr,
                                          int width) {
   Scratch s;
-  return carve(s, nullptr, cap, T, R, Wr, width, 1, false);
+  return carve(s, nullptr, cap, T, R, Wr, width, 1);
 }
 
 FDB_API size_t fdb_resolve_sharded_scratch_bytes(int S, int cap, int T, int R,
                                                  int Wr, int width) {
   Scratch s;
-  return carve(s, nullptr, cap, T, R, Wr, width, S, true);
+  return carve(s, nullptr, cap, T, R, Wr, width, S);
 }
 
 FDB_API int fdb_resolve(const uint32_t* hk, const int32_t* hv,

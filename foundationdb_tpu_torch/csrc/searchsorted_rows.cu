@@ -21,10 +21,11 @@
 // 19 probes are a chain of dependent row reads; the top ~7 levels are
 // the same few rows for a block's queries and stay in L1, the rest are
 // scattered rows of the state. What the design does about it:
-//  - A probed row's first CW words load together, before any compare,
-//    so a probe costs one memory round trip whatever the keys' common
-//    prefix (a word-by-word compare paid one per equal word: the point
-//    cell's keys share their first 8 bytes).
+//  - A probed row's first ROW_CW words load together, before any
+//    compare (common.cuh load_row, the row load the external check of
+//    K3 and K8 shares), so a probe costs one memory round trip whatever
+//    the keys' common prefix (a word-by-word compare paid one per equal
+//    word: the point cell's keys share their first 8 bytes).
 //  - 128-thread blocks, one query a thread: 16,384 queries spread over
 //    128 SMs.
 // Tried on the H100 in diagnostic builds and left out (PERF.md, PR 7):
@@ -40,21 +41,6 @@
 namespace {
 
 constexpr int RS_THREADS = 128;
-constexpr int CW = 8;   // words of a row loaded together
-
-// -1, 0 or 1 for row `p` against the query `qr`, the first CW words of
-// each already loaded (zeros past `width`); later words only on a tie
-__device__ __forceinline__ int cmp_row(const uint32_t (&x)[CW],
-                                       const uint32_t* p,
-                                       const uint32_t (&qw)[CW],
-                                       const uint32_t* qr, int width) {
-#pragma unroll
-  for (int j = 0; j < CW; ++j)
-    if (x[j] != qw[j]) return x[j] < qw[j] ? -1 : 1;
-  for (int w = CW; w < width; ++w)
-    if (p[w] != qr[w]) return p[w] < qr[w] ? -1 : 1;
-  return 0;
-}
 
 __global__ void __launch_bounds__(RS_THREADS)
     searchsorted_rows_kernel(const uint32_t* __restrict__ table, int logn,
@@ -63,20 +49,15 @@ __global__ void __launch_bounds__(RS_THREADS)
                              int right, int32_t* __restrict__ out) {
   const int i = blockIdx.x * RS_THREADS + threadIdx.x;
   if (i >= q) return;
-  const uint32_t* qr = queries + (size_t)i * width;
-  uint32_t qw[CW];
-#pragma unroll
-  for (int j = 0; j < CW; ++j) qw[j] = j < width ? qr[j] : 0u;
+  const fdb::Row qr = fdb::load_row(queries + (size_t)i * width, width);
   const bool upper = right_mask ? right_mask[i] != 0 : right != 0;
   const int cap = 1 << logn;
   int pos = 0;
   for (int lv = 0; lv < logn; ++lv) {
     const int step = cap >> (lv + 1);
-    const uint32_t* p = table + (size_t)(pos + step - 1) * width;
-    uint32_t x[CW];
-#pragma unroll
-    for (int j = 0; j < CW; ++j) x[j] = j < width ? p[j] : 0u;
-    const int c = cmp_row(x, p, qw, qr, width);
+    const fdb::Row x =
+        fdb::load_row(table + (size_t)(pos + step - 1) * width, width);
+    const int c = fdb::cmp_rows(x, qr, width);
     pos += (upper ? c <= 0 : c < 0) ? step : 0;
   }
   out[i] = pos;

@@ -599,6 +599,9 @@ def _outputs(hk, n_txns, n_reads, attribute, out):
 
 
 def _note_launches(counts, name: str = "resolve") -> None:
+    """Count a step and the kernels it launched inside: K1, K2 and, for
+    the sharded step, K7, whose clip runs fused into the step's bounds
+    search (one launch a sharded batch)."""
     launches[name] += 1
     _keys.launches["searchsorted_i32"] += int(counts[0])
     _rmq.launches["range_max"] += int(counts[1])

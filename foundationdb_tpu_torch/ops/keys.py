@@ -140,7 +140,9 @@ def searchsorted_i32(table: torch.Tensor, queries: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K7: row order and the shard clip (csrc/shard_clip.cu)
+# K7: row order and the shard clip (csrc/shard_clip.cu). The sharded
+# step runs the clip fused into its bounds search (csrc/resolve.cu) and
+# counts that launch under "shard_clip"; these are the standalone entries.
 # ---------------------------------------------------------------------------
 
 def lt_rows_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

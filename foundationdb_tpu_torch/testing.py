@@ -23,6 +23,15 @@ Every kind aims at a corner of the interval step:
                    or upper bound of one shard, or cover exactly one
                    shard (empty in the others); no write reaches the
                    last shard, so it has no survivors
+  clip_edges       K8's read clip at the shards' bounds (`splits` as
+                   above): ranges that begin or end exactly on a bound,
+                   on the key one past it (the bound + b"\x00", a row
+                   that ties the bound up to the length word), lie
+                   wholly inside one shard (outside every other), are
+                   emptied by one shard's clip, cover one shard, the
+                   whole keyspace, or are inverted across a bound;
+                   the history holds the bounds and the keys one past
+                   them
 
 With `splits`, the keys spread over [0, splits[-1] + splits[0]) in every
 kind, and the duplicates kind's tiny alphabet straddles the middle
@@ -54,7 +63,7 @@ VDEAD = -(1 << 30)
 INF = np.uint32(0xFFFFFFFF)
 COMMIT, OLDEST = 70, 20
 KINDS = ("duplicates", "empty_inverted", "inf_rows", "no_valid_writes",
-         "chain", "mixed", "split_edges")
+         "chain", "mixed", "split_edges", "clip_edges")
 POINT_KINDS = ("one_key", "invalid_writes", "inf_writes", "mixed")
 N_SHARDS = 4
 
@@ -161,6 +170,56 @@ def _split_ranges(rng, n: int, n_words: int, splits, alphabet: int,
     return key_rows(b, n_words), key_rows(e, n_words)
 
 
+def _past(rows: np.ndarray) -> np.ndarray:
+    """Each row's key + b"\x00": the same words, the length word one
+    longer, so it ties the row up to the length word."""
+    out = rows.copy()
+    out[:, -1] += 1
+    return out
+
+
+def _clip_ranges(rng, n: int, n_words: int, splits, alphabet: int):
+    """n (begin, end) row pairs at the shards' bounds (see KINDS)."""
+    edges = np.asarray(splits, np.int64)
+    k = rng.integers(0, len(edges), n)                 # a bound per range
+    at = key_rows(edges[k], n_words)
+    past = _past(at)
+    below = key_rows(rng.integers(0, edges[k]), n_words)
+    above = key_rows(edges[k] + 1 + rng.integers(
+        0, np.maximum(alphabet - edges[k] - 1, 1)), n_words)
+    nxt = np.append(edges[1:], alphabet)[k]            # the next bound
+    inside_b = edges[k] + 1 + rng.integers(0, np.maximum(nxt - edges[k] - 1,
+                                                         1))
+    inside = key_rows(inside_b, n_words)
+    inside_e = key_rows(np.minimum(inside_b + 1 + rng.integers(0, 3, n), nxt),
+                        n_words)
+    special = _special_rows(n_words)
+    empty_key = np.broadcast_to(special[0], at.shape)
+    inf_row = np.broadcast_to(special[2], at.shape)
+    pick = rng.integers(0, 8, n)[:, None]
+    b = np.choose(pick, [at, below, below, past, inside, at, empty_key,
+                         above])
+    e = np.choose(pick, [past, past, at, above, inside_e,
+                         key_rows(nxt, n_words), inf_row, below])
+    return b, e
+
+
+def _with_rows(rng, hk, hv, extra):
+    """The history with the rows `extra` added (canonical: sorted unique
+    rows after the empty key, +inf / VDEAD padding)."""
+    cap = hk.shape[0]
+    real = ~(hk == INF).all(axis=1)
+    rows = np.unique(np.concatenate([hk[real][1:], extra]), axis=0)
+    rows = rows[:cap - 1]
+    n = 1 + len(rows)
+    out_k = np.full_like(hk, INF)
+    out_k[0] = 0
+    out_k[1:n] = rows
+    out_v = np.full_like(hv, VDEAD)
+    out_v[:n] = rng.integers(-5, 60, n)
+    return out_k, out_v
+
+
 def shard_history(hk, hv, lows, highs):
     """A history split into [S, cap] shards as the sharded resolver
     holds it: shard k's rows are its lower bound, at the version the
@@ -216,7 +275,7 @@ def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
     alphabet = max(16, 4 * T)
     if splits is not None:
         alphabet = max(alphabet, splits[-1] + splits[0])
-    elif kind == "split_edges":
+    elif kind in ("split_edges", "clip_edges"):
         splits = split_ids(alphabet)
     offset = 0
     if kind == "duplicates":
@@ -241,6 +300,12 @@ def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
     elif kind == "split_edges":
         rb, re = _split_ranges(rng, R, n_words, splits, alphabet, False)
         wb, we = _split_ranges(rng, Wr, n_words, splits, alphabet, True)
+    elif kind == "clip_edges":
+        bounds = key_rows(splits, n_words)
+        hk, hv = _with_rows(rng, hk, hv, np.concatenate([bounds,
+                                                         _past(bounds)]))
+        rb, re = _clip_ranges(rng, R, n_words, splits, alphabet)
+        wb, we = _clip_ranges(rng, Wr, n_words, splits, alphabet)
     else:
         rb, re = _ranges(rng, kind, R, n_words, alphabet, offset)
         wb, we = _ranges(rng, kind, Wr, n_words, alphabet, offset)

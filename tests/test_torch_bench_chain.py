@@ -3,8 +3,11 @@ random bits, randint and row generator equal jax.random bit for bit;
 the CPU point and interval chains count exactly the reference bench's
 conflicts (bench.py `bench_tpu_point` / `bench_tpu`) and, step by step,
 give the state, conflict flags and key of a JAX loop over the
-reference's resolve cores; K9 and K10 equal their plain versions on the
-card (CUDA-marked)."""
+reference's resolve cores; K10's plain version counts the set flags
+at lengths around a 16-byte word and around 16,384, with and
+without per_step; K9 and K10 equal their plain versions on the card
+(CUDA-marked; K10 also at those lengths on a view one byte off
+alignment)."""
 
 import numpy as np
 import pytest
@@ -250,6 +253,81 @@ def test_chain_steps_match_a_jax_loop(kind, cap):
     counts = [int(c.sum()) for c in want_c]
     assert chain.step_counts() == counts and sum(counts) > 0
     assert chain.conflicts() == sum(counts)
+
+
+# K10's edge lengths: one flag, a 16-byte word's neighbours, and
+# either side of the chains' 16,384 (one 16-byte load a thread)
+TALLY_LENGTHS = (1, 15, 16, 17, 16383, 16385)
+
+
+def tally_case(n, offset=0):
+    """A control block mid-chain and n + 8 flag bytes, about half of
+    them set, as a bool view of n flags starting `offset` bytes in."""
+    rng = np.random.default_rng(n)
+    ctl = torch.from_numpy(rng.integers(0, 2**32, bc.C_WORDS,
+                                        dtype=np.uint64).astype(np.uint32))
+    ctl[bc.C_STEP] = 3
+    raw = (rng.random(n + 8) < 0.5).astype(np.uint8)
+    flags = torch.from_numpy(raw).view(torch.bool)[offset:offset + n]
+    return ctl, raw[offset:offset + n], flags
+
+
+@pytest.mark.parametrize("per_step_len", (None, 8, 3))
+@pytest.mark.parametrize("n", TALLY_LENGTHS)
+def test_chain_tally_plain_counts_nonzero_flags(n, per_step_len):
+    """K10's plain version: nconf grows by the count of set flags
+    (numpy's count of nonzero bytes), per_step[i] takes it where i = 3
+    fits (not in a per_step of 3), the step counter advances and the
+    next key becomes the carried key; no other word changes."""
+    ctl, raw, flags = tally_case(n)
+    want = ctl.numpy().astype(np.int64)
+    count = int(np.count_nonzero(raw))
+    per_step = None if per_step_len is None else \
+        torch.full((per_step_len,), -1, dtype=torch.int32)
+    bc.chain_tally_plain(ctl, flags, n, per_step)
+    want[bc.C_NCONF] = (want[bc.C_NCONF] + count) & 0xFFFFFFFF
+    want[bc.C_STEP] = 4
+    want[bc.C_KEY:bc.C_KEY + 2] = want[bc.C_NEXT:bc.C_NEXT + 2]
+    np.testing.assert_array_equal(ctl.numpy().astype(np.int64), want)
+    if per_step is not None:
+        expect = [-1] * per_step_len
+        if per_step_len > 3:
+            expect[3] = count
+        assert per_step.tolist() == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("n", TALLY_LENGTHS)
+def test_chain_tally_kernel_matches_plain_at_edges(cuda, n, offset):
+    """K10 against its plain version at the edge lengths, on flags that
+    start 16-byte aligned and one byte off, with a per_step that holds
+    the step and one that is too short."""
+    for per_step_len in (8, 3):
+        outs = []
+        for dev in ("cpu", cuda):
+            ctl, _raw, flags = tally_case(n, offset)
+            if dev != "cpu":
+                ctl, flags = ctl.to(dev), _offset_on(flags, offset, dev)
+            per_step = torch.full((per_step_len,), -1, dtype=torch.int32,
+                                  device=dev)
+            before = bc.launches["chain_tally"]
+            bc.chain_tally(ctl, flags, n, per_step)
+            assert bc.launches["chain_tally"] == before + (dev != "cpu")
+            outs.append((ctl.cpu(), per_step.cpu()))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+def _offset_on(flags, offset, dev):
+    """The flags on the card as a view `offset` bytes into a buffer
+    whose start is 16-byte aligned."""
+    buf = torch.zeros(flags.shape[0] + 32, dtype=torch.bool, device=dev)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:offset + flags.shape[0]]
+    view.copy_(flags.to(dev))
+    assert view.data_ptr() % 16 == offset
+    return view
 
 
 @pytest.mark.cuda

@@ -10,8 +10,10 @@ On a card, K3 is held to the plain version on the same batches (and at
 keys of 41 and 101 words, which take the endpoint sort's two widest
 record sizes), and K1 to its plain version on unsorted tables and at
 n = 1, 2 and 2^16 (the table larger than the kernel stages in shared
-memory). Every output is
-integer or boolean: equality is exact."""
+memory). The shard-bound kinds also run at key widths of 4, 8 and 12
+words, past the external check's 8 words loaded a probed row, against
+the reference on the CPU and K3 against its plain version on a card.
+Every output is integer or boolean: equality is exact."""
 
 import numpy as np
 import pytest
@@ -104,6 +106,33 @@ def test_plain_unpacked_step_matches_reference_on_edges(kind, attribute):
             np.testing.assert_array_equal(g, w, err_msg=f"{kind} {name}")
 
 
+# the cells' key width (4 words), and widths past the external check's
+# ROW_CW = 8 loaded words a probed row: at 8 words the length word lies
+# past them, at 12 the key ids too
+CLIP_WIDTHS = (4, 8, 12)
+
+
+@pytest.mark.parametrize("n_words", CLIP_WIDTHS)
+@pytest.mark.parametrize("kind", ["split_edges", "clip_edges"])
+def test_plain_packed_step_matches_reference_at_clip_edges(n_words, kind):
+    """Searches that tie past the loaded words: the shard-bound kinds
+    (rows that tie a bound up to the length word) at three key widths,
+    attributed, the plain interval step against the reference's."""
+    jfn = ref.make_resolve_packed_fn(CAP, T, R, WR, n_words, attribute=True,
+                                     donate=False)
+    hk, hv, arrays = tg.adversarial_batch(np.random.default_rng(n_words),
+                                          kind, CAP, T, R, WR, n_words)
+    buf = ref.pack_interval_batch(*arrays, tg.COMMIT, tg.OLDEST)
+    want = _np(jfn(hk, hv, buf))
+    got = _np(port.resolve_step_packed(
+        torch.from_numpy(hk), torch.from_numpy(hv), torch.from_numpy(buf),
+        T, R, WR, attribute=True))
+    for name, g, w in zip(("HK", "HV", "count", "conflict", "read_hit"),
+                          got, want):
+        np.testing.assert_array_equal(g, w, err_msg=f"{kind} {name}")
+    assert want[3].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", tg.KINDS)
 @pytest.mark.parametrize("attribute", [True, False])
@@ -111,27 +140,34 @@ def test_resolve_kernel_matches_plain_on_edges(cuda, kind, attribute):
     # the small bucket, and one whose endpoints span several sort tiles
     for cap, t, r, wr, w in ((CAP, T, R, WR, W), (4096, 512, 1024, 1024, 4)):
         for seed in SEEDS:
-            hk, hv, arrays = tg.adversarial_batch(
-                np.random.default_rng(seed), kind, cap, t, r, wr, w)
-            buf = torch.from_numpy(port.pack_interval_batch(
-                *arrays, tg.COMMIT, tg.OLDEST))
-            want = port.resolve_step_packed(
-                torch.from_numpy(hk), torch.from_numpy(hv), buf, t, r, wr,
-                attribute=attribute)
-            before = port.launches["resolve"]
-            got = port.resolve_step_packed(
-                torch.from_numpy(hk).to(cuda), torch.from_numpy(hv).to(cuda),
-                buf.to(cuda), t, r, wr, attribute=attribute)
-            got_u = port.resolve_step(
-                torch.from_numpy(hk).to(cuda), torch.from_numpy(hv).to(cuda),
-                *[torch.from_numpy(a).to(cuda) for a in arrays], tg.COMMIT,
-                tg.OLDEST, attribute=attribute)
-            assert port.launches["resolve"] == before + 2
-            for g, gu, wnt in zip(got, got_u, want):
-                assert (g is None) == (wnt is None) == (gu is None)
-                if wnt is not None:
-                    assert torch.equal(g.cpu(), wnt), kind
-                    assert torch.equal(gu.cpu(), wnt), kind
+            _kernel_against_plain(cuda, tg.adversarial_batch(
+                np.random.default_rng(seed), kind, cap, t, r, wr, w),
+                t, r, wr, attribute, kind)
+
+
+def _kernel_against_plain(cuda, batch, t, r, wr, attribute, kind):
+    """K3, packed and unpacked, against its plain version on one
+    `adversarial_batch`."""
+    hk, hv, arrays = batch
+    buf = torch.from_numpy(port.pack_interval_batch(
+        *arrays, tg.COMMIT, tg.OLDEST))
+    want = port.resolve_step_packed(
+        torch.from_numpy(hk), torch.from_numpy(hv), buf, t, r, wr,
+        attribute=attribute)
+    before = port.launches["resolve"]
+    got = port.resolve_step_packed(
+        torch.from_numpy(hk).to(cuda), torch.from_numpy(hv).to(cuda),
+        buf.to(cuda), t, r, wr, attribute=attribute)
+    got_u = port.resolve_step(
+        torch.from_numpy(hk).to(cuda), torch.from_numpy(hv).to(cuda),
+        *[torch.from_numpy(a).to(cuda) for a in arrays], tg.COMMIT,
+        tg.OLDEST, attribute=attribute)
+    assert port.launches["resolve"] == before + 2
+    for g, gu, wnt in zip(got, got_u, want):
+        assert (g is None) == (wnt is None) == (gu is None)
+        if wnt is not None:
+            assert torch.equal(g.cpu(), wnt), kind
+            assert torch.equal(gu.cpu(), wnt), kind
 
 
 @pytest.mark.cuda
@@ -149,6 +185,20 @@ def test_resolve_kernel_matches_plain_at_wide_keys(cuda, n_words):
             buf.to(cuda), T, R, WR)
         for g, wnt in zip(got, want):
             assert torch.equal(g.cpu(), wnt), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", CLIP_WIDTHS)
+@pytest.mark.parametrize("kind", ["split_edges", "clip_edges"])
+def test_resolve_kernel_matches_plain_at_clip_edges(cuda, n_words, kind):
+    """K3's bounds search (the kernel K8 runs with the clip fused in) on
+    the shard-bound kinds at three key widths, packed and unpacked,
+    attributed and not, in the small bucket and at a 2^14-row history."""
+    for cap in (CAP, 1 << 14):
+        batch = tg.adversarial_batch(np.random.default_rng(n_words), kind,
+                                     cap, T, R, WR, n_words)
+        for attribute in (True, False):
+            _kernel_against_plain(cuda, batch, T, R, WR, attribute, kind)
 
 
 @pytest.mark.cuda

@@ -57,6 +57,7 @@ from foundationdb_tpu_torch.models.cuda_resolver import (  # noqa: E402
     CudaConflictSet,
 )
 from foundationdb_tpu_torch.ops import conflict_kernel as ck  # noqa: E402
+from foundationdb_tpu_torch.ops import keys  # noqa: E402
 from foundationdb_tpu_torch.ops.keys import encode_keys  # noqa: E402
 from foundationdb_tpu_torch.ops.keys import next_pow2  # noqa: E402
 from foundationdb_tpu_torch.parallel import (  # noqa: E402
@@ -328,18 +329,18 @@ def ref4():
                                  key_bytes=KEY_BYTES)
 
 
-@pytest.mark.parametrize("kind", tg.KINDS)
-@pytest.mark.parametrize("attribute", [True, False])
-def test_packed_step_matches_reference_on_kinds(ref4, kind, attribute):
-    shk, shv, lows, highs, arrays, T, R, Wr = kind_case(kind, 4)
-    fn = ref4._get_shard_packed_fn(T, R, Wr, attribute)
-    bounds = ref4._make_bounds(lows)
+def _kind_against_reference(ref, case, kind, attribute):
+    """The plain sharded step against `ref`'s shard_map'd packed step on
+    a `kind_case`, fresh and one step on."""
+    shk, shv, lows, highs, arrays, T, R, Wr = case
+    fn = ref._get_shard_packed_fn(T, R, Wr, attribute)
+    bounds = ref._make_bounds(lows)
     state = (shk, shv)
     for commit in (tg.COMMIT, tg.COMMIT + 20):   # fresh, then a step on
         buf = ck.pack_interval_batch(*arrays, commit, tg.OLDEST)
         dev_state = jax.device_put(state,
-                                   NamedSharding(ref4._mesh, P(ref4.AXIS)))
-        want = _np(fn(*bounds, *dev_state, ref4._feed(buf)))
+                                   NamedSharding(ref._mesh, P(ref.AXIS)))
+        want = _np(fn(*bounds, *dev_state, ref._feed(buf)))
         got = _np(ck.resolve_step_sharded_packed(
             torch.from_numpy(state[0]), torch.from_numpy(state[1]),
             torch.from_numpy(buf), torch.from_numpy(lows),
@@ -348,6 +349,12 @@ def test_packed_step_matches_reference_on_kinds(ref4, kind, attribute):
                               got, want):
             np.testing.assert_array_equal(g, w, err_msg=f"{kind} {name}")
         state = (want[0], want[1])
+
+
+@pytest.mark.parametrize("kind", tg.KINDS)
+@pytest.mark.parametrize("attribute", [True, False])
+def test_packed_step_matches_reference_on_kinds(ref4, kind, attribute):
+    _kind_against_reference(ref4, kind_case(kind, 4), kind, attribute)
 
 
 def test_split_edges_kind_hits_its_corners():
@@ -372,6 +379,66 @@ def test_split_edges_kind_hits_its_corners():
     # it, into every shard but the last
     wrote = (out[1] == tg.COMMIT).any(dim=1).tolist()
     assert wrote == [True, True, True, False]
+
+
+def test_clip_edges_kind_hits_its_corners():
+    """The clip-edge kind's reads begin and end exactly on a bound and
+    on the key one past it, are emptied by a shard's clip (valid and
+    non-empty, invalid once clipped to that shard), cover the whole
+    keyspace or are inverted; the history holds the bounds and the keys
+    one past them; and some reads conflict with the history."""
+    shk, shv, lows, highs, arrays, T, R, Wr = kind_case("clip_edges", 4)
+    rb, re, rv = arrays[2], arrays[3], arrays[5]
+    bounds = [tuple(x) for x in lows[1:]]
+    past = [b[:-1] + (b[-1] + 1,) for b in bounds]
+    for rows in (rb, re):
+        assert any(tuple(x) in bounds for x in rows)
+        assert any(tuple(x) in past for x in rows)
+    assert any(tuple(b) > tuple(e) for b, e in zip(rb, re))
+    assert any((e == tg.INF).all() for e in re)
+    real = [tuple(x) for x in shk.reshape(-1, shk.shape[-1])]
+    assert all(x in real for x in bounds + past)
+    _cb, _ce, cv = keys.clip_to_shards_plain(
+        *[torch.from_numpy(a) for a in (rb, re, rv)],
+        torch.from_numpy(lows), torch.from_numpy(highs))
+    nonempty = (keys.lt_rows_plain(torch.from_numpy(rb), torch.from_numpy(re))
+                & torch.from_numpy(rv))
+    assert bool((nonempty[None] & ~cv).any())
+    out = ck.resolve_step_sharded_packed(
+        torch.from_numpy(shk), torch.from_numpy(shv),
+        torch.from_numpy(ck.pack_interval_batch(*arrays, tg.COMMIT,
+                                                tg.OLDEST)),
+        torch.from_numpy(lows), torch.from_numpy(highs), T, R, Wr,
+        attribute=True)
+    assert bool(out[3].any()) and bool(out[4].any())
+
+
+# the cells' key width (4 words), and widths past the row searches'
+# ROW_CW = 8 loaded words: at 8 words the length word lies past them, at
+# 12 the key ids too, so every compare of two real keys ties there
+CLIP_WIDTHS = (4, 8, 12)
+
+
+@pytest.fixture(scope="module")
+def ref_by_width():
+    """Reference sharded resolvers at the clip-edge tests' key widths,
+    one a width, so each one's jitted steps compile once."""
+    return {n: ShardedTpuConflictSet(capacity=KIND_SHAPE[0], n_shards=4,
+                                     key_bytes=4 * n)
+            for n in CLIP_WIDTHS}
+
+
+@pytest.mark.parametrize("n_words", CLIP_WIDTHS)
+@pytest.mark.parametrize("kind", ["split_edges", "clip_edges"])
+@pytest.mark.parametrize("attribute", [True, False])
+def test_packed_step_matches_reference_at_clip_edges(ref_by_width, n_words,
+                                                     kind, attribute):
+    """The plain sharded step against the reference's shard_map'd packed
+    step on the shard-bound kinds, at the cell's key width and at keys
+    longer than the searches' loaded words, fresh and one step on."""
+    _kind_against_reference(ref_by_width[n_words],
+                            kind_case(kind, 4, n_words, seed=n_words), kind,
+                            attribute)
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +854,15 @@ def test_k8_matches_plain_at_wide_keys(cuda, n_words):
     """Keys of 41 and 101 words: endpoint records of 16 and 32 uint4s,
     the second with the sort's smaller tiles."""
     _k8_against_plain(cuda, *kind_case("mixed", 4, n_words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_words", CLIP_WIDTHS)
+@pytest.mark.parametrize("kind", ["split_edges", "clip_edges"])
+def test_k8_matches_plain_at_clip_edges(cuda, n_words, kind):
+    """K8's bounds search with the clip fused in, on the shard-bound
+    kinds at the cell's key width and past the searches' loaded words."""
+    _k8_against_plain(cuda, *kind_case(kind, 4, n_words, seed=n_words))
 
 
 @pytest.mark.cuda
