@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--trace]
+    python3 chip_smoke.py [--trace | --probe]
 
 Run from the root of a checkout on a host with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from `foundationdb_tpu_torch/csrc`,
@@ -52,7 +52,11 @@ Each path's timed window runs four times on a fresh resolver; in two of
 those runs CUDA events bracket each batch's device work, which gives
 the device's busy share of the wall time without a profiler. `--trace`
 adds a profiler window over each streamed path: each kernel's device
-time per batch.
+time per batch. Every run also traces K4 in each mode at each path's
+version array with L2 warm and cold, and a window over each chain's
+steps (each kernel's device time and the launches a step). `--probe`
+builds the kernels and runs only those two: copied into another
+checkout of the port, it measures that checkout's code the same way.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -111,6 +115,13 @@ CHAIN_BATCHES = 100    # the reference bench's FDBTPU_BENCH_BATCHES
 CHAIN_PREFIX = 8       # the chains' CPU comparison
 CHAIN_REPEATS = 3
 TALLY_EDGES = (1, 15, 17, 16_383, 16_385)   # K10's edge lengths
+CHAIN_PROBE_STEPS = 30   # the traced window over each chain's steps
+LEAD_IN = 3   # calls a profiler window makes before those it must catch
+# K4 at the version arrays of the three paths, and the write between
+# calls that leaves L2 (50 MB) cold
+WINDOW_SHAPES = (("interval", (CAPACITY,)), ("point", (POINT_CAPACITY,)),
+                 ("sharded", (N_SHARDS, SHARD_CAPACITY)))
+L2_FLUSH_BYTES = 128 << 20
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
 SEED = 20260729
 
@@ -174,25 +185,66 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def traced_ms(fn, reps: int = 50, tries: int = 3):
-    """Device time of one call by torch.profiler: every CUDA kernel and
-    copy it launched, summed over `reps` calls, over `reps`, in ms. A
-    window in which the profiler recorded no device time is taken again
-    (it has come back empty on the card); None if every try did."""
+def traced_window(fn, reps: int, between=None, exclude=()):
+    """One torch.profiler window over `reps` calls of `fn` (and a call
+    of `between` after each, when given): {kernel name: [launches,
+    device us]} of every CUDA kernel, copy and memset recorded, less
+    those named in `exclude`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            if between is not None:
+                between()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        if e.key in exclude:
+            continue
+        row = out.setdefault(e.key, [0, 0.0])
+        row[0] += int(e.count)
+        row[1] += _device_us(e)
+    return out
+
+
+def traced_calls(fn, reps: int = 50, kernels: int = 1, tries: int = 5,
+                 between=None, exclude=()):
+    """One call of `fn` by torch.profiler: {kernel name: (launches a
+    call, device us a launch)}, from a window of LEAD_IN + `reps` calls.
+    A launch's time is its kernel's recorded device time over its
+    recorded launches. The profiler can miss a window's first launches
+    (the lead-in calls absorb that) and at times many more: a window in
+    which some kernel was recorded fewer than `reps` times a call, or
+    the call's kernels add up to fewer than `kernels` launches, is taken
+    again; None if every try was."""
+    import torch
     fn()
     torch.cuda.synchronize()
+    calls = LEAD_IN + reps
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(_device_us(e) for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        if total > 0:
-            return total / reps / 1e3
+        rows = traced_window(fn, calls, between, exclude)
+        out = {name: (max(1, round(n / calls)), us / n)
+               for name, (n, us) in rows.items() if n}
+        if out and sum(m for m, _us in out.values()) >= kernels and all(
+                rows[name][0] >= m * reps for name, (m, _us) in out.items()):
+            return out
     return None
+
+
+def traced_ms(fn, kernels: int = 1, reps: int = 50, tries: int = 5,
+              between=None, exclude=()):
+    """Device time of one call by torch.profiler, in ms: each kernel,
+    copy and memset a call launches (less those named in `exclude`), at
+    its recorded device time over its recorded launch count, times its
+    launches a call (`traced_calls`); None if no window caught every
+    call."""
+    calls = traced_calls(fn, reps, kernels, tries, between, exclude)
+    if calls is None:
+        return None
+    return sum(m * us for m, us in calls.values()) / 1e3
 
 
 def fmt_ms(x) -> str:
@@ -381,13 +433,19 @@ def check_edges(dev):
     hv = torch.from_numpy(rng.integers(rmq.VDEAD, 1 << 30, 4099)
                           .astype(np.int32))
     hv[::7] = ck.REBASE_THRESHOLD
-    for mode, args in ((ck.REBASE, (1000, 0, 0)), (ck.RESET, (0, 0, 0)),
-                       (ck.JUMP_FIXUP, (ck.REBASE_THRESHOLD, 77, 5000)),
-                       (ck.JUMP_FIXUP_LARGE, (ck.REBASE_THRESHOLD, 77, 0))):
-        for n in (4099, 4096):
-            expect_exact(f"K4 edge mode {mode}", [ck.window_upkeep(
-                hv[:n].to(dev), mode, *args)],
-                [ck.window_upkeep_plain(hv[:n], mode, *args)])
+    for mode, args in window_modes(5000):
+        # whole int4s, a scalar tail, a view 4 bytes off alignment (all
+        # scalar), and a few elements; new outputs and in place
+        for lo, n in ((0, 4099), (0, 4096), (1, 4099), (0, 3)):
+            want = ck.window_upkeep_plain(hv[lo:n], mode, *args)
+            expect_exact(f"K4 edge mode {mode} [{lo}:{n}]", [
+                ck.window_upkeep(hv.to(dev)[lo:n], mode, *args)], [want])
+            work = hv.to(dev, copy=True)[lo:n]
+            got = ck.window_upkeep(work, mode, *args, out=work)
+            if got.data_ptr() != work.data_ptr():
+                raise AssertionError("K4 in place returned another tensor")
+            expect_exact(f"K4 edge mode {mode} [{lo}:{n}] in place", [work],
+                         [want])
     T, R, Wr, hk, hv3, arrays = edge_batch(rng)
     buf = torch.from_numpy(ck.pack_interval_batch(*arrays, 70, 20))
     for attribute in (True, False):
@@ -594,7 +652,7 @@ def measure_kernels(dev, mid, batch, version):
     out["range_max"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rmq.range_max(hv, lo, hi), 50),
-        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo, hi)),
+        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo, hi), kernels=2),
         plain_ms=time_ms(lambda: rmq.range_max_plain(hv, lo, hi), 5),
         library_ms=None,
         bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3)
@@ -638,20 +696,23 @@ def measure_kernels(dev, mid, batch, version):
         bound_ms=k3_bytes / HBM_BYTES_PER_S * 1e3,
         unpacked_ms=time_ms(lambda: ck.resolve_step(
             hk, hv, *unpacked, attribute=False, out=outs), 20),
+        # 29 kernels and a memset a call; 20 is the least a call launches
+        unpacked_traced_ms=traced_ms(lambda: ck.resolve_step(
+            hk, hv, *unpacked, attribute=False, out=outs), kernels=20),
         unpacked_bound_ms=((count + hk.shape[0]) * row_bytes + in_bytes
                            + T + 4) / HBM_BYTES_PER_S * 1e3)
 
-    # K4: the re-base mode over the whole version array
+    # K4: every mode over the mid-stream version array, in place as the
+    # resolver calls it; the re-base (the mode the stream runs) timed
     delta = 1_000_000
+    err = 0
+    for mode, args in window_modes(delta):
+        hv2 = hv.clone()
+        want = ck.window_upkeep_plain(hv2, mode, *args)
+        ck.window_upkeep(hv2, mode, *args, out=hv2)
+        err = max(err, expect_exact(f"K4 mode {mode} in place", [hv2],
+                                    [want]))
     hv2 = hv.clone()
-    got = ck.window_upkeep(hv2, ck.REBASE, delta)
-    err = expect_exact("K4", [got], [ck.window_upkeep_plain(
-        hv2, ck.REBASE, delta)])
-    for mode, args in ((ck.RESET, (0, 0, 0)),
-                       (ck.JUMP_FIXUP, (ck.REBASE_THRESHOLD, 77, delta)),
-                       (ck.JUMP_FIXUP_LARGE, (ck.REBASE_THRESHOLD, 77, 0))):
-        expect_exact(f"K4 mode {mode}", [ck.window_upkeep(hv2, mode, *args)],
-                     [ck.window_upkeep_plain(hv2, mode, *args)])
     out["window_upkeep"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: ck.window_upkeep(hv2, ck.REBASE, delta,
@@ -659,8 +720,86 @@ def measure_kernels(dev, mid, batch, version):
         plain_ms=time_ms(lambda: ck.window_upkeep_plain(hv2, ck.REBASE,
                                                         delta), 10),
         library_ms=None,
-        bound_ms=8 * hv.numel() / HBM_BYTES_PER_S * 1e3)
+        bound_ms=window_bytes(ck.REBASE, hv.numel()) / HBM_BYTES_PER_S
+        * 1e3)
     return out
+
+
+def window_modes(delta):
+    """K4's four modes with the arguments the resolvers give them: a
+    re-base by `delta`, the reset, and the two jump fixups (placeholder,
+    commit offset, delta)."""
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    return ((ck.REBASE, (delta, 0, 0)), (ck.RESET, (0, 0, 0)),
+            (ck.JUMP_FIXUP, (ck.REBASE_THRESHOLD, 77, delta)),
+            (ck.JUMP_FIXUP_LARGE, (ck.REBASE_THRESHOLD, 77, 0)))
+
+
+def window_bytes(mode, n) -> int:
+    """K4's bytes at n elements: each read once and written once; the
+    reset (mode 1) reads nothing."""
+    return 4 * n if mode == 1 else 8 * n
+
+
+def measure_window(dev, tag) -> dict:
+    """K4 in each mode at each path's version array (WINDOW_SHAPES), in
+    place as the resolvers call it: bit-exact against its plain version
+    there, then traced with L2 warm (calls back to back) and cold (a
+    write of L2_FLUSH_BYTES between calls, not counted); beside the
+    reset `Tensor.fill_(VDEAD)` (the library call that computes it) and
+    beside the re-base `clamp_min_` + `sub_` (two calls), traced alike.
+    Returns {path: {mode: {"warm", "cold", "bound"}, "fill": ...,
+    "clamp_sub": ...}} in ms."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    rng = np.random.default_rng(4)
+    delta = 1_000_000
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def cold():
+        flush.bitwise_not_()
+
+    # the flush's own kernels, left out of the cold windows
+    cold()
+    flush_kernels = set(traced_window(cold, 3))
+    print(f"[{tag}] K4 L2 flush: {sorted(flush_kernels)}", flush=True)
+
+    def both(fn, kernels=1):
+        return (traced_ms(fn, kernels),
+                traced_ms(fn, kernels, between=cold, exclude=flush_kernels)
+                if flush_kernels else None)
+
+    res = {}
+    for path, shape in WINDOW_SHAPES:
+        n = int(np.prod(shape))
+        hv0 = torch.from_numpy(rng.integers(ck.VDEAD, 1 << 30, n)
+                               .astype(np.int32).reshape(shape))
+        hv0.view(-1)[::7] = ck.REBASE_THRESHOLD
+        row = res[path] = {}
+        for mode, args in window_modes(delta):
+            work = hv0.to(dev, copy=True)
+            ck.window_upkeep(work, mode, *args, out=work)
+            expect_exact(f"K4 {path} mode {mode} in place", [work],
+                         [ck.window_upkeep_plain(hv0, mode, *args)])
+            warm, cold_ms = both(lambda: ck.window_upkeep(
+                work, mode, *args, out=work))
+            row[mode] = {"warm": warm, "cold": cold_ms,
+                         "bound": window_bytes(mode, n) / HBM_BYTES_PER_S
+                         * 1e3}
+        work = hv0.to(dev, copy=True)
+        row["fill"] = both(lambda: work.fill_(ck.VDEAD))
+        row["clamp_sub"] = both(lambda: (work.clamp_min_(ck.VDEAD + delta),
+                                         work.sub_(delta)), kernels=2)
+        for mode in range(4):
+            m = row[mode]
+            print(f"[{tag}] K4 {path} {tuple(shape)} mode {mode}: traced "
+                  f"warm {fmt_ms(m['warm'])}, cold {fmt_ms(m['cold'])}, "
+                  f"bound {m['bound']:.6f} ms", flush=True)
+        print(f"[{tag}] K4 {path}: fill_(VDEAD) traced warm "
+              f"{fmt_ms(row['fill'][0])}, cold {fmt_ms(row['fill'][1])}; "
+              f"clamp_min_ + sub_ warm {fmt_ms(row['clamp_sub'][0])}, "
+              f"cold {fmt_ms(row['clamp_sub'][1])}", flush=True)
+    return res
 
 
 def empty_range_batch(T, R, Wr, width):
@@ -826,7 +965,8 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
     out["range_max_sharded"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rmq.range_max(hv, lo_t, hi_t), 50),
-        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo_t, hi_t)),
+        traced_ms=traced_ms(lambda: rmq.range_max(hv, lo_t, hi_t),
+                            kernels=2),
         plain_ms=time_ms(lambda: rmq.range_max_plain(hv, lo_t, hi_t), 5),
         bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3)
 
@@ -1091,6 +1231,9 @@ def measure_point_kernels(dev, mid, batch, version):
         state_rows=count,
         unpacked_ms=time_ms(lambda: pk.point_resolve_step(
             sk, sv, *unpacked, attribute=False, out=outs), 20),
+        # 23 kernels and 3 memsets a call; 20 is the least a call launches
+        unpacked_traced_ms=traced_ms(lambda: pk.point_resolve_step(
+            sk, sv, *unpacked, attribute=False, out=outs), kernels=20),
         unpacked_bound_ms=((count + sk.shape[0]) * row_bytes + in_bytes
                            + T + 4) / HBM_BYTES_PER_S * 1e3)
     return out
@@ -1110,27 +1253,29 @@ def _chain_buffers(dev, slots, interval):
 
 def check_chain_edges(dev):
     """K9 and K10 against their plain versions over 8 chained keys from
-    PRNGKey(7): at 1, 7 and 16,384 slots, keyspaces 1, 2^16+1, 4,000,000
-    and 2^31-1, with and without end rows; K10 tallies flags taken from
-    the step's rows, so they differ step by step, and records each
-    step's count. Then K10 alone at the lengths TALLY_EDGES, on flags
-    aligned to 16 bytes and one byte off."""
+    a well-formed control block at PRNGKey(7): at 1, 7, 300 and 16,384
+    slots, keyspaces 1, 2^16+1, 4,000,000 and 2^31-1, with and without
+    end rows, K9 storing whole rows into the fresh buffers on the first
+    step and only the id words after; K10 tallies flags taken from the
+    step's rows, so they differ step by step, and records each step's
+    count. Then K10 alone at the lengths TALLY_EDGES, on flags aligned
+    to 16 bytes and one byte off."""
     import torch
     from foundationdb_tpu_torch.ops import bench_chain as bc
     for slots, keyspace in ((1, 1), (7, 2**16 + 1), (7, 2**31 - 1),
-                            (N_TXNS, KEYSPACE), (N_TXNS, 2**31 - 1)):
+                            (300, KEYSPACE), (N_TXNS, KEYSPACE),
+                            (N_TXNS, 2**31 - 1)):
         for interval in (False, True):
             runs = []
             for d in ("cpu", dev):
-                ctl = torch.zeros(bc.C_WORDS, dtype=torch.uint32)
-                ctl[0:2] = bc.prng_key(7)
-                ctl = ctl.to(d)
+                ctl = bc.chain_ctl(bc.prng_key(7)).to(d)
                 rows, snap, commit, oldest = _chain_buffers(d, slots,
                                                             interval)
                 per_step = torch.zeros(8, dtype=torch.int32, device=d)
                 seen = []
-                for _ in range(8):
-                    bc.chain_gen(ctl, *rows, snap, commit, oldest, keyspace)
+                for step in range(8):
+                    bc.chain_gen(ctl, *rows, snap, commit, oldest, keyspace,
+                                 whole=step == 0)
                     flags = (rows[0][:, N_WORDS - 1].to(torch.int64)
                              & 1) == 1
                     bc.chain_tally(ctl, flags, slots, per_step)
@@ -1172,8 +1317,10 @@ def measure_chain_kernels(dev, ctl0):
     """K9 and K10 against their plain versions at the chains' shapes
     (16,384 read and write slots), from the control block `ctl0` the
     main path left (a key and step counter mid-chain), with device
-    times. K9 is timed at the point chain's shape (its interval shape,
-    with end rows, beside it); K10 on the flags of a resolved batch."""
+    times. K9 is timed at the point chain's shape storing the id words
+    (as the chains call it), and storing whole rows, and at the interval
+    shape (with end rows, id words) beside them; K10 on the flags of a
+    resolved batch."""
     import torch
     from foundationdb_tpu_torch.ops import bench_chain as bc
     out = {}
@@ -1187,28 +1334,51 @@ def measure_chain_kernels(dev, ctl0):
     err = expect_exact("K9", [got, rows[0], rows[2], snap, commit, oldest],
                        [want, p_rows[0], p_rows[2], p_snap, p_commit,
                         p_oldest])
+    # the id words alone, over rows that hold the other words already
+    got = ctl0.clone()
+    for r in rows[0], rows[2]:
+        r[:, N_WORDS - 1] = 0
+    bc.chain_gen(got, *rows, snap, commit, oldest, KEYSPACE, whole=False)
+    err = max(err, expect_exact(
+        "K9 id words", [got, rows[0], rows[2], snap, commit, oldest],
+        [want, p_rows[0], p_rows[2], p_snap, p_commit, p_oldest]))
     i_rows, i_snap, i_commit, i_oldest = _chain_buffers(dev, N_TXNS, True)
-    # bound: the rows and snapshots written, the control block read and
-    # written; the hashing: two threefry evaluations a slot and seven for
-    # the step's keys, and randint's five operations a slot
-    k9_bytes = 2 * N_TXNS * width * 4 + 4 * N_TXNS + 4 * (3 + 6 + 2)
-    k9_ops = (2 * 2 * N_TXNS + 7) * THREEFRY_OPS + 5 * 2 * N_TXNS
-    k9_b, k9_o = k9_bytes / HBM_BYTES_PER_S, k9_ops / INT32_OPS_PER_S
-    k9_end_b = (k9_bytes + 2 * N_TXNS * width * 4) / HBM_BYTES_PER_S
+    bc.chain_gen(got, *i_rows, i_snap, i_commit, i_oldest, KEYSPACE)
+    # bound: the hashing (two threefry evaluations a slot, three for the
+    # next key, kr and kw, and randint's 3 remainders of 4 operations and
+    # its product and sum a slot) against the bytes: the id words (whole
+    # rows) and snapshots written, the control block read and written
+    slots = 2 * N_TXNS
+    k9_ops = (2 * slots + 3) * THREEFRY_OPS + 14 * slots
+    k9_o = k9_ops / INT32_OPS_PER_S
+    k9_bytes = 4 * slots + 4 * N_TXNS + 4 * (1 + 8 + 2 + 6 + 2)
+    k9_whole = k9_bytes + (width - 1) * 4 * slots
+    k9_b = k9_bytes / HBM_BYTES_PER_S
+
+    def gen(whole=False):
+        return lambda: bc.chain_gen(got, *rows, snap, commit, oldest,
+                                    KEYSPACE, whole=whole)
+
     out["chain_gen"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: bc.chain_gen(got, *rows, snap, commit, oldest,
-                                        KEYSPACE), 50),
-        traced_ms=traced_ms(lambda: bc.chain_gen(
-            got, *rows, snap, commit, oldest, KEYSPACE)),
+        ms=time_ms(gen(), 50),
+        traced_ms=traced_ms(gen()),
         plain_ms=time_ms(lambda: bc.chain_gen_plain(
             got, *rows, snap, commit, oldest, KEYSPACE), 5),
         library_ms=None,
         bound_ms=max(k9_b, k9_o) * 1e3,
         bound_by="bytes" if k9_b >= k9_o else "operations",
+        whole_ms=time_ms(gen(True), 50),
+        whole_traced_ms=traced_ms(gen(True)),
+        whole_bound_ms=max(k9_whole / HBM_BYTES_PER_S, k9_o) * 1e3,
         interval_ms=time_ms(lambda: bc.chain_gen(
-            got, *i_rows, i_snap, i_commit, i_oldest, KEYSPACE), 50),
-        interval_bound_ms=max(k9_end_b, k9_o) * 1e3)
+            got, *i_rows, i_snap, i_commit, i_oldest, KEYSPACE,
+            whole=False), 50),
+        interval_traced_ms=traced_ms(lambda: bc.chain_gen(
+            got, *i_rows, i_snap, i_commit, i_oldest, KEYSPACE,
+            whole=False)),
+        interval_bound_ms=max((k9_bytes + 4 * slots) / HBM_BYTES_PER_S,
+                              k9_o) * 1e3)
 
     flags = rows[0][:, N_WORDS - 1].to(torch.int64) % 97 == 0
     steps = int(ctl0[bc.C_STEP].to(torch.int64)) + 1
@@ -1219,8 +1389,10 @@ def measure_chain_kernels(dev, ctl0):
     per_want = torch.zeros(steps, dtype=torch.int32)
     bc.chain_tally(want, flags.cpu(), N_TXNS, per_want)
     err = expect_exact("K10", [got, per_got], [want, per_want])
-    # bound: the flags read once, the control block read and written
-    k10_bytes = N_TXNS + 4 * 5 + 4 * 5
+    # bound: the flags read once, the control block read (the step,
+    # count and next key) and written (those, the key and RK); K10's
+    # hashing (8 threefry evaluations) is far below it
+    k10_bytes = N_TXNS + 4 * 4 + 4 * 12
     out["chain_tally"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: bc.chain_tally(got, flags, N_TXNS), 50),
@@ -1491,6 +1663,31 @@ def chain_phase(tag, dev):
     totals = {kind: {r[3] for r in res[kind]["runs"]} for kind in chains}
     if len(totals["point"] | totals["interval"]) != 1:
         raise AssertionError(f"chain conflict totals differ: {totals}")
+    # what a step's second launch costs the chain: runs with one more K10
+    # a step (onto a spare control block) in turns with plain runs; the
+    # most that folding K10 into K9 could save
+    spare = bc.chain_ctl(bc.prng_key(7)).to(dev)
+    for kind, ch in chains.items():
+        pairs = []
+        for _ in range(CHAIN_REPEATS):
+            walls = []
+            for extra in (False, True):
+                ch.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(CHAIN_BATCHES):
+                    flags = ch.step()
+                    if extra:
+                        bc.chain_tally(spare, flags, N_TXNS)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            pairs.append(walls)
+        res[kind]["extra_launch_us"] = [
+            1e6 * (b - a) / CHAIN_BATCHES for a, b in pairs]
+        print(f"[{tag}] {kind} chain: one more K10 launch a step costs "
+              f"{', '.join(f'{x:+.2f}' for x in res[kind]['extra_launch_us'])}"
+              f" us a batch ({CHAIN_REPEATS} pairs of {CHAIN_BATCHES}-batch "
+              f"runs, plain then with the launch)", flush=True)
     for kind, ch in chains.items():
         ch.reset()
         torch.cuda.synchronize()
@@ -1522,6 +1719,58 @@ def chain_phase(tag, dev):
     print(f"[{tag}] chains: point and interval count {totals['point']} "
           f"conflicts in every run", flush=True)
     return res, counts, chains["point"].ctl.clone()
+
+
+def chain_probe(dev, tag) -> dict:
+    """A traced window over CHAIN_PROBE_STEPS steps of each chain (from
+    PRNGKey(7), after 2 warm-up steps; `traced_calls`, which retries a
+    window that missed a step's launches): each kernel's launches and
+    device time a step, and the launches (kernels, copies and memsets)
+    a step; the chain's numbers are not measured when no window caught
+    every step, or K9 and K10 once each a step."""
+    import torch
+    from foundationdb_tpu_torch.ops import bench_chain as bc
+    res = {}
+    for kind in ("point", "interval"):
+        ch = bc.BenchChain(kind, N_TXNS, KEYSPACE, device=dev)
+        ch.run(2)
+        torch.cuda.synchronize()
+        steps = CHAIN_PROBE_STEPS
+        calls = traced_calls(ch.step, steps, kernels=2)
+        once = calls is not None and [
+            sum(m for k, (m, _us) in calls.items() if name in k)
+            for name in ("chain_gen", "chain_tally")] == [1, 1]
+        if not once:
+            print(f"[{tag}] {kind} chain probe: no window caught every "
+                  f"step; not measured", flush=True)
+            res[kind] = None
+            continue
+        r = res[kind] = {
+            "launches_per_step": sum(m for m, _us in calls.values()),
+            "memsets_per_step": sum(m for k, (m, _us) in calls.items()
+                                    if "emset" in k),
+            "device_us_per_step": sum(m * us for m, us in calls.values()),
+            "k9_traced_ms": sum(m * us for k, (m, us) in calls.items()
+                                if "chain_gen" in k) / 1e3}
+        print(f"[{tag}] {kind} chain probe ({steps} steps traced): "
+              f"{r['launches_per_step']} launches a step "
+              f"({r['memsets_per_step']} memsets), "
+              f"{r['device_us_per_step']:.1f} us of device time a step, "
+              f"K9 {1e3 * r['k9_traced_ms']:.2f} us a step", flush=True)
+        for k, (m, us) in sorted(calls.items(), key=lambda kv:
+                                 -kv[1][0] * kv[1][1]):
+            print(f"[{tag}]   {m * us:9.2f} us {m:3d}x  {k[:90]}",
+                  flush=True)
+    return res
+
+
+def probe_main(tag, dev) -> int:
+    """`--probe`: only K4's table and the chains' traced window, for a
+    checkout whose own smoke script predates them; one JSON line."""
+    res = {"window": measure_window(dev, tag),
+           "chains": chain_probe(dev, tag)}
+    print(json.dumps({"probe": res}))
+    return 0
 
 
 def entry_phase(tag, chain_total) -> dict:
@@ -1734,6 +1983,8 @@ def main() -> int:
     print(f"[{tag}] kernel build: {time.perf_counter() - t0:.3f} s "
           f"({_build.build_info.get('units')} sources, nvcc "
           f"{_build.build_info.get('seconds', 0.0):.3f} s)", flush=True)
+    if "--probe" in sys.argv[1:]:
+        return probe_main(tag, dev)
 
     check_edges(dev)
     print(f"[{tag}] edge shapes: K1-K4 bit-exact against plain", flush=True)
@@ -1931,6 +2182,12 @@ def main() -> int:
         dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
         (shards._lows, shards._highs)))
     kern.update(measure_chain_kernels(dev, chain_ctl))
+    window = measure_window(dev, tag)
+    kern["window_upkeep"]["modes"] = window
+    # the re-base (mode 0), the mode the stream runs, at the interval
+    # path's array
+    kern["window_upkeep"]["traced_ms"] = window["interval"][0]["warm"]
+    probe = chain_probe(dev, tag)
     kern["range_max"].update({f"sharded_{k}": v for k, v in
                               kern.pop("range_max_sharded").items()})
     sources = {
@@ -2009,8 +2266,15 @@ def main() -> int:
         if "unpacked_ms" in m:
             extra += (f"; unpacked entry {m['unpacked_ms']:.4f} ms, bound "
                       f"{m['unpacked_bound_ms']:.4f} ms")
+        if "unpacked_traced_ms" in m:
+            extra += f", traced {fmt_ms(m['unpacked_traced_ms'])}"
+        if "whole_ms" in m:
+            extra += (f"; whole rows {m['whole_ms']:.4f} ms, traced "
+                      f"{fmt_ms(m['whole_traced_ms'])}, bound "
+                      f"{m['whole_bound_ms']:.6f} ms")
         if "interval_ms" in m:
-            extra += f"; with end rows {m['interval_ms']:.4f} ms"
+            extra += (f"; with end rows {m['interval_ms']:.4f} ms, traced "
+                      f"{fmt_ms(m['interval_traced_ms'])}")
         if m["library_ms"] is not None:
             extra += f"; library {m['library_ms']:.4f} ms"
         if "traced_ms" in m:
@@ -2041,6 +2305,14 @@ def main() -> int:
                      "library_ms": m["library_ms"],
                      "traced_ms": m.get("traced_ms"),
                      "library_traced_ms": m.get("library_traced_ms")})
+        for k in ("unpacked_traced_ms", "whole_traced_ms",
+                  "interval_traced_ms"):
+            if k in m:
+                rows[-1][k] = m[k]
+        if name == "window_upkeep":
+            rows[-1]["modes"] = m["modes"]
+        if name == "chain_gen":
+            rows[-1]["in_chain"] = probe
         if name == "shard_clip":
             # the standalone clip is timed above; on the sharded path K7
             # runs fused into the step's bounds search

@@ -7,29 +7,38 @@
 // :201 bench_tpu (jax.random.split / randint / gen_keys at :149-153 and
 // :230-234, the conflict sum at :164-174 and :240-258).
 //
-// Both read and write a 10-word control block (ops/bench_chain.py
+// Both read and write an 18-word control block (ops/bench_chain.py
 // C_*): the carried threefry key, the step counter i, the running
-// conflict count, and the next key, kr and kw that K9 derives. K9 reads
-// the key and i and writes the derived keys; K10, after the resolve
-// step, commits the next key and i + 1. The host never reads i.
+// conflict count, the next key, kr and kw that K9 derives, and the four
+// randint keys of the carried key (RK: kr's two halves, kw's two). K9
+// reads i and RK and writes the derived keys; K10, after the resolve
+// step, commits the next key and i + 1 and derives the next key's RK.
+// The host never reads i.
 //
 // K9 is jax.random bit for bit (JAX 0.9.0, threefry2x32,
 // jax_threefry_partitionable): split(key, n) hashes the 2x32 iota (hi
 // word 0, lo word the index); randint(k, (n,), 0, hi) splits k in two
 // and draws offset = ((h % span) * mult + l % span) % span in uint32
 // arithmetic that wraps, where h and l are the two keys' bits at the
-// slot. One thread per slot: it derives the step's seven keys itself
-// (seven threefry evaluations, cheaper than a barrier) and hashes its
-// slot under both of its side's keys.
+// slot. The keys every slot of a side shares come from RK, so a slot's
+// critical path is two independent threefry evaluations, one deep, and
+// each thread takes two slots (four independent evaluations to hide
+// each other's latency). `% span` is a multiply-high by the host's
+// magic floor(2^32 / span) and one correction, exact for every uint32.
+// A block takes a contiguous chunk of one side's slots (blockIdx.y is
+// the side). With `whole` false it stores only what changes: the id
+// word of each row, the snapshots and the versions; the zero words and
+// the length word are written once, when the chain makes its buffers
+// (or by a call with `whole` true, which stages the chunk's ids in
+// shared memory and stores whole rows as contiguous words).
 //
-// Bound: bytes. K9 writes the rows (R + Wr rows of W+1 words, twice on
-// the interval chain) and T snapshots; ~0.65 MB a point step at 16,384
-// transactions, ~0.2 us at 3.35 TB/s; the hashing is ~9 x 100 integer
-// operations a slot, far below the card's integer rate. K10 reads T
-// flag bytes (16 KB, 0.005 us): one block of 1024 threads, one 16-byte
-// load a thread at 16,384 flags and one barrier, so its time is the
-// launch's own floor. It counts nonzero flag bytes, whatever their
-// alignment.
+// Bound: operations. K9 hashes every slot twice (77 integer operations
+// a threefry evaluation) and writes ~0.1-0.7 MB; a launch's own floor
+// (~1.5-2 us traced on the H100) is far above both. K10 reads T flag
+// bytes (16 KB, 0.005 us): one block of 1024 threads, one 16-byte load
+// a thread at 16,384 flags and one barrier, so its time is the launch's
+// own floor; its first warp derives RK while the loads are in flight.
+// It counts nonzero flag bytes, whatever their alignment.
 
 #include "common.cuh"
 
@@ -38,7 +47,10 @@ namespace {
 constexpr int32_t VERSION_STEP = 250000;  // ops/bench_chain.py
 constexpr int32_t MWTLV = 5000000;
 constexpr uint32_t KEY_BYTES = 16;
-enum { C_KEY = 0, C_STEP = 2, C_NCONF = 3, C_NEXT = 4, C_KR = 6, C_KW = 8 };
+// C_NEXT: split(key, 3), six words (the next key, kr, kw)
+enum { C_KEY = 0, C_STEP = 2, C_NCONF = 3, C_NEXT = 4, C_RK = 10 };
+constexpr int GEN_THREADS = 128;
+constexpr int GEN_SLOTS = 2 * GEN_THREADS;  // two slots a thread
 constexpr int TALLY_THREADS = 1024;  // 32 warps: one warp sum a lane
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
@@ -69,68 +81,95 @@ __device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
 }
 
 // row j of split(k, n): threefry of (hi 0, lo j)
-__device__ __forceinline__ void split_row(const uint32_t* k, uint32_t j,
-                                          uint32_t* out) {
-  threefry(k[0], k[1], 0u, j, out[0], out[1]);
+__device__ __forceinline__ void split_row(uint32_t k0, uint32_t k1,
+                                          uint32_t j, uint32_t& y0,
+                                          uint32_t& y1) {
+  threefry(k0, k1, 0u, j, y0, y1);
 }
 
-__device__ __forceinline__ uint32_t bits32(const uint32_t* k, uint32_t j) {
+__device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1,
+                                           uint32_t j) {
   uint32_t a, b;
-  threefry(k[0], k[1], 0u, j, a, b);
+  threefry(k0, k1, 0u, j, a, b);
   return a ^ b;
 }
 
-__global__ void chain_gen_kernel(uint32_t* __restrict__ ctl,
-                                 uint32_t* __restrict__ rb,
-                                 uint32_t* __restrict__ re,
-                                 uint32_t* __restrict__ wb,
-                                 uint32_t* __restrict__ we,
-                                 int32_t* __restrict__ snap,
-                                 int32_t* __restrict__ commit,
-                                 int32_t* __restrict__ oldest, int n_reads,
-                                 int n_writes, int n_txns, int width,
-                                 uint32_t span, uint32_t mult) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  int total = max(n_reads + n_writes, n_txns);
-  if (t >= total) return;
-  const uint32_t key[2] = {ctl[C_KEY], ctl[C_KEY + 1]};
-  int32_t step = static_cast<int32_t>(ctl[C_STEP]);
-  int32_t v = (step + 2) * VERSION_STEP;
-  if (t < n_txns) snap[t] = v - VERSION_STEP;
-  if (t == 0) {
-    uint32_t nk[2], kr[2], kw[2];
-    split_row(key, 0u, nk);
-    split_row(key, 1u, kr);
-    split_row(key, 2u, kw);
-    ctl[C_NEXT] = nk[0];
-    ctl[C_NEXT + 1] = nk[1];
-    ctl[C_KR] = kr[0];
-    ctl[C_KR + 1] = kr[1];
-    ctl[C_KW] = kw[0];
-    ctl[C_KW + 1] = kw[1];
-    *commit = v;
-    *oldest = max(v - MWTLV, 0);
+// x % d for every uint32 x, with magic = floor(2^32 / d) (d >= 2) or
+// 2^32 - 1 (d = 1): the quotient estimate is floor(x / d) or one less
+__device__ __forceinline__ uint32_t mod_by(uint32_t x, uint32_t d,
+                                           uint32_t magic) {
+  const uint32_t r = x - __umulhi(x, magic) * d;
+  return r >= d ? r - d : r;
+}
+
+template <bool kWhole>
+__global__ void __launch_bounds__(GEN_THREADS)
+    chain_gen_kernel(uint32_t* ctl, uint32_t* __restrict__ rb,
+                     uint32_t* __restrict__ re, uint32_t* __restrict__ wb,
+                     uint32_t* __restrict__ we, int32_t* __restrict__ snap,
+                     int32_t* __restrict__ commit,
+                     int32_t* __restrict__ oldest, int n_reads,
+                     int n_writes, int n_txns, int width, uint32_t span,
+                     uint32_t magic, uint32_t mult) {
+  const int t = threadIdx.x;
+  const int gt = (blockIdx.y * gridDim.x + blockIdx.x) * GEN_THREADS + t;
+  const int32_t v = (static_cast<int32_t>(ctl[C_STEP]) + 2) * VERSION_STEP;
+  for (int s = gt; s < n_txns; s += gridDim.x * gridDim.y * GEN_THREADS)
+    snap[s] = v - VERSION_STEP;
+  if (gt < 3) {
+    // the next key, kr and kw: split(key, 3), read by K10 only
+    uint32_t y0, y1;
+    split_row(ctl[C_KEY], ctl[C_KEY + 1], gt, y0, y1);
+    ctl[C_NEXT + 2 * gt] = y0;
+    ctl[C_NEXT + 2 * gt + 1] = y1;
+    if (gt == 0) {
+      *commit = v;
+      *oldest = max(v - MWTLV, 0);
+    }
   }
-  if (t >= n_reads + n_writes) return;
-  bool read = t < n_reads;
-  uint32_t j = static_cast<uint32_t>(read ? t : t - n_reads);
-  uint32_t side[2], hi_key[2], lo_key[2];
-  split_row(key, read ? 1u : 2u, side);
-  split_row(side, 0u, hi_key);
-  split_row(side, 1u, lo_key);
-  uint32_t higher = bits32(hi_key, j), lower = bits32(lo_key, j);
-  uint32_t off = (higher % span) * mult + lower % span;  // wraps, as JAX's
-  uint32_t id = off % span;
-  uint32_t* b = (read ? rb : wb) + static_cast<size_t>(j) * width;
-  uint32_t* e = read ? re : we;
-  for (int w = 0; w < width - 2; ++w) b[w] = 0u;
-  b[width - 2] = id;
-  b[width - 1] = KEY_BYTES;
-  if (e) {
-    e += static_cast<size_t>(j) * width;
-    for (int w = 0; w < width - 2; ++w) e[w] = 0u;
-    e[width - 2] = id;
-    e[width - 1] = KEY_BYTES + 1;  // the end key is key + b"\x00"
+  const int side = blockIdx.y;
+  const int n = side ? n_writes : n_reads;
+  const int base = blockIdx.x * GEN_SLOTS;
+  if (base >= n) return;  // the whole block
+  const uint32_t* rk = ctl + C_RK + 4 * side;
+  const uint32_t h0 = rk[0], h1 = rk[1], l0 = rk[2], l1 = rk[3];
+  uint32_t id[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const uint32_t j = static_cast<uint32_t>(base + t + u * GEN_THREADS);
+    const uint32_t higher = bits32(h0, h1, j), lower = bits32(l0, l1, j);
+    // wraps, as JAX's uint32 arithmetic does
+    const uint32_t off =
+        mod_by(higher, span, magic) * mult + mod_by(lower, span, magic);
+    id[u] = mod_by(off, span, magic);
+  }
+  uint32_t* b = side ? wb : rb;
+  uint32_t* e = side ? we : re;
+  if constexpr (kWhole) {
+    __shared__ uint32_t ids[GEN_SLOTS];
+    ids[t] = id[0];
+    ids[t + GEN_THREADS] = id[1];
+    __syncthreads();
+    const int words = min(GEN_SLOTS, n - base) * width;
+    b += static_cast<size_t>(base) * width;
+    if (e) e += static_cast<size_t>(base) * width;
+    for (int w = t; w < words; w += GEN_THREADS) {
+      const int s = w / width, col = w - s * width;
+      const uint32_t x = col == width - 2 ? ids[s]
+                         : col == width - 1 ? KEY_BYTES : 0u;
+      b[w] = x;
+      // the end key is key + b"\x00"
+      if (e) e[w] = col == width - 1 ? KEY_BYTES + 1 : x;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = base + t + u * GEN_THREADS;
+      if (j >= n) break;
+      const size_t at = static_cast<size_t>(j) * width + width - 2;
+      b[at] = id[u];
+      if (e) e[at] = id[u];
+    }
   }
 }
 
@@ -138,7 +177,9 @@ __global__ void chain_gen_kernel(uint32_t* __restrict__ ctl,
 // 16-byte word of the flags a round (one round up to 16,384 aligned
 // flags), the unaligned head and the tail (< 16 bytes each) a byte a
 // thread; each warp sums with __reduce_add_sync, and the warps' sums
-// meet in shared memory behind the kernel's one barrier
+// meet in shared memory behind the kernel's one barrier. Lanes 0-3 of
+// the first warp derive the next key's RK meanwhile: lane l hashes the
+// next key into side l / 2's key, then that into its half l % 2.
 __global__ void __launch_bounds__(TALLY_THREADS)
     chain_tally_kernel(uint32_t* __restrict__ ctl,
                        const uint8_t* __restrict__ conflict, int n,
@@ -149,9 +190,17 @@ __global__ void __launch_bounds__(TALLY_THREADS)
       min(n, (int)((16 - (reinterpret_cast<uintptr_t>(conflict) & 15)) & 15));
   const int n_vec = (n - head) >> 4, tail = head + (n_vec << 4);
   const uint4* vec = reinterpret_cast<const uint4*>(conflict + head);
+  // the first round's load is issued before the hashing, which hides it
+  const uint4 first = t < n_vec ? vec[t] : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t rk0 = 0, rk1 = 0;
+  if (t < 4) {
+    uint32_t s0, s1;
+    split_row(ctl[C_NEXT], ctl[C_NEXT + 1], 1u + (t >> 1), s0, s1);
+    split_row(s0, s1, t & 1, rk0, rk1);
+  }
   int cnt = 0;
   for (int v = t; v < n_vec; v += TALLY_THREADS) {
-    const uint4 x = vec[v];
+    const uint4 x = v == t ? first : vec[v];
     cnt += (__popc(__vcmpne4(x.x, 0u)) + __popc(__vcmpne4(x.y, 0u)) +
             __popc(__vcmpne4(x.z, 0u)) + __popc(__vcmpne4(x.w, 0u))) >> 3;
   }
@@ -162,6 +211,10 @@ __global__ void __launch_bounds__(TALLY_THREADS)
   __syncthreads();
   if (t >= 32) return;
   const int total = __reduce_add_sync(0xFFFFFFFFu, warp_sum[t]);
+  if (t < 4) {
+    ctl[C_RK + 2 * t] = rk0;
+    ctl[C_RK + 2 * t + 1] = rk1;
+  }
   if (t == 0) {
     uint32_t i = ctl[C_STEP];
     if (per_step && i < static_cast<uint32_t>(per_step_len))
@@ -179,16 +232,23 @@ FDB_API int fdb_chain_gen(uint32_t* ctl, uint32_t* rb, uint32_t* re,
                           uint32_t* wb, uint32_t* we, int32_t* snap,
                           int32_t* commit, int32_t* oldest, int n_reads,
                           int n_writes, int n_txns, int width, unsigned span,
-                          unsigned mult, void* stream) {
+                          unsigned magic, unsigned mult, int whole,
+                          void* stream) {
   if (!ctl || !rb || !wb || !snap || !commit || !oldest || n_reads < 0 ||
       n_writes < 0 || n_txns < 0 || width < 2 || span == 0u ||
       (re == nullptr) != (we == nullptr))
     return fdb::ERR_BAD_ARGS;
-  int total = n_reads + n_writes > n_txns ? n_reads + n_writes : n_txns;
-  chain_gen_kernel<<<fdb::blocks_for(total > 0 ? total : 1, 256), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      ctl, rb, re, wb, we, snap, commit, oldest, n_reads, n_writes, n_txns,
-      width, span, mult);
+  const int most = n_reads > n_writes ? n_reads : n_writes;
+  const dim3 grid(most > 0 ? fdb::blocks_for(most, GEN_SLOTS) : 1, 2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (whole)
+    chain_gen_kernel<true><<<grid, GEN_THREADS, 0, st>>>(
+        ctl, rb, re, wb, we, snap, commit, oldest, n_reads, n_writes, n_txns,
+        width, span, magic, mult);
+  else
+    chain_gen_kernel<false><<<grid, GEN_THREADS, 0, st>>>(
+        ctl, rb, re, wb, we, snap, commit, oldest, n_reads, n_writes, n_txns,
+        width, span, magic, mult);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -135,7 +135,7 @@ _SIGNATURES = {
                           + [_P, _SZ, _P, _P], _I),
     "fdb_point_resolve_packed": ([_P, _P, _P] + [_I] * 6 + [_P] * 5
                                  + [_P, _SZ, _P, _P], _I),
-    "fdb_chain_gen": ([_P] * 8 + [_I] * 4 + [_U, _U, _P], _I),
+    "fdb_chain_gen": ([_P] * 8 + [_I] * 4 + [_U, _U, _U, _I, _P], _I),
     "fdb_chain_tally": ([_P, _P, _I, _P, _I, _P], _I),
 }
 

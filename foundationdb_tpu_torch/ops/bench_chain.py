@@ -22,7 +22,10 @@ where `split` and `gen_rows` are `jax.random.split` and
 conflicts. The port holds its whole step counter on the card: K9
 reads the carried key and `i` from a small control block, K10 adds the
 step's conflicts and advances both, so the host loop only enqueues and
-never learns `i`.
+never learns `i`. The control block also carries the four randint
+keys of the carried key (`C_RK`, the keys every slot of a step hashes
+under), which K10 derives when it advances the key: K9's slots hash
+their index and nothing else. `chain_ctl` makes a well-formed block.
 
 The plain versions compute in int64 with `& 0xFFFFFFFF` after every
 operation (PyTorch's uint32 lacks shifts and wrapping products on some
@@ -53,8 +56,11 @@ MWTLV = 5_000_000
 VERSION_STEP = 250_000
 WINDOW_BATCHES = MWTLV // VERSION_STEP
 
-# the control block K9 and K10 share (uint32 words)
-C_KEY, C_STEP, C_NCONF, C_NEXT, C_KR, C_KW, C_WORDS = 0, 2, 3, 4, 6, 8, 10
+# the control block K9 and K10 share (uint32 words): the carried key,
+# the step counter, the conflict count, split(key, 3) as K9 derives it,
+# and the randint keys of the carried key (kr's two halves, kw's two)
+C_KEY, C_STEP, C_NCONF, C_NEXT, C_KR, C_KW, C_RK, C_WORDS = \
+    0, 2, 3, 4, 6, 8, 10, 18
 
 launches = {"chain_gen": 0, "chain_tally": 0}
 
@@ -109,6 +115,16 @@ def randint_span(lo: int, hi: int):
     return span, ((m * m) & M32) % span
 
 
+def mod_magic(span: int) -> int:
+    """K9's multiplier for `x % span` (csrc/bench_chain.cu `mod_by`):
+    floor(2^32 / span), or 2^32 - 1 for a span of 1. Then
+    q = (x * magic) >> 32 is floor(x / span) or one less for every
+    uint32 x, so x - q * span needs at most one subtraction of span."""
+    if not 0 < span < 1 << 32:
+        raise ValueError("span must lie in [1, 2^32)")
+    return M32 if span == 1 else (1 << 32) // span
+
+
 def randint(key, n: int, lo: int, hi: int) -> torch.Tensor:
     """`jax.random.randint(key, (n,), lo, hi, int32)`: int32 [n]."""
     k = split(key, 2)
@@ -137,6 +153,28 @@ def gen_rows(key, slots: int, keyspace: int, n_words: int = N_WORDS,
     return _rows64(key, slots, keyspace, n_words, length).to(torch.uint32)
 
 
+def randint_keys(key) -> torch.Tensor:
+    """The four keys a chain step's `randint` draws hash under, from the
+    step's key: split(kr, 2) then split(kw, 2), where (_, kr, kw) =
+    split(key, 3); int64 [8] of uint32 values (the control block's
+    `C_RK` words)."""
+    _nk, kr, kw = split(key, 3).to(torch.int64)
+    return torch.cat([split(kr, 2).reshape(-1),
+                      split(kw, 2).reshape(-1)]).to(torch.int64)
+
+
+def chain_ctl(key, step: int = 0) -> torch.Tensor:
+    """A well-formed control block (CPU, uint32 [C_WORDS]) at step
+    `step` with the carried key `key` and its randint keys; the other
+    words 0."""
+    c = torch.zeros(C_WORDS, dtype=torch.int64)
+    c[C_KEY:C_KEY + 2] = torch.as_tensor(key).to(torch.int64).reshape(2) \
+        & M32
+    c[C_STEP] = step
+    c[C_RK:C_RK + 8] = randint_keys(c[C_KEY:C_KEY + 2])
+    return c.to(torch.uint32)
+
+
 def key_from_jax(key) -> torch.Tensor:
     """A JAX threefry key (`jax.random.key_data`, numpy uint32 [2]) as
     the port's key: uint32 [2]. `jax.random.PRNGKey(7)` is [0, 7]."""
@@ -159,9 +197,12 @@ def chain_gen_plain(ctl, rb, re, wb, we, snap, commit, oldest,
                     keyspace: int) -> None:
     """K9's plain version, in place: from the carried key and step
     counter in `ctl`, the next key, kr and kw, the read and write rows
-    (the end rows when `re`/`we` are given) and the step's versions.
-    It runs on the tensors' device (on the card it reads the step
-    counter back, a sync)."""
+    (the end rows when `re`/`we` are given; always whole) and the
+    step's versions. It derives every key from the carried key, where
+    the kernel reads the randint keys from `C_RK`: on a well-formed
+    block (`chain_ctl`, then K10's) the two agree. It runs on the
+    tensors' device (on the card it reads the step counter back, a
+    sync)."""
     c = ctl.to(torch.int64)
     key = c[C_KEY:C_KEY + 2]
     nk, kr, kw = split(key, 3).to(torch.int64)
@@ -182,8 +223,8 @@ def chain_gen_plain(ctl, rb, re, wb, we, snap, commit, oldest,
 
 def chain_tally_plain(ctl, conflict, n_txns: int, per_step=None) -> None:
     """K10's plain version, in place: nconf += sum(conflict[:n_txns]),
-    per_step[i] = that sum (when given and i fits), i += 1, and the key
-    K9 made becomes the carried key."""
+    per_step[i] = that sum (when given and i fits), i += 1, the key K9
+    made becomes the carried key, and its randint keys go to `C_RK`."""
     c = ctl.to(torch.int64)
     total = int(conflict[:n_txns].to(torch.int64).sum())
     i = int(c[C_STEP])
@@ -192,6 +233,7 @@ def chain_tally_plain(ctl, conflict, n_txns: int, per_step=None) -> None:
     c[C_NCONF] = (c[C_NCONF] + total) & M32
     c[C_STEP] = (i + 1) & M32
     c[C_KEY:C_KEY + 2] = c[C_NEXT:C_NEXT + 2]
+    c[C_RK:C_RK + 8] = randint_keys(c[C_KEY:C_KEY + 2])
     ctl.copy_(c.to(torch.uint32))
 
 
@@ -213,9 +255,12 @@ def _check_ctl(ctl):
 
 
 def chain_gen(ctl, rb, re, wb, we, snap, commit, oldest,
-              keyspace: int) -> None:
+              keyspace: int, whole: bool = True) -> None:
     """K9 on CUDA tensors, its plain version on CPU tensors; writes
-    every output in place. `re`/`we` are None on the point chain."""
+    every output in place. `re`/`we` are None on the point chain. With
+    `whole` False the kernel stores only each row's id word: the rows'
+    other words must already hold zeros and the length (16, 17 for end
+    rows), as `BenchChain`'s buffers do."""
     _check_ctl(ctl)
     if not _device.is_cuda(ctl):
         return chain_gen_plain(ctl, rb, re, wb, we, snap, commit, oldest,
@@ -240,7 +285,8 @@ def chain_gen(ctl, rb, re, wb, we, snap, commit, oldest,
     check(lib().fdb_chain_gen(
         ctl.data_ptr(), *[p or None for p in ptrs], snap.data_ptr(),
         commit.data_ptr(), oldest.data_ptr(), n_reads, n_writes,
-        snap.shape[0], width, span, mult, _device.stream_handle(dev)),
+        snap.shape[0], width, span, mod_magic(span), mult, int(whole),
+        _device.stream_handle(dev)),
         "chain_gen")
     launches["chain_gen"] += 1
 
@@ -309,12 +355,15 @@ class BenchChain:
             hv0[0] = 0
         self._init = (hk0.to(torch.uint32).to(dev), hv0.to(dev))
 
-        def rows(k):
-            return torch.zeros((k, width), dtype=torch.uint32, device=dev)
+        def rows(k, length=KEY_BYTES):
+            # the words K9 leaves alone: zeros and the length word
+            r = torch.zeros((k, width), dtype=torch.uint32, device=dev)
+            r[:, N_WORDS] = length
+            return r
 
         self.rb, self.wb = rows(nr), rows(nw)
-        self.re, self.we = ((rows(nr), rows(nw)) if kind == "interval"
-                            else (None, None))
+        self.re, self.we = ((rows(nr, KEY_BYTES + 1), rows(nw, KEY_BYTES + 1))
+                            if kind == "interval" else (None, None))
         i32 = torch.int32
         self.snap = torch.zeros(n, dtype=i32, device=dev)
         self.commit = torch.zeros((), dtype=i32, device=dev)
@@ -331,11 +380,7 @@ class BenchChain:
         self.ctl = torch.zeros(C_WORDS, dtype=torch.uint32, device=dev)
         self.per_step = (torch.zeros(record, dtype=i32, device=dev)
                          if record else None)
-        self._key0 = prng_key(7) if key is None else \
-            torch.as_tensor(key).to(torch.int64).reshape(2).to(torch.uint32)
-        self._ctl0 = torch.zeros(C_WORDS, dtype=torch.uint32)
-        self._ctl0[C_KEY:C_KEY + 2] = self._key0
-        self._ctl0 = self._ctl0.to(dev)
+        self._ctl0 = chain_ctl(prng_key(7) if key is None else key).to(dev)
         cuda = dev.type == "cuda"
         self._pairs = [(torch.empty_like(self._init[0]),
                         torch.empty_like(self._init[1]))
@@ -373,7 +418,7 @@ class BenchChain:
         """Enqueue one step; returns its conflict flags (a buffer the
         next step overwrites on the card)."""
         chain_gen(self.ctl, self.rb, self.re, self.wb, self.we, self.snap,
-                  self.commit, self.oldest, self.keyspace)
+                  self.commit, self.oldest, self.keyspace, whole=False)
         out = None
         if len(self._pairs) == 2:
             nxt = self._pairs[1] if self.state[0] is self._pairs[0][0] \

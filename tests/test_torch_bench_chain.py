@@ -3,7 +3,9 @@ random bits, randint and row generator equal jax.random bit for bit;
 the CPU point and interval chains count exactly the reference bench's
 conflicts (bench.py `bench_tpu_point` / `bench_tpu`) and, step by step,
 give the state, conflict flags and key of a JAX loop over the
-reference's resolve cores; K10's plain version counts the set flags
+reference's resolve cores; the control block carries jax.random's
+randint keys; K9's remainder by a multiplier is exact for every uint32;
+K10's plain version counts the set flags
 at lengths around a 16-byte word and around 16,384, with and
 without per_step; K9 and K10 equal their plain versions on the card
 (CUDA-marked; K10 also at those lengths on a view one byte off
@@ -255,6 +257,74 @@ def test_chain_steps_match_a_jax_loop(kind, cap):
     assert chain.conflicts() == sum(counts)
 
 
+def jax_randint_keys(key):
+    """The four keys a reference step's two randint calls hash under:
+    split(kr, 2) and split(kw, 2) of (_, kr, kw) = split(key, 3)."""
+    k = jax.random.wrap_key_data(np.asarray(key, np.uint32),
+                                 impl="threefry2x32")
+    _nk, kr, kw = jax.random.split(k, 3)
+    return np.concatenate([np.asarray(jax.random.key_data(
+        jax.random.split(x, 2))).reshape(-1) for x in (kr, kw)]
+    ).astype(np.int64)
+
+
+@pytest.mark.parametrize("step", (0, 9))
+def test_chain_ctl_carries_the_randint_keys(step):
+    """A fresh control block holds the key, the step and the randint
+    keys of the key (what K9 hashes every slot under), nothing else."""
+    for key in keys_under_test()[:6]:
+        ctl = bc.chain_ctl(bc.key_from_jax(key), step).numpy()
+        assert ctl.dtype == np.uint32 and ctl.shape == (bc.C_WORDS,)
+        assert np.array_equal(ctl[bc.C_KEY:bc.C_KEY + 2], np.asarray(key))
+        assert ctl[bc.C_STEP] == step
+        assert np.array_equal(ctl[bc.C_RK:bc.C_RK + 8].astype(np.int64),
+                              jax_randint_keys(key))
+        rest = np.delete(ctl, list(range(bc.C_RK, bc.C_RK + 8))
+                         + [bc.C_KEY, bc.C_KEY + 1, bc.C_STEP])
+        assert not rest.any()
+
+
+@pytest.mark.parametrize("span", (1, 2, 3, 7, 1000, 2**16 + 1, 4_000_000,
+                                  2**31 - 1, 2**31, 2**32 - 1))
+def test_mod_magic_gives_the_remainder_of_every_uint32(span):
+    """K9's `% span` (csrc/bench_chain.cu `mod_by`) emulated in uint64:
+    q = (x * magic) >> 32, r = x - q * span, less span once if r >=
+    span, equals x % span at the edges and on random words."""
+    magic = bc.mod_magic(span)
+    rng = np.random.default_rng(span)
+    x = np.concatenate([
+        rng.integers(0, 2**32, 1 << 16, dtype=np.uint64),
+        np.arange(0, 64, dtype=np.uint64),
+        2**32 - 1 - np.arange(0, 64, dtype=np.uint64),
+        np.uint64(span) * np.arange(1, 64, dtype=np.uint64) % 2**32,
+        (np.uint64(span) * np.arange(1, 64, dtype=np.uint64) - 1) % 2**32,
+    ]).astype(np.uint64)
+    q = (x * np.uint64(magic)) >> np.uint64(32)
+    r = x - q * np.uint64(span)
+    assert (r < 2 * span).all()
+    r = np.where(r >= span, r - span, r)
+    assert np.array_equal(r, x % np.uint64(span))
+    with pytest.raises(ValueError):
+        bc.mod_magic(0)
+
+
+@pytest.mark.parametrize("kind", ("point", "interval"))
+def test_chain_buffers_hold_the_constant_words(kind):
+    """The chain's row buffers hold their zero words and length words
+    from the start (the kernel stores only the id words a step), and
+    a step's rows are the whole rows of `gen_rows`."""
+    chain = bc.BenchChain(kind, 16, 8192, device="cpu", cap=512)
+    ends = (chain.re, chain.we) if kind == "interval" else ()
+    for rows, length in [(chain.rb, KEY_BYTES), (chain.wb, KEY_BYTES)] + \
+            [(r, KEY_BYTES + 1) for r in ends]:
+        assert (rows[:, N_WORDS] == length).all()
+        assert not rows[:, :N_WORDS].to(torch.int64).any()
+    chain.step()
+    _nk, kr, kw = bc.split(bc.prng_key(7), 3)
+    assert torch.equal(chain.rb, bc.gen_rows(kr, chain.n_reads, 8192))
+    assert torch.equal(chain.wb, bc.gen_rows(kw, chain.n_writes, 8192))
+
+
 # K10's edge lengths: one flag, a 16-byte word's neighbours, and
 # either side of the chains' 16,384 (one 16-byte load a thread)
 TALLY_LENGTHS = (1, 15, 16, 17, 16383, 16385)
@@ -277,8 +347,9 @@ def tally_case(n, offset=0):
 def test_chain_tally_plain_counts_nonzero_flags(n, per_step_len):
     """K10's plain version: nconf grows by the count of set flags
     (numpy's count of nonzero bytes), per_step[i] takes it where i = 3
-    fits (not in a per_step of 3), the step counter advances and the
-    next key becomes the carried key; no other word changes."""
+    fits (not in a per_step of 3), the step counter advances, the next
+    key becomes the carried key and its randint keys (jax.random's
+    split of its kr and kw) fill C_RK; no other word changes."""
     ctl, raw, flags = tally_case(n)
     want = ctl.numpy().astype(np.int64)
     count = int(np.count_nonzero(raw))
@@ -288,6 +359,7 @@ def test_chain_tally_plain_counts_nonzero_flags(n, per_step_len):
     want[bc.C_NCONF] = (want[bc.C_NCONF] + count) & 0xFFFFFFFF
     want[bc.C_STEP] = 4
     want[bc.C_KEY:bc.C_KEY + 2] = want[bc.C_NEXT:bc.C_NEXT + 2]
+    want[bc.C_RK:bc.C_RK + 8] = jax_randint_keys(want[bc.C_NEXT:bc.C_NEXT + 2])
     np.testing.assert_array_equal(ctl.numpy().astype(np.int64), want)
     if per_step is not None:
         expect = [-1] * per_step_len
@@ -334,12 +406,13 @@ def _offset_on(flags, offset, dev):
 @pytest.mark.parametrize("interval", (False, True))
 def test_chain_kernels_match_plain_on_the_card(cuda, interval):
     """K9 and K10 bit-exact against their plain versions over 8 chained
-    steps, at 1, 7 and 16,384 slots and keyspaces 1, 2^16+1, 2^31-1."""
-    for slots, keyspace in ((1, 1), (7, 2**16 + 1), (16384, 4_000_000),
-                            (16384, 2**31 - 1)):
+    steps from a well-formed control block, at 1, 7, 300 and 16,384
+    slots and keyspaces 1, 2^16+1, 2^31-1: K9 storing whole rows into
+    fresh buffers on the first step, then only the id words."""
+    for slots, keyspace in ((1, 1), (7, 2**16 + 1), (300, 4_000_000),
+                            (16384, 4_000_000), (16384, 2**31 - 1)):
         width = N_WORDS + 1
-        ctl = torch.zeros(bc.C_WORDS, dtype=torch.uint32)
-        ctl[0:2] = bc.prng_key(7)
+        ctl = bc.chain_ctl(bc.prng_key(7))
         outs = {}
         for dev in ("cpu", cuda):
             c = ctl.clone().to(dev)
@@ -352,9 +425,9 @@ def test_chain_kernels_match_plain_on_the_card(cuda, interval):
             oldest = torch.zeros((), dtype=torch.int32, device=dev)
             per_step = torch.zeros(8, dtype=torch.int32, device=dev)
             seen = []
-            for _ in range(8):
+            for step in range(8):
                 bc.chain_gen(c, rows[0], rows[1], rows[2], rows[3], snap,
-                             commit, oldest, keyspace)
+                             commit, oldest, keyspace, whole=step == 0)
                 conflict = (rows[0][:, width - 2].to(torch.int64) & 1) == 1
                 bc.chain_tally(c, conflict, slots, per_step)
                 seen.append([t.cpu().clone() for t in rows if t is not None]

@@ -249,3 +249,26 @@ def test_window_kernel_matches_plain(cuda):
         got = port.window_upkeep(hv.to(cuda), mode, *args)
         assert torch.equal(got.cpu(), port.window_upkeep_plain(hv, mode,
                                                                *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4099, (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_window_kernel_in_place_at_edges(cuda, n, offset):
+    """K4 in every mode in place (`out` is `hv`, as the resolvers call
+    it) on lengths around its int4s and on a view 4 bytes off
+    alignment (its scalar path), against the plain version."""
+    full = torch.from_numpy(_window_state(n + 1))
+    hv = full[offset:offset + n]
+    p = ref.REBASE_THRESHOLD
+    for mode, args in ((port.REBASE, (5, 0, 0)), (port.RESET, (0, 0, 0)),
+                       (port.JUMP_FIXUP, (p, 77, 1000)),
+                       (port.JUMP_FIXUP_LARGE, (p, 77, 0))):
+        work = full.to(cuda)[offset:offset + n]
+        assert work.data_ptr() % 16 == 4 * offset
+        before = port.launches["window_upkeep"]
+        got = port.window_upkeep(work, mode, *args, out=work)
+        assert port.launches["window_upkeep"] == before + 1
+        assert got.data_ptr() == work.data_ptr()
+        assert torch.equal(work.cpu(), port.window_upkeep_plain(hv, mode,
+                                                                *args))
