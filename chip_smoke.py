@@ -43,6 +43,17 @@ resolver re-bases its int32 version window mid-run.
     conflicts; the first CHAIN_PREFIX steps' counts, key and state must
     equal the port's CPU run; the timed runs make no sync (they run
     under `torch.cuda.set_sync_debug_mode("error")`).
+  - The resolver role, `server/resolver_role.py:Resolver`, on each
+    CUDA backend at its defaults (a 32-byte key width, the point
+    backend's 8; one shard on one card), on a virtual scheduler and a
+    simulated network: ROLE_BATCHES ResolveRequests of the same traffic
+    (16-byte keys; 8-byte keys with the same ids for the point
+    backend), 4 in flight from a proxy process. Every reply must equal
+    the backend driven directly (verdicts and attributed ranges), the
+    first ROLE_CPU_BATCHES the port's CPU role's; no failover; one
+    re-base; an in-flight and a cached duplicate answer as the first
+    delivery. It prints the role's ms a batch, the host's split of it,
+    the device's busy share and each kernel's launches a batch.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -123,6 +134,10 @@ WINDOW_SHAPES = (("interval", (CAPACITY,)), ("point", (POINT_CAPACITY,)),
                  ("sharded", (N_SHARDS, SHARD_CAPACITY)))
 L2_FLUSH_BYTES = 128 << 20
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
+ROLE_BATCHES = 32      # the role phase: ResolveRequests a backend
+ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
+ROLE_DUP_AT = 24       # batch whose successor's two copies wait on it
+ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
 SEED = 20260729
 
 
@@ -1764,6 +1779,295 @@ def chain_probe(dev, tag) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the resolver role: ResolveRequests through the sim network
+# ---------------------------------------------------------------------------
+
+ROLE_BACKENDS = (("cuda", INTERVAL_KERNELS), ("cuda-point", POINT_KERNELS),
+                 ("sharded-cuda", SHARDED_KERNELS))
+
+
+def role_requests(key_bytes):
+    """The cells' traffic as ResolveRequests: ROLE_BATCHES batches of
+    N_TXNS CommitRequests, each one point read [k, k + b"\\x00") and one
+    point write over KEYSPACE uniform ids (big-endian in the key's low 8
+    bytes), read at the previous batch's version, VERSION_STEP versions
+    a batch from just below 2^30, chained by prev_version from the
+    resolver's recovery version 0; one transaction of every other batch
+    asks for report_conflicting_keys. The same ids at every key width.
+    Returns [(ResolveRequest, new oldest version)]."""
+    from foundationdb_tpu_torch.server.types import (CommitRequest,
+                                                     ResolveRequest)
+    rng = np.random.default_rng(SEED + 2)
+    pad = bytes(key_bytes - 8)
+    out, prev = [], 0
+    for i, (v, o) in zip(range(ROLE_BATCHES), versions()):
+        ids = rng.integers(0, KEYSPACE, size=2 * N_TXNS, dtype=np.int64)
+        raw = ids.astype(">u8").tobytes()
+        keys = [pad + raw[j:j + 8] for j in range(0, len(raw), 8)]
+        txns = tuple(CommitRequest(
+            v - VERSION_STEP, ((r, r + b"\x00"),), ((w, w + b"\x00"),), (),
+            report_conflicting_keys=(t == 0 and i % 2 == 1))
+            for t, (r, w) in enumerate(zip(keys[0::2], keys[1::2])))
+        out.append((ResolveRequest(prev, v, txns), o))
+        prev = v
+    return out
+
+
+class _Timed:
+    """Wall seconds spent in one callable, by a label the caller picks
+    from the arguments (`label(*args)`, or one bucket)."""
+
+    def __init__(self, fn, label=None):
+        self.fn, self.label, self.secs, self.calls = fn, label, {}, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            k = self.label(*args) if self.label else ""
+            self.secs[k] = self.secs.get(k, 0.0) + time.perf_counter() - t0
+            self.calls += 1
+
+    def total(self, k="") -> float:
+        return self.secs.get(k, 0.0)
+
+
+def role_run(backend, requests, device, timed=False):
+    """The port's Resolver(process, backend, device=device) on a virtual
+    Scheduler and a SimNetwork, fed by a proxy process that keeps
+    PIPELINE_DEPTH requests outstanding, as a proxy does (the sim's
+    latencies reorder them). When the run reaches ROLE_DUP_AT, the two
+    copies of the next batch go out first and its predecessor after
+    them: both copies wait on it, and the second finds the first in
+    flight and drains the same ticket. After the stream the same batch
+    goes out once more and comes from the reply cache. Returns (the
+    replies by batch, the duplicates' replies, the resolver, the wall
+    seconds of the stream, the timers when `timed`, the scheduler's
+    per-task report)."""
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.rpc import SimNetwork
+    from foundationdb_tpu_torch.server.resolver_role import Resolver
+    flow.set_seed(SEED)
+    sched = flow.Scheduler()
+    flow.set_scheduler(sched)
+    try:
+        net = SimNetwork(sched, flow.g_random)
+        proxy = net.new_process("proxy", machine="p")
+        res = Resolver(net.new_process("resolver", machine="r"), backend,
+                       device=device)
+        timers = {}
+        if timed:
+            cs = res.conflict_set
+            timers = {
+                "wire": _Timed(net._wire, lambda obj: type(obj).__name__),
+                "submit": _Timed(cs.submit),
+                "checkpoint": _Timed(cs._take_checkpoint),
+                "drain": _Timed(cs.drain_with_attribution),
+                "payload": _Timed(res._build_payload),
+                "state": _Timed(res._check_state_pressure)}
+            net._wire = timers["wire"]
+            cs.submit, cs._take_checkpoint = (timers["submit"],
+                                              timers["checkpoint"])
+            cs.drain_with_attribution = timers["drain"]
+            res._build_payload = timers["payload"]
+            res._check_state_pressure = timers["state"]
+            if cs.active.kernel_stats()["platform"] == "gpu":
+                cs.active.time_device(True)
+        res.start()
+        ref = res.resolves.ref()
+        n = len(requests)
+        replies, dups = {}, {}
+
+        async def send(req, into, key):
+            into[key] = await ref.get_reply(req, proxy)
+
+        async def run():
+            pending, i = [], 0
+            while i < n:
+                if i == ROLE_DUP_AT and i + 1 < n:
+                    nxt = requests[i + 1][0]
+                    copies = [flow.spawn(send(nxt, dups, c), name="proxy")
+                              for c in ("first copy", "second copy")]
+                    await flow.delay(2 * net.max_latency)
+                    pending.append(flow.spawn(
+                        send(requests[i][0], replies, i), name="proxy"))
+                    await flow.all_of(copies)
+                    replies[i + 1] = dups["first copy"]
+                    i += 2
+                    continue
+                pending.append(flow.spawn(send(requests[i][0], replies, i),
+                                          name="proxy"))
+                i += 1
+                while len(pending) >= PIPELINE_DEPTH:
+                    await pending.pop(0)
+            await flow.all_of(pending)
+            if ROLE_DUP_AT + 1 < n:
+                await send(requests[ROLE_DUP_AT + 1][0], dups, "cached")
+            return True
+
+        sched.start_task_stats()
+        t0 = time.perf_counter()
+        task = sched.spawn(run(), name="proxy")
+        sched.run(until=task, timeout_time=1e9)
+        secs = time.perf_counter() - t0
+        return replies, dups, res, secs, timers, sched.stop_task_stats()
+    finally:
+        flow.set_scheduler(None)
+
+
+def _verdicts(reply):
+    """(verdicts, attributed ranges or None) of one reply."""
+    if isinstance(reply, tuple) and hasattr(reply, "_fields"):
+        return list(reply.verdicts), list(reply.conflicting_ranges)
+    return list(reply), None
+
+
+def role_phase(tag) -> dict:
+    """The resolver role on each CUDA backend at its defaults (a 32-byte
+    key width, the point backend's 8, whose requests carry the same ids
+    in 8-byte keys; one shard on one card): ROLE_BATCHES requests through
+    `role_run` on the card. Every reply must equal the
+    same backend driven directly on the card (`resolve_with_attribution`
+    over the same batches at the role's oldest versions): verdicts, and
+    the attributed ranges where the batch asked for them; the first
+    ROLE_CPU_BATCHES replies the port's CPU role's (`device="cpu"`);
+    the failover wrapper must count no device fault and no failover,
+    K4 must run once (the re-base when the versions cross 2^30), as
+    often as in the direct run, and every kernel of the backend's path
+    must launch; the in-flight and the cached duplicate must answer as
+    the first delivery did. Prints the role's wall time a batch, the
+    host's split of it, the device's busy share and each kernel's
+    launches a batch; returns {backend: launch counts}."""
+    from foundationdb_tpu_torch.flow import coverage
+    from foundationdb_tpu_torch.models import (ResolverTransaction,
+                                               create_conflict_set)
+    t_phase = time.perf_counter()
+    cell_requests = role_requests(KEY_BYTES)
+    counts_by = {}
+    for backend, kernels in ROLE_BACKENDS:
+        requests = (role_requests(ROLE_POINT_KEY_BYTES)
+                    if backend == "cuda-point" else cell_requests)
+        cov0 = {k: coverage.hits(f"resolver.reply_cache.{k}")
+                for k in ("inflight_dup", "hit")}
+        zero_counts()
+        replies, dups, res, secs, timers, tasks = role_run(
+            backend, requests, None, timed=True)
+        counts = launch_counts()
+        n = len(requests)
+        cov = {k: coverage.hits(f"resolver.reply_cache.{k}") - v
+               for k, v in cov0.items()}
+        active = res.conflict_set.active
+        dev_ms = active.device_ms()
+        fo = res.failover_stats()
+        res.stop()
+        if sorted(replies) != list(range(n)):
+            raise AssertionError(f"role {backend}: replies for "
+                                 f"{sorted(replies)}")
+        idle = [k for k in kernels if counts[k] <= 0]
+        if idle:
+            raise AssertionError(f"role {backend} never launched {idle}")
+        if fo.get("failovers") or fo.get("device_faults") \
+                or not fo.get("on_primary", True) \
+                or active.kernel_stats()["platform"] != "gpu":
+            raise AssertionError(f"role {backend}: failover stats {fo}")
+        first = dups["first copy"]
+        if not (dups["second copy"] == first == dups["cached"]) \
+                or cov != {"inflight_dup": 1, "hit": 1}:
+            raise AssertionError(f"role {backend}: duplicates of batch "
+                                 f"{ROLE_DUP_AT + 1} answered "
+                                 f"differently or missed their path: {cov}")
+        # the same backend driven directly over the same batches
+        zero_counts()
+        cs = create_conflict_set(backend, device=None)
+        t0 = time.perf_counter()
+        for i, (req, oldest) in enumerate(requests):
+            txns = [ResolverTransaction(t.read_snapshot,
+                                        t.read_conflict_ranges,
+                                        t.write_conflict_ranges)
+                    for t in req.transactions]
+            want, attr = cs.resolve_with_attribution(txns, req.version,
+                                                     oldest)
+            got, ranges = _verdicts(replies[i])
+            if got != want:
+                raise AssertionError(f"role {backend}: verdicts of batch "
+                                     f"{i} differ from the direct run's")
+            if ranges is not None and ranges != [
+                    tuple(txns[t].read_ranges[j] for j in a)
+                    for t, a in enumerate(attr)]:
+                raise AssertionError(f"role {backend}: attributed ranges "
+                                     f"of batch {i} differ")
+        direct_secs = time.perf_counter() - t0
+        direct = launch_counts()
+        del cs
+        if counts["window_upkeep"] != 1 or direct["window_upkeep"] != 1:
+            raise AssertionError(
+                f"role {backend}: K4 ran {counts['window_upkeep']} times, "
+                f"{direct['window_upkeep']} in the direct run; one re-base "
+                "expected")
+        # the first replies against the port's CPU role
+        t0 = time.perf_counter()
+        cpu_replies, _d, cpu_res, _s, _t, _k = role_run(
+            backend, requests[:ROLE_CPU_BATCHES], "cpu")
+        cpu_res.stop()
+        for i in range(ROLE_CPU_BATCHES):
+            if cpu_replies[i] != replies[i]:
+                raise AssertionError(f"role {backend}: reply {i} differs "
+                                     "from the CPU role's")
+        cpu_secs = time.perf_counter() - t0
+        conflicts = sum(_verdicts(replies[i])[0].count(0) for i in range(n))
+        reports = sum(1 for i in range(n) if _verdicts(replies[i])[1]
+                      is not None)
+        print(f"[{tag}] role {backend}: {n} ResolveRequests of {N_TXNS} "
+              f"txns ({reports} with a ResolveReply), {conflicts} "
+              f"conflicts; every reply equal to the direct run's verdicts "
+              f"and attributed ranges ({direct_secs:.1f} s), the first "
+              f"{ROLE_CPU_BATCHES} to the CPU role's ({cpu_secs:.1f} s); "
+              f"{fo.get('failovers')} failovers, {fo.get('device_faults')} "
+              f"device faults, {fo.get('checkpoints')} checkpoints; K4 "
+              f"{counts['window_upkeep']} launch (one re-base); the "
+              f"in-flight and the cached duplicate of batch "
+              f"{ROLE_DUP_AT + 1} equal its first reply", flush=True)
+        ms = secs / n * 1e3
+        print(f"[{tag}] role {backend}: {ms:.3f} ms/batch, {n / secs:.3f} "
+              f"batches/s, {n * N_TXNS / secs:.1f} txn/s over the wall "
+              f"time ({secs:.3f} s for {n} batches)", flush=True)
+        wire = timers["wire"].secs
+        per = {k: 1e3 * t.total() / n for k, t in timers.items()}
+        wire_req = 1e3 * wire.get("ResolveRequest", 0.0) / n
+        wire_rep = 1e3 * sum(v for k, v in wire.items()
+                             if k != "ResolveRequest") / n
+        busy = {r["task"]: r["busy_us"] / 1e3 / n for r in tasks["tasks"]}
+        # the resolve actor's steps hold the build, submit, drain,
+        # payload, the state check and the reply's wire trip
+        rest = busy.get("_resolve_batch", 0.0) - wire_rep - sum(
+            per[k] for k in ("submit", "drain", "payload", "state"))
+        print(f"[{tag}] role {backend}: host ms a batch: wire round trip "
+              f"{wire_req:.3f} request, {wire_rep:.3f} reply; "
+              f"ResolverTransaction build, key histogram and the rest of "
+              f"the step {rest:.3f}; submit (marshal, H2D, launch) "
+              f"{per['submit'] - per['checkpoint']:.3f}, the failover "
+              f"wrapper's checkpoints inside it {per['checkpoint']:.3f} "
+              f"({timers['checkpoint'].calls} calls); "
+              f"drain_with_attribution {per['drain']:.3f}; _build_payload "
+              f"{per['payload']:.3f}; state check {per['state']:.3f}; the "
+              f"loop busy {sum(busy.values()):.3f} of {ms:.3f}", flush=True)
+        print(f"[{tag}] role {backend}: device busy "
+              f"{100 * dev_ms / (secs * 1e3):.2f}% of the wall "
+              f"({dev_ms / n:.3f} ms/batch in CUDA-event spans)",
+              flush=True)
+        print(f"[{tag}] role {backend}: launches a role batch "
+              + ", ".join(f"{k} {counts[k] / n:.3f}" for k in counts
+                          if counts[k]) + "; direct run "
+              + ", ".join(f"{k} {direct[k] / n:.3f}" for k in direct
+                          if direct[k]), flush=True)
+        counts_by[backend] = counts
+    print(f"[{tag}] role phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts_by
+
+
 def probe_main(tag, dev) -> int:
     """`--probe`: only K4's table and the chains' traced window, for a
     checkout whose own smoke script predates them; one JSON line."""
@@ -2162,6 +2466,8 @@ def main() -> int:
           f"and {rows[1]} steps); final rows per shard max {state_s[2]}",
           flush=True)
 
+    role_counts = role_phase(tag)
+
     failover_phase(tag)
 
     chain_res, counts_c, chain_ctl = chain_phase(tag, dev)
@@ -2256,6 +2562,8 @@ def main() -> int:
         src, rep = sources[name]
         by_path = {"interval": counts_a[name], "point": counts_p[name],
                    "sharded": counts_s[name], "chain": counts_c[name]}
+        by_path.update({f"role {b}": c[name]
+                        for b, c in role_counts.items()})
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -2295,7 +2603,9 @@ def main() -> int:
               f"{by_path['interval'] / n_batches:.3f} interval, "
               f"{by_path['point'] / n_batches:.3f} point, "
               f"{by_path['sharded'] / n_batches:.3f} sharded, "
-              f"{by_path['chain'] / chain_steps:.3f} chain step", flush=True)
+              f"{by_path['chain'] / chain_steps:.3f} chain step, "
+              + ", ".join(f"{by_path[f'role {b}'] / ROLE_BATCHES:.3f} role "
+                          f"{b}" for b in role_counts), flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

@@ -26,10 +26,11 @@ SevError = 40
 
 
 def _now() -> float:
-    """Event timestamp. The reference stamps the flow scheduler's
-    virtual clock; the port has no scheduler yet, so every event is
-    stamped 0.0 (the reference's value when no scheduler runs)."""
-    return 0.0
+    try:  # time is the scheduler's virtual clock when one is running
+        from .scheduler import g
+        return g().now()
+    except Exception:
+        return 0.0
 
 
 _knobs = None    # cached knobs handle: suppression must not pay the

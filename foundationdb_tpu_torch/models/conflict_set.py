@@ -765,3 +765,13 @@ class BruteForceConflictSet(ConflictSetBase):
             self._oldest = new_oldest_version
         return verdicts
 
+
+
+# ConflictRangePiece (and the checkpoint it slices) cross the wire in
+# the resolver split/merge handoff RPCs (server/resolver_role.py), so
+# both are RPC vocabulary; rpc.wire imports nothing from models, so
+# the targeted registration is cycle-free.
+from ..rpc import wire as _wire  # noqa: E402
+
+_wire.register_message(ConflictSetCheckpoint)
+_wire.register_message(ConflictRangePiece)

@@ -70,11 +70,10 @@ class ShadowResolveMismatch(RuntimeError):
 
 def _sim_now() -> "float | None":
     """flow.now() when a scheduler is ambient; None for bare unit tests
-    (the reattach backoff gate then degrades to 'always eligible').
-    The port has no scheduler yet, so this is always None: the step
-    that ports the flow scheduler and the server roles wires it to
-    flow.now()."""
-    return None
+    (the reattach backoff gate then degrades to 'always eligible')."""
+    from ..flow.scheduler import _tls
+    s = _tls.current
+    return s.now() if s is not None else None
 
 
 class _FailoverTicket:

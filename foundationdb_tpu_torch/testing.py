@@ -53,9 +53,16 @@ rk, rtxn, rvalid, wk, wtxn, wvalid) for K5's corners (POINT_KINDS):
 Transaction ids are non-decreasing with pad slots = T, as every
 marshaller lays them out. Numpy only: the tests feed the arrays to the
 reference package and the port, and chip_smoke.py to the card.
+
+`rand_batches(seed, n_batches, ...)` is the seeded transaction stream
+the parity tests resolve through both packages' backends: the
+reference's own stream generator (`tests/test_packed_interval.py`),
+draw for draw, yielding the port's `ResolverTransaction`s.
 """
 
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -392,3 +399,42 @@ def point_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
     snap[nt:] = 0
     too_old[nt:] = False
     return sk, sv, (snap, too_old, rk, rt, rv, wk, wt, wv)
+
+
+def txn(snapshot, reads=(), writes=()):
+    """One transaction as the resolvers take it."""
+    from .models.conflict_set import ResolverTransaction
+    return ResolverTransaction(snapshot, tuple(reads), tuple(writes))
+
+
+def rand_batches(seed, n_batches, point=False, n_keys=40, max_txns=10,
+                 version_stride=2000, window=5000):
+    """[(batch, commit_version, new_oldest_version)]: keys over the
+    whole byte range (all sharded splits see traffic), interval widths
+    mixed, occasional EMPTY ranges (b == e, must be skipped without a
+    slot), empty batches, and snapshots below the window (tooOld)."""
+    rng = random.Random(seed)
+    out = []
+    v = 0
+
+    def key():
+        return bytes([rng.randrange(256)]) + b"%02d" % rng.randrange(n_keys)
+
+    def rd():
+        k = key()
+        if point:
+            return (k, k + b"\x00")
+        if rng.random() < 0.1:
+            return (k, k)          # empty range: contributes no slot
+        return (k, k + bytes([rng.randrange(1, 8)]))
+
+    for _ in range(n_batches):
+        v += rng.randrange(1, version_stride)
+        batch = []
+        for _ in range(rng.randrange(0, max_txns)):
+            reads = [rd() for _ in range(rng.randrange(0, 3))]
+            writes = [rd() for _ in range(rng.randrange(0, 3))]
+            snap = max(0, v - rng.randrange(0, 2 * window))
+            batch.append(txn(snap, reads, writes))
+        out.append((batch, v, max(0, v - window)))
+    return out

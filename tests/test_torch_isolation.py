@@ -1,8 +1,9 @@
-"""The port stands alone: no module of foundationdb_tpu_torch, and not
+"""The port stands alone: no module of foundationdb_tpu_torch (the data
+plane, and the flow runtime, `rpc` and `server` modules), and not
 chip_smoke.py, imports JAX or the JAX package (scanned by AST and
-checked at run time in a fresh interpreter), and the CUDA backends asked
-for with no device raise on a host without a card instead of running
-on the CPU."""
+checked at run time in a fresh interpreter), and the CUDA backends and
+the resolver role asked for with no device raise on a host without a
+card instead of running on the CPU."""
 
 import ast
 import os
@@ -40,6 +41,13 @@ def test_port_sources_import_no_jax():
     sources = _port_sources()
     for mod in ("cuda_resolver.py", "point_resolver.py", "failover.py"):
         assert os.path.join(PKG, "models", mod) in sources
+    for sub, mods in (("flow", ("error", "future", "scheduler", "actors",
+                                "smoother", "coverage", "threadpool")),
+                      ("rpc", ("wire", "disk", "network")),
+                      ("server", ("types", "wire", "critical_path",
+                                  "resolver_role"))):
+        for mod in mods:
+            assert os.path.join(PKG, sub, f"{mod}.py") in sources
     assert os.path.join(PKG, "parallel", "sharded_resolver.py") in sources
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                             & FORBIDDEN)
@@ -56,6 +64,14 @@ def test_port_import_loads_no_jax():
             "import foundationdb_tpu_torch.models.failover\n"
             "import foundationdb_tpu_torch.parallel\n"
             "import foundationdb_tpu_torch.models\n"
+            "import foundationdb_tpu_torch.flow\n"
+            "import foundationdb_tpu_torch.flow.threadpool\n"
+            "import foundationdb_tpu_torch.rpc\n"
+            "import foundationdb_tpu_torch.rpc.wire\n"
+            "import foundationdb_tpu_torch.server\n"
+            "import foundationdb_tpu_torch.server.wire\n"
+            "import foundationdb_tpu_torch.server.critical_path\n"
+            "import foundationdb_tpu_torch.server.resolver_role\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -76,3 +92,24 @@ def test_cuda_backend_without_card_raises(monkeypatch):
     with pytest.raises(device.NoCudaDeviceError):
         device.resolve(None)
     assert device.resolve("cpu").type == "cpu"
+
+
+def test_resolver_role_without_card_raises(monkeypatch):
+    """The role's device defaults to the card: with none, a CUDA
+    backend raises instead of resolving on the CPU."""
+    from foundationdb_tpu_torch import device, flow
+    from foundationdb_tpu_torch.rpc import SimNetwork
+    from foundationdb_tpu_torch.server.resolver_role import Resolver
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sched = flow.Scheduler()
+    flow.set_scheduler(sched)
+    try:
+        net = SimNetwork(sched, flow.g_random)
+        for backend in ("cuda", "cuda-point", "sharded-cuda"):
+            proc = net.new_process(f"resolver-{backend}")
+            with pytest.raises(device.NoCudaDeviceError):
+                Resolver(proc, backend)
+        # the host backends have no card to ask for
+        assert Resolver(net.new_process("py"), "python").version.get() == 0
+    finally:
+        flow.set_scheduler(None)

@@ -28,7 +28,7 @@ from foundationdb_tpu_torch.models.cuda_resolver import (  # noqa: E402
     CudaConflictSet,
     load_reference_state,
 )
-from test_packed_interval import rand_batches, txn  # noqa: E402
+from foundationdb_tpu_torch.testing import rand_batches, txn  # noqa: E402
 
 MWTLV = 5_000_000
 

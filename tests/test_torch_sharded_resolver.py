@@ -65,7 +65,7 @@ from foundationdb_tpu_torch.parallel import (  # noqa: E402
     default_split_keys,
     load_reference_sharded_state,
 )
-from test_packed_interval import rand_batches, txn  # noqa: E402
+from foundationdb_tpu_torch.testing import rand_batches, txn  # noqa: E402
 
 MWTLV = 5_000_000
 KEY_BYTES = 8
