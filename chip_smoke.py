@@ -54,6 +54,18 @@ resolver re-bases its int32 version window mid-run.
     re-base; an in-flight and a cached duplicate answer as the first
     delivery. It prints the role's ms a batch, the host's split of it,
     the device's busy share and each kernel's launches a batch.
+  - The commit leg (`foundationdb_tpu_torch.testing.commit_leg`): the
+    role phase's cuda traffic, each transaction carrying one SET_VALUE
+    of its write key to a versionstamp, resolved by the role on the
+    card, the committed mutations logged to a durable TLog and pulled
+    by four StorageServers (one a tag, tags split at key ids 1M, 2M
+    and 3M) on KeyValueStoreMemory engines, each role on its own
+    machine's SimDisk. Every acknowledged write must be read back and
+    no conflicted one, at the last version and (sampled) at batch 30's,
+    before and after a power loss of every log and storage machine;
+    the first COMMIT_CPU_BATCHES batches must equal the same leg with
+    the resolver on the CPU; no failover. It prints the leg's ms a
+    batch, its parts, the recovery time and the device's busy share.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -138,6 +150,9 @@ ROLE_BATCHES = 32      # the role phase: ResolveRequests a backend
 ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
 ROLE_DUP_AT = 24       # batch whose successor's two copies wait on it
 ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
+COMMIT_READ_AT = 30    # the commit leg's older point reads: batch 30's
+COMMIT_SAMPLE = 4096   # version, inside the storage's MVCC window
+COMMIT_CPU_BATCHES = 4   # the leg's prefix held to the CPU leg
 SEED = 20260729
 
 
@@ -2068,6 +2083,121 @@ def role_phase(tag) -> dict:
     return counts_by
 
 
+def commit_leg_phase(tag) -> dict:
+    """The commit leg (`testing.commit_leg` over the port): the role
+    phase's cuda traffic, each transaction carrying one SET_VALUE of its
+    write key to a versionstamp, resolved by `Resolver(process, "cuda")`
+    on the card with PIPELINE_DEPTH requests in flight; the committed
+    mutations logged to one durable TLog, tagged to 4 storage tags split
+    at key ids 1M, 2M and 3M, each pulled by a StorageServer on its own
+    machine's KeyValueStoreMemory at the default durability lag. Checks
+    (inside the leg): every shard paged at the last version equals the
+    plain dict of the verdicts, COMMIT_SAMPLE point reads at batch
+    COMMIT_READ_AT's version equal the dict at that version, and after
+    a power loss of the log's and every storage machine new roles on
+    the same disks recover and answer both again. Here: the role ran on
+    the card with no failover, every interval kernel launched and K4
+    once, the leg's requests are the role phase's plus the mutations,
+    and the first COMMIT_CPU_BATCHES batches of the leg (verdicts,
+    commit replies, reads before and after the power loss) equal the
+    same leg with the resolver at device="cpu". Prints the leg's wall
+    ms a batch, its parts, the recovery time and the device's busy
+    share; returns the leg's launch counts."""
+    from foundationdb_tpu_torch import testing as tg
+    t_phase = time.perf_counter()
+    P = tg.leg_package()
+    rng = np.random.default_rng(SEED + 2)     # role_requests' draws
+    ids = np.stack([rng.integers(0, KEYSPACE, size=2 * N_TXNS,
+                                 dtype=np.int64) for _ in range(ROLE_BATCHES)])
+    vers = [v for v, _o in versions()][:ROLE_BATCHES]
+    for got, want in zip(tg.leg_requests(P, ids, vers, VERSION_STEP,
+                                         tg.LEG_KEY_BYTES),
+                         role_requests(KEY_BYTES)):
+        bare = got._replace(transactions=tuple(
+            t._replace(mutations=()) for t in got.transactions))
+        if bare != want[0] or any(
+                len(t.mutations) != 1 for t in got.transactions):
+            raise AssertionError("commit leg: traffic differs from the "
+                                 "role phase's")
+    kw = dict(split_ids=SPLIT_IDS, seed=SEED)
+    active = {}
+
+    def on_resolver(res):
+        cs = res.conflict_set.active
+        if cs.kernel_stats()["platform"] != "gpu":
+            raise AssertionError("commit leg: the role is not on the card")
+        cs.time_device(True)
+        active["cs"] = cs
+
+    zero_counts()
+    out = tg.commit_leg(P, "cuda", ids, vers, VERSION_STEP,
+                        resolver_kwargs={"device": None},
+                        read_at=COMMIT_READ_AT, n_sample=COMMIT_SAMPLE,
+                        on_resolver=on_resolver, **kw)
+    counts = launch_counts()
+    n = len(vers)
+    fo = out["resolver"].failover_stats()
+    dev_ms = active["cs"].device_ms()
+    idle = [k for k in INTERVAL_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"commit leg never launched {idle}")
+    if counts["window_upkeep"] != 1:
+        raise AssertionError(f"commit leg: K4 ran {counts['window_upkeep']} "
+                             "times; one re-base expected")
+    if fo.get("failovers") or fo.get("device_faults") \
+            or not fo.get("on_primary", True):
+        raise AssertionError(f"commit leg: failover stats {fo}")
+    # the leg's prefix on the card and with the resolver on the CPU
+    t0 = time.perf_counter()
+    m = COMMIT_CPU_BATCHES
+    legs = [tg.commit_leg(P, "cuda", ids[:m], vers[:m], VERSION_STEP,
+                          resolver_kwargs={"device": d}, read_at=m - 2,
+                          n_sample=COMMIT_SAMPLE, **kw)
+            for d in (None, "cpu")]
+    if legs[0]["log"] != legs[1]["log"]:
+        raise AssertionError(f"commit leg: the first {m} batches differ "
+                             "from the CPU leg's")
+    if out["log"]["verdicts"][:m] != legs[1]["log"]["verdicts"]:
+        raise AssertionError(f"commit leg: verdicts of the first {m} "
+                             "batches differ from the CPU leg's")
+    cpu_secs = time.perf_counter() - t0
+    log = out["log"]
+    print(f"[{tag}] commit leg: {n} batches of {N_TXNS} txns, "
+          f"{out['committed']} committed; {out['rows']} rows over 4 "
+          f"storage tags equal to the model at the last version, "
+          f"{out['sample']} point reads at batch {COMMIT_READ_AT}'s version "
+          f"equal to it, both again after the power loss; durable at "
+          f"{log['durable']} (versions), {len(log['log_left'])} of {n} "
+          f"batches left in the log; the first {m} batches equal to the "
+          f"CPU leg's ({cpu_secs:.1f} s); {fo.get('failovers')} failovers, "
+          f"{fo.get('device_faults')} device faults; launches "
+          + ", ".join(f"{k} {counts[k]}" for k in counts if counts[k]),
+          flush=True)
+    wall = {k: 1e3 * sum(v) / n for k, v in out["wall"].items()}
+    print(f"[{tag}] commit leg: {1e3 * out['stream_s'] / n:.3f} ms/batch "
+          f"over the wall ({out['stream_s']:.3f} s for {n} batches); "
+          f"a batch's parts on the host's wall clock, overlapping "
+          f"across the {tg.LEG_DEPTH} batches in flight: resolve round "
+          f"trip {wall['resolve']:.3f} ms, TLog commit round trip "
+          f"(accept to fsync ack) {wall['tlog']:.3f} ms, storage apply "
+          f"lag (ack to readable on every tag) {wall['apply']:.3f} ms; "
+          f"read-back {1e3 * out['reads_s']:.3f} ms ({out['rows']} rows "
+          f"and {out['sample']} point reads); recovery after the power "
+          f"loss {1e3 * out['recovery_s']:.3f} ms", flush=True)
+    busy = sorted(out["tasks"].items(), key=lambda kv: -kv[1])
+    print(f"[{tag}] commit leg: host busy ms a batch by task over the "
+          f"stream: " + ", ".join(f"{k} {1e3 * v / n:.3f}"
+                                  for k, v in busy[:12])
+          + f"; all {1e3 * sum(out['tasks'].values()) / n:.3f}", flush=True)
+    print(f"[{tag}] commit leg: device busy "
+          f"{100 * dev_ms / (out['stream_s'] * 1e3):.2f}% of the stream's "
+          f"wall ({dev_ms / n:.3f} ms/batch in CUDA-event spans)",
+          flush=True)
+    print(f"[{tag}] commit leg phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
 def probe_main(tag, dev) -> int:
     """`--probe`: only K4's table and the chains' traced window, for a
     checkout whose own smoke script predates them; one JSON line."""
@@ -2467,6 +2597,7 @@ def main() -> int:
           flush=True)
 
     role_counts = role_phase(tag)
+    commit_counts = commit_leg_phase(tag)
 
     failover_phase(tag)
 
@@ -2564,6 +2695,7 @@ def main() -> int:
                    "sharded": counts_s[name], "chain": counts_c[name]}
         by_path.update({f"role {b}": c[name]
                         for b, c in role_counts.items()})
+        by_path["commit leg"] = commit_counts[name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -2605,7 +2737,9 @@ def main() -> int:
               f"{by_path['sharded'] / n_batches:.3f} sharded, "
               f"{by_path['chain'] / chain_steps:.3f} chain step, "
               + ", ".join(f"{by_path[f'role {b}'] / ROLE_BATCHES:.3f} role "
-                          f"{b}" for b in role_counts), flush=True)
+                          f"{b}" for b in role_counts)
+              + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg",
+              flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

@@ -58,11 +58,22 @@ reference package and the port, and chip_smoke.py to the card.
 the parity tests resolve through both packages' backends: the
 reference's own stream generator (`tests/test_packed_interval.py`),
 draw for draw, yielding the port's `ResolverTransaction`s.
+
+`commit_leg(P, backend, ids, versions, step, ...)` is the commit path
+as the proxy composes it, over a package handle `P` (`leg_package()`
+for the port; a test hands in the reference's modules under the same
+names): ResolveRequests through the resolver role, the committed
+transactions' mutations logged to a durable TLog and pulled by one
+StorageServer a tag, then read back, killed by a power loss, recovered
+and read back again, every read held to a plain dict of the verdicts.
 """
 
 from __future__ import annotations
 
 import random
+import time
+from bisect import bisect_right
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -438,3 +449,296 @@ def rand_batches(seed, n_batches, point=False, n_keys=40, max_txns=10,
             batch.append(txn(snap, reads, writes))
         out.append((batch, v, max(0, v - window)))
     return out
+
+
+# -- the commit leg ----------------------------------------------------------
+
+LEG_DEPTH = 4          # ResolveRequests in flight, as a proxy keeps them
+LEG_KEY_BYTES = 16
+LEG_WAIT = 60.0        # virtual seconds the leg waits for durability
+
+
+def leg_package():
+    """The port's modules under the names `commit_leg` reads."""
+    from . import flow, models, rpc
+    from .server import kvstore, proxy, resolver_role, storage, tlog, types
+    return SimpleNamespace(flow=flow, rpc=rpc, types=types, tlog=tlog,
+                           storage=storage, kvstore=kvstore, proxy=proxy,
+                           role=resolver_role, models=models)
+
+
+def leg_keys(ids, key_bytes: int) -> list:
+    """Keys of integer ids: zero bytes, then the id big-endian in the
+    key's low 8 bytes."""
+    pad = bytes(key_bytes - 8)
+    raw = np.asarray(ids, np.int64).astype(">u8").tobytes()
+    return [pad + raw[j:j + 8] for j in range(0, len(raw), 8)]
+
+
+def leg_requests(P, ids, versions, step: int, key_bytes: int) -> list:
+    """ResolveRequests of the leg's traffic, chained by prev_version from
+    0: batch i's transaction t reads ids[i, 2t] and writes ids[i, 2t+1]
+    (point ranges [k, k + b"\\x00")), reads at versions[i] - step, asks
+    for report_conflicting_keys when t == 0 in every other batch, and
+    carries one SET_VALUE of its write key to the versionstamp
+    (versions[i], t)."""
+    t = P.types
+    out, prev = [], 0
+    for i, v in enumerate(versions):
+        keys = leg_keys(ids[i], key_bytes)
+        out.append(t.ResolveRequest(prev, v, tuple(
+            t.CommitRequest(
+                v - step, ((r, r + b"\x00"),), ((w, w + b"\x00"),),
+                (t.MutationRef(t.SET_VALUE, w,
+                               P.proxy.make_versionstamp(v, j)),),
+                report_conflicting_keys=(j == 0 and i % 2 == 1))
+            for j, (r, w) in enumerate(zip(keys[0::2], keys[1::2])))))
+        prev = v
+    return out
+
+
+def leg_model(requests, verdicts, committed: int, upto: int) -> dict:
+    """The plain model: key -> value after batches 0..upto, from the
+    verdicts; within a batch a later transaction's write wins."""
+    model = {}
+    for req, ver in zip(requests[:upto + 1], verdicts):
+        for txn, v in zip(req.transactions, ver):
+            if v == committed:
+                for m in txn.mutations:
+                    model[m.param1] = m.param2
+    return model
+
+
+def commit_leg(P, backend: str, ids, versions, step: int, *,
+               resolver_kwargs=None, split_ids=(), read_at: int = None,
+               n_sample: int = 4096, page_rows: int = 10_000, seed: int = 0,
+               on_resolver=None) -> dict:
+    """The commit path on one resolver, one TLog and one StorageServer a
+    tag, each on its own machine of a SimNetwork under a virtual
+    Scheduler of package `P` (attributes flow, rpc, types, tlog,
+    storage, kvstore, proxy, role (the resolver role's module) and
+    models).
+
+    A proxy process keeps LEG_DEPTH ResolveRequests (`leg_requests`, at
+    LEG_KEY_BYTES-byte keys) in flight to
+    `P.role.Resolver(process, backend, **resolver_kwargs)`.
+    Each batch, once resolved and once its predecessor was pushed, goes
+    to the TLog (on a SimDisk, so durable through a DiskQueue) as one
+    TLogCommitRequest(prev_version, version, mutations,
+    known_committed): the committed transactions' mutations in
+    transaction order, each tagged to the shard of its key (tags split
+    at `split_ids`), `known_committed` the highest version acked so far,
+    as the proxy sets them. Storage server i pulls tag i into a
+    KeyValueStoreMemory on its machine's SimDisk at the default
+    durability lag, and pops the log once durable.
+
+    After the stream and the durability it allows, the checks, each
+    against `leg_model` (AssertionError on a difference):
+      (a) every shard paged with StorageGetRangeRequest at the last
+          version equals the model: every acknowledged write is there
+          and no write of a conflicted transaction;
+      (b) StorageGetRequest point reads of `n_sample` seeded keys of the
+          stream's writes at the version of batch `read_at` equal the
+          model at that version;
+      (c) a power loss (`kill_machine`) of the TLog's machine and every
+          storage machine; a new TLog and new StorageServers on the same
+          disks recover, re-pull, and answer (a) and (b) as before.
+
+    Returns {"log": what two packages must agree on (verdicts, commit
+    replies, reads, durable versions, the log's versions left),
+    "wall": per-batch wall seconds by part (the resolve round trip,
+    the TLog commit's from its push to its fsync ack, and the storage
+    apply lag from the ack to every server's version reaching the
+    batch's), "tasks": the scheduler's busy seconds by task name over
+    the stream, "stream_s", "reads_s", "recovery_s" (from the boot of
+    the new roles to every server at the last version), "resolver",
+    "committed", "rows", "sample"}."""
+    flow, types, rpc = P.flow, P.types, P.rpc
+    COMMITTED = P.models.COMMITTED
+    n = len(versions)
+    read_at = n - 1 if read_at is None else read_at
+    requests = leg_requests(P, ids, versions, step, LEG_KEY_BYTES)
+    splits = leg_keys(list(split_ids), LEG_KEY_BYTES)
+    n_tags = len(splits) + 1
+    bounds = [b""] + splits + [None]
+    writes = sorted({k for req in requests for txn in req.transactions
+                     for k, _e in txn.write_conflict_ranges})
+    pick = np.random.default_rng(seed).choice(
+        len(writes), size=min(n_sample, len(writes)), replace=False)
+    sample = [writes[j] for j in sorted(pick)]
+    log, wall = {}, {k: [0.0] * n for k in ("resolve", "tlog", "apply")}
+    flow.set_seed(seed)
+    sched = flow.Scheduler()
+    flow.set_scheduler(sched)
+    try:
+        net = rpc.SimNetwork(sched, flow.g_random)
+        proxy = net.new_process("proxy", machine="proxy")
+        res = P.role.Resolver(net.new_process("resolver", machine="resolver"),
+                              backend, **(resolver_kwargs or {}))
+        if on_resolver is not None:
+            on_resolver(res)
+
+        def boot():
+            tl_proc = net.processes.get("tlog")
+            tl_proc = (net.reboot("tlog") if tl_proc is not None
+                       else net.new_process("tlog", machine="tlog"))
+            tl = P.tlog.TLog(tl_proc, disk=net.disk("tlog"), name="tlog")
+            tl.start()
+            servers = []
+            for i in range(n_tags):
+                name = f"storage{i}"
+                proc = (net.reboot(name) if name in net.processes
+                        else net.new_process(name, machine=name))
+                kv = P.kvstore.KeyValueStoreMemory(net.disk(name), name,
+                                                   owner=proc)
+                ss = P.storage.StorageServer(
+                    proc, tlog_peek=tl.peeks.ref(), kv=kv,
+                    tlog_pop=tl.pops.ref(), tag=i, shard_begin=bounds[i],
+                    shard_end=bounds[i + 1], name=name)
+                ss.start()
+                servers.append(ss)
+            return tl, servers
+
+        async def read_back(servers, at):
+            pages = []
+            for i, ss in enumerate(servers):
+                begin = bounds[i]
+                end = bounds[i + 1] if bounds[i + 1] is not None else b"\xff"
+                rows = []
+                while True:
+                    page = await ss.ranges.ref().get_reply(
+                        types.StorageGetRangeRequest(begin, end, versions[-1],
+                                                     page_rows), proxy)
+                    rows.extend(page)
+                    if len(page) < page_rows:
+                        break
+                    begin = page[-1][0] + b"\x00"
+                pages.append(rows)
+            points = []
+            for k in sample:
+                ss = servers[bisect_right(splits, k)]
+                points.append(await ss.gets.ref().get_reply(
+                    types.StorageGetRequest(k, versions[at]), proxy))
+            return pages, points
+
+        async def run():
+            tl, servers = boot()
+            await tl.recovered()
+            res.start()
+            ref, tl_ref = res.resolves.ref(), tl.commits.ref()
+            verdicts, acks = [None] * n, [None] * n
+            logging = flow.NotifiedVersion(0)
+            acked = [0]
+            watchers = []
+
+            async def readable(i, t_ack):
+                await flow.all_of([ss.version.when_at_least(versions[i])
+                                   for ss in servers])
+                wall["apply"][i] = time.perf_counter() - t_ack
+
+            async def batch(i):
+                req = requests[i]
+                t0 = time.perf_counter()
+                reply = await ref.get_reply(req, proxy)
+                wall["resolve"][i] = time.perf_counter() - t0
+                ver = list(getattr(reply, "verdicts", reply))
+                verdicts[i] = ver
+                tagged = tuple(
+                    types.TaggedMutation((bisect_right(splits, m.param1),), m)
+                    for txn, v in zip(req.transactions, ver)
+                    if v == COMMITTED for m in txn.mutations)
+                await logging.when_at_least(i)
+                t1 = time.perf_counter()
+                done = tl_ref.get_reply(types.TLogCommitRequest(
+                    req.prev_version, req.version, tagged, acked[0]), proxy)
+                logging.set(i + 1)
+                acks[i] = await done
+                t2 = time.perf_counter()
+                wall["tlog"][i] = t2 - t1
+                acked[0] = max(acked[0], req.version)
+                watchers.append(flow.spawn(readable(i, t2), name="readable"))
+
+            sched.start_task_stats()
+            t0 = time.perf_counter()
+            pending = []
+            for i in range(n):
+                pending.append(flow.spawn(batch(i), name="proxy"))
+                while len(pending) >= LEG_DEPTH:
+                    await pending.pop(0)
+            await flow.all_of(pending)
+            await flow.all_of(watchers)
+            log["stream_s"] = time.perf_counter() - t0
+            log["tasks"] = {r["task"]: r["busy_us"] / 1e6 for r in
+                            sched.task_stats_report()["tasks"]}
+            res.stop()
+            log["verdicts"], log["acks"] = verdicts, acks
+            # the durability the lag allows: every server durable at
+            # min(its version - lag, the log set's known committed)
+            deadline = flow.now() + LEG_WAIT
+            for ss in servers:
+                target = min(ss.version.get() - ss._lag, tl.known_committed)
+                while ss.durable_version.get() < target:
+                    if flow.now() > deadline:
+                        raise AssertionError(
+                            f"commit leg: {ss.name} durable at "
+                            f"{ss.durable_version.get()} < {target}")
+                    await flow.delay(
+                        flow.SERVER_KNOBS.storage_commit_interval)
+            await flow.delay(1.0)
+            log["durable"] = [ss.durable_version.get() for ss in servers]
+            log["log_left"] = list(tl._versions)
+            t0 = time.perf_counter()
+            log["reads"] = await read_back(servers, read_at)
+            log["reads_s"] = time.perf_counter() - t0
+            # the power loss, then the roles booted anew on the disks
+            for m in ["tlog"] + [f"storage{i}" for i in range(n_tags)]:
+                net.kill_machine(m)
+            t0 = time.perf_counter()
+            tl, servers = boot()
+            await tl.recovered()
+            await flow.timeout_error(flow.all_of(
+                [ss.version.when_at_least(versions[-1]) for ss in servers]),
+                LEG_WAIT)
+            log["recovery_s"] = time.perf_counter() - t0
+            log["recovered_durable"] = [ss.durable_version.get()
+                                        for ss in servers]
+            log["recovered"] = await read_back(servers, read_at)
+            return True
+
+        task = sched.spawn(run(), name="leg")
+        sched.run(until=task, timeout_time=1e9)
+        sched.stop_task_stats()
+        task.get()
+    finally:
+        flow.set_scheduler(None)
+    committed = sum(v.count(COMMITTED) for v in log["verdicts"])
+    model = leg_model(requests, log["verdicts"], COMMITTED, n - 1)
+    older = leg_model(requests, log["verdicts"], COMMITTED, read_at)
+    want = sorted(model.items())
+    want_points = [older.get(k) for k in sample]
+    for what in ("reads", "recovered"):
+        pages, points = log[what]
+        got = [kv for rows in pages for kv in rows]
+        if got != want:
+            raise AssertionError(
+                f"commit leg {what}: {len(got)} rows read at the last "
+                f"version, {len(want)} in the model, "
+                f"{sum(a != b for a, b in zip(got, want))} differ")
+        for i, rows in enumerate(pages):
+            if rows and (rows[0][0] < bounds[i] or (
+                    bounds[i + 1] is not None and rows[-1][0] >= bounds[i + 1])):
+                raise AssertionError(f"commit leg {what}: shard {i} "
+                                     "answered outside its range")
+        if points != want_points:
+            raise AssertionError(
+                f"commit leg {what}: {sum(a != b for a, b in zip(points, want_points))} "
+                f"of {len(sample)} point reads at batch {read_at} differ "
+                "from the model")
+    return {"log": {k: log[k] for k in ("verdicts", "acks", "durable",
+                                        "log_left", "reads", "recovered",
+                                        "recovered_durable")},
+            "wall": wall, "tasks": log["tasks"],
+            "stream_s": log["stream_s"],
+            "reads_s": log["reads_s"], "recovery_s": log["recovery_s"],
+            "resolver": res, "committed": committed, "rows": len(want),
+            "sample": len(sample)}

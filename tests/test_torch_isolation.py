@@ -1,5 +1,6 @@
 """The port stands alone: no module of foundationdb_tpu_torch (the data
-plane, and the flow runtime, `rpc` and `server` modules), and not
+plane, and the flow runtime, `rpc` and `server` modules, the storage
+and log engines' lazy imports included), and not
 chip_smoke.py, imports JAX or the JAX package (scanned by AST and
 checked at run time in a fresh interpreter), and the CUDA backends and
 the resolver role asked for with no device raise on a host without a
@@ -45,7 +46,10 @@ def test_port_sources_import_no_jax():
                                 "smoother", "coverage", "threadpool")),
                       ("rpc", ("wire", "disk", "network")),
                       ("server", ("types", "wire", "critical_path",
-                                  "resolver_role"))):
+                                  "resolver_role", "atomic",
+                                  "replication_policy", "diskqueue",
+                                  "kvstore", "btree", "chaos", "proxy",
+                                  "storage", "tlog"))):
         for mod in mods:
             assert os.path.join(PKG, sub, f"{mod}.py") in sources
     assert os.path.join(PKG, "parallel", "sharded_resolver.py") in sources
@@ -72,6 +76,15 @@ def test_port_import_loads_no_jax():
             "import foundationdb_tpu_torch.server.wire\n"
             "import foundationdb_tpu_torch.server.critical_path\n"
             "import foundationdb_tpu_torch.server.resolver_role\n"
+            "import foundationdb_tpu_torch.server.atomic\n"
+            "import foundationdb_tpu_torch.server.replication_policy\n"
+            "import foundationdb_tpu_torch.server.diskqueue\n"
+            "import foundationdb_tpu_torch.server.kvstore\n"
+            "import foundationdb_tpu_torch.server.btree\n"
+            "import foundationdb_tpu_torch.server.chaos\n"
+            "import foundationdb_tpu_torch.server.proxy\n"
+            "import foundationdb_tpu_torch.server.storage\n"
+            "import foundationdb_tpu_torch.server.tlog\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

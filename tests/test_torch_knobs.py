@@ -4,6 +4,7 @@ machinery producing distorted values under a buggified seed (and none
 with BUGGIFY off). The reference's dead-knob scan waits for the
 decision on trimming the port's table to the knobs it reads."""
 
+import importlib
 import pathlib
 import re
 
@@ -13,6 +14,25 @@ torch = pytest.importorskip("torch")
 
 from foundationdb_tpu_torch import flow  # noqa: E402
 from foundationdb_tpu_torch.flow.knobs import make_server_knobs  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def default_buggify_rates():
+    """Hold both packages' BUGGIFY activation and fire rates at their
+    defaults: `flow.set_seed` resets neither, and a test that forces a
+    site raises a package's fire rate (the reference's
+    `test_resolve_pipeline.py` leaves it at 1.0), which would make the
+    two packages draw differently in a later test of the same process."""
+    saved = []
+    for name in ("foundationdb_tpu", "foundationdb_tpu_torch"):
+        b = importlib.import_module(f"{name}.flow.rng").g_buggify
+        fresh = type(b)()
+        saved.append((b, b.activated_p, b.fire_p))
+        b.activated_p, b.fire_p = fresh.activated_p, fresh.fire_p
+    yield
+    for b, activated_p, fire_p in saved:
+        b.activated_p, b.fire_p = activated_p, fire_p
+
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

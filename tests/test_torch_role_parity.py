@@ -38,6 +38,26 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REF, PORT = "foundationdb_tpu", "foundationdb_tpu_torch"
+
+
+@pytest.fixture(autouse=True)
+def default_buggify_rates():
+    """Hold both packages' BUGGIFY activation and fire rates at their
+    defaults: `flow.set_seed` resets neither, and a test that forces a
+    site raises a package's fire rate (the reference's
+    `test_resolve_pipeline.py` leaves it at 1.0), which would make the
+    two packages draw differently in a later test of the same process."""
+    saved = []
+    for name in ("foundationdb_tpu", "foundationdb_tpu_torch"):
+        b = importlib.import_module(f"{name}.flow.rng").g_buggify
+        fresh = type(b)()
+        saved.append((b, b.activated_p, b.fire_p))
+        b.activated_p, b.fire_p = fresh.activated_p, fresh.fire_p
+    yield
+    for b, activated_p, fire_p in saved:
+        b.activated_p, b.fire_p = activated_p, fire_p
+
+
 SEEDS = [int(s) for s in np.random.default_rng(20261017).integers(
     1, 2**31 - 1, size=3)]
 
