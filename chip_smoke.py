@@ -66,6 +66,21 @@ resolver re-bases its int32 version window mid-run.
     the first COMMIT_CPU_BATCHES batches must equal the same leg with
     the resolver on the CPU; no failover. It prints the leg's ms a
     batch, its parts, the recovery time and the device's busy share.
+  - The whole cluster (`foundationdb_tpu_torch.testing.cluster_run`):
+    `SimCluster` at FDB 6.1's default role counts (3 proxies, 3 logs,
+    1 resolver on the card, 4 storage teams of 2, durable, the memory
+    engine), 64 concurrent clients of 100 transactions, each a point
+    read and a point write of 16-byte keys over 1,000,000 ids, retried
+    until they commit; the worker that holds the resolver is killed at
+    half and the next epoch recruits it anew on the card. Every
+    acknowledged write must read back equal to a plain dict of the
+    outcomes and no failed attempt's; one recovery; no device fault and
+    no failover; every kernel counter of the status document above 0.
+    Short runs of 64 x 10 transactions on cuda, cuda-point (8-byte
+    keys) and sharded-cuda must give the same outcomes and digest on
+    the card as at device="cpu". It prints committed txn/s, commit
+    latency, resolve batches, launches a batch, the busy share, the
+    host's busy time by task and the recovery's time.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -112,7 +127,9 @@ POINT_CAPACITY = 1 << 19                       # next_pow2(22 * N_TXNS + 2)
 WARMUP = 3
 TIMED = 384                 # 0.3-0.5 s per timed window: 96-batch point
 #                             windows (~0.1 s) spread +-30% with host noise
-CPU_BATCHES = WARMUP + 96   # the interval path's CPU comparison (~150 s)
+CPU_BATCHES = WARMUP + 32   # the interval path's CPU comparison: past the
+                            # re-base at batch 8 and the first GC of the
+                            # 20-batch window (~50 s)
 POINT_CPU_BATCHES = 30                         # GC has pruned for 10
 FIRST_VERSION = (1 << 30) - 8 * VERSION_STEP   # crosses 2^30: one re-base
 LAST = WARMUP + TIMED - 1
@@ -153,6 +170,18 @@ ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
 COMMIT_READ_AT = 30    # the commit leg's older point reads: batch 30's
 COMMIT_SAMPLE = 4096   # version, inside the storage's MVCC window
 COMMIT_CPU_BATCHES = 4   # the leg's prefix held to the CPU leg
+CLUSTER_CLIENTS = 64     # the cluster phase: concurrent clients, each
+CLUSTER_TXNS = 100       # with this many transactions (the kill at half)
+CLUSTER_SHORT_TXNS = 10  # a client's transactions in the short runs
+CLUSTER_IDS = 1_000_000  # ids the keys are drawn from, uniform
+# the backends of the short runs, the kernels each must launch there
+# and its key width (the point backend's is 8 bytes)
+CLUSTER_BACKENDS = (
+    ("cuda", ("searchsorted_i32", "range_max", "resolve"), 16),
+    ("cuda-point", ("searchsorted_i32", "point_resolve",
+                    "searchsorted_rows"), 8),
+    ("sharded-cuda", ("searchsorted_i32", "range_max", "shard_clip",
+                      "resolve_sharded"), 16))
 SEED = 20260729
 
 
@@ -2198,6 +2227,172 @@ def commit_leg_phase(tag) -> dict:
     return counts
 
 
+def cluster_drive(backend, n_txns, key_bytes, device, timed=False):
+    """`testing.cluster_run` over the port: a SimCluster at FDB 6.1's
+    default role counts (`testing.CLUSTER_LAYOUT`) on `backend` at
+    `device`, CLUSTER_CLIENTS clients of `n_txns` transactions each at
+    SEED, the resolver's worker killed when client 0 reaches half of
+    them. Every resolver the cluster starts is caught, with its
+    platform (its device time is taken in CUDA-event spans when it is
+    on the card; an error raised inside the recruitment would make
+    every recovery retry it, so the platform is checked after the run).
+    With `timed`, the scheduler's task stats are armed. Returns (the
+    run's result, the resolvers)."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.server import resolver_role
+    seen = []
+    start = resolver_role.Resolver.start
+
+    def caught(self):
+        active = self.conflict_set.active
+        self.platform = active.kernel_stats()["platform"]
+        if self.platform == "gpu":
+            active.time_device(True)
+        seen.append(self)
+        start(self)
+
+    def arm(c):
+        if timed:
+            c.sched.start_task_stats()
+
+    resolver_role.Resolver.start = caught
+    try:
+        out = tg.cluster_run(tg.cluster_package(), backend, SEED,
+                             CLUSTER_CLIENTS, n_txns, CLUSTER_IDS,
+                             key_bytes=key_bytes, kill_at=n_txns // 2,
+                             cluster_kwargs={"device": device},
+                             on_cluster=arm)
+    finally:
+        resolver_role.Resolver.start = start
+    want = "gpu" if device is None else "cpu"
+    if any(r.platform != want for r in seen):
+        raise AssertionError(f"cluster {backend}: resolvers on "
+                             f"{[r.platform for r in seen]}, not {want}")
+    return out, seen
+
+
+def cluster_checks(label, out, resolvers):
+    """What every cluster run must show: one recovery past the boot's,
+    caused by the kill, and a resolver recruited anew for it; no device
+    fault and no failover in any resolver; every kernel counter of the
+    status document above 0 (`cluster_run` itself held the keyspace to
+    the plain dict of the outcomes)."""
+    if out["epoch"] != out["kill_epoch"] + 1 or out["recovered"] is None:
+        raise AssertionError(f"{label}: epoch {out['epoch']} after the kill "
+                             f"at epoch {out['kill_epoch']}")
+    if len(resolvers) < 2:
+        raise AssertionError(f"{label}: {len(resolvers)} resolvers started; "
+                             "the recovery must recruit one anew")
+    for r in resolvers:
+        fo = r.failover_stats()
+        if fo.get("failovers") or fo.get("device_faults") \
+                or not fo.get("on_primary", True):
+            raise AssertionError(f"{label}: failover stats {fo}")
+    kern = out["status"]["cluster"]["kernels"]
+    if not kern or any(v <= 0 for v in kern.values()):
+        raise AssertionError(f"{label}: status kernel counters {kern}")
+
+
+def cluster_phase(tag) -> dict:
+    """The whole cluster on the card: `SimCluster(SEED,
+    conflict_backend="cuda", n_proxies=3, n_logs=3, n_resolvers=1,
+    n_storage=4, storage_replicas=2, durable=True)` (FDB 6.1's default
+    role counts in `double` mode on the memory engine) with its
+    resolver on the card, CLUSTER_CLIENTS concurrent clients of
+    CLUSTER_TXNS transactions, each a point read and a point write of
+    16-byte keys uniform over CLUSTER_IDS ids, retried until they
+    commit; at half of client 0's transactions the worker that holds the
+    resolver is killed and the next epoch recruits it anew on the card.
+    Checks (`cluster_checks`): every acknowledged write reads back equal
+    to the plain dict of the outcomes and no failed attempt's; one
+    recovery; no device fault, no failover; every status kernel counter
+    above 0; K1-K3 launched. Then short runs (CLUSTER_SHORT_TXNS a
+    client, same seed, same kill) of `cuda`, `cuda-point` (8-byte keys)
+    and `sharded-cuda` on the card and at device="cpu": the same
+    outcomes and digest, each backend's kernels launched on the card.
+    Prints committed txn/s over the wall, commit latency, resolve
+    batches and their transactions, launches a batch, the device's busy
+    share, the host's busy time by task and the recovery's time;
+    returns the main run's launch counts and its resolve batches."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    out, resolvers = cluster_drive("cuda", CLUSTER_TXNS, KEY_BYTES, None,
+                                   timed=True)
+    counts = launch_counts()
+    label = "cluster cuda"
+    cluster_checks(label, out, resolvers)
+    idle = [k for k in CLUSTER_BACKENDS[0][1] if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"{label} never launched {idle}")
+    n_all = CLUSTER_CLIENTS * CLUSTER_TXNS
+    if out["committed"] != n_all:
+        raise AssertionError(f"{label}: {out['committed']} of {n_all} "
+                             "transactions committed")
+    batches = sum(r.stats.snapshot().get("batches_resolved", 0)
+                  for r in resolvers)
+    txns = sum(r.stats.snapshot().get("transactions_resolved", 0)
+               for r in resolvers)
+    dev_ms = sum(r.conflict_set.active.device_ms() for r in resolvers)
+    wall = out["wall_s"]
+    lat = np.asarray(out["latency"]) * 1e3
+    print(f"[{tag}] {label}: {out['committed']} of {n_all} transactions "
+          f"committed ({CLUSTER_CLIENTS} clients), {out['rows']} rows read "
+          f"back equal to the plain dict of the outcomes; epoch "
+          f"{out['kill_epoch']} -> {out['epoch']} after the kill, "
+          f"{len(resolvers)} resolvers on the card, 0 failovers, 0 device "
+          f"faults; digest {out['digest'][:16]}", flush=True)
+    print(f"[{tag}] {label}: {out['committed'] / wall:.1f} committed txn/s "
+          f"over the wall ({wall:.3f} s); commit latency p50 / p99 "
+          f"{np.percentile(lat[:, 0], 50):.3f} / "
+          f"{np.percentile(lat[:, 0], 99):.3f} virtual ms, "
+          f"{np.percentile(lat[:, 1], 50):.3f} / "
+          f"{np.percentile(lat[:, 1], 99):.3f} wall ms over "
+          f"{len(lat)} commits", flush=True)
+    kv, kw = out["kill"]
+    rv, rw = out["recovered"]
+    print(f"[{tag}] {label}: {batches} resolve batches, "
+          f"{txns / max(batches, 1):.3f} transactions a batch; launches a "
+          "batch " + ", ".join(f"{k} {counts[k] / max(batches, 1):.3f}"
+                               for k in counts if counts[k])
+          + f"; device busy {100 * dev_ms / (wall * 1e3):.3f}% of the "
+          f"wall ({dev_ms / max(batches, 1):.3f} ms a batch in CUDA-event "
+          f"spans); recovery {1e3 * (rw - kw):.3f} wall ms, "
+          f"{1e3 * (rv - kv):.3f} virtual ms from the kill to the next "
+          "epoch fully recovered", flush=True)
+    busy = sorted(out["tasks"]["tasks"], key=lambda r: -r["busy_us"])
+    print(f"[{tag}] {label}: host busy ms by task over the workload: "
+          + ", ".join(f"{r['task']} {r['busy_us'] / 1e3:.3f}"
+                      for r in busy[:12])
+          + f"; all {sum(r['busy_us'] for r in busy) / 1e3:.3f}",
+          flush=True)
+    for backend, kernels, key_bytes in CLUSTER_BACKENDS:
+        t0 = time.perf_counter()
+        zero_counts()
+        card, card_res = cluster_drive(backend, CLUSTER_SHORT_TXNS,
+                                       key_bytes, None)
+        short = launch_counts()
+        cpu, cpu_res = cluster_drive(backend, CLUSTER_SHORT_TXNS,
+                                     key_bytes, "cpu")
+        label = f"cluster {backend} short"
+        cluster_checks(label, card, card_res)
+        cluster_checks(f"{label} cpu", cpu, cpu_res)
+        idle = [k for k in kernels if short[k] <= 0]
+        if idle:
+            raise AssertionError(f"{label} never launched {idle}")
+        if card["outcomes"] != cpu["outcomes"] \
+                or card["digest"] != cpu["digest"]:
+            raise AssertionError(f"{label}: outcomes or digest differ from "
+                                 "the CPU run's")
+        print(f"[{tag}] {label}: {card['committed']} committed, outcomes "
+              f"and digest equal to the device=\"cpu\" run's "
+              f"({time.perf_counter() - t0:.1f} s for both); launches "
+              + ", ".join(f"{k} {short[k]}" for k in short if short[k]),
+              flush=True)
+    print(f"[{tag}] cluster phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts, batches
+
+
 def probe_main(tag, dev) -> int:
     """`--probe`: only K4's table and the chains' traced window, for a
     checkout whose own smoke script predates them; one JSON line."""
@@ -2598,6 +2793,7 @@ def main() -> int:
 
     role_counts = role_phase(tag)
     commit_counts = commit_leg_phase(tag)
+    cluster_counts, cluster_batches = cluster_phase(tag)
 
     failover_phase(tag)
 
@@ -2696,6 +2892,7 @@ def main() -> int:
         by_path.update({f"role {b}": c[name]
                         for b, c in role_counts.items()})
         by_path["commit leg"] = commit_counts[name]
+        by_path["cluster"] = cluster_counts[name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -2738,8 +2935,9 @@ def main() -> int:
               f"{by_path['chain'] / chain_steps:.3f} chain step, "
               + ", ".join(f"{by_path[f'role {b}'] / ROLE_BATCHES:.3f} role "
                           f"{b}" for b in role_counts)
-              + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg",
-              flush=True)
+              + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg, "
+              f"{by_path['cluster'] / cluster_batches:.3f} "
+              "cluster batch", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

@@ -1,14 +1,15 @@
-"""Server roles of the port (ref: fdbserver/). So far the resolver
-role (`resolver_role.Resolver`) over the port's conflict-set backends,
-the log role (`tlog.TLog`) on a `diskqueue.DiskQueue`, the storage
-role (`storage.StorageServer`) on the memory and B-tree engines
-(`kvstore`, `btree`), the atomic ops, the replication policies, the
-chaos stations, and the head of the proxy (`proxy`: its mutation
-vocabulary, versionstamps and tag counter), with the message
-vocabulary they speak (`types`). The cluster (`SimCluster`) comes with
-the control plane."""
+"""Server roles of the port: the transaction subsystem (ref: fdbserver/).
 
-from . import types
+The master's version authority, the proxies' commit pipeline, the
+resolver over the port's conflict-set backends (the CUDA ones on the
+card, or at `device="cpu"` on their plain versions), the tag-partitioned
+logs and the versioned storage servers, with the coordinators, the
+cluster controller's recruitment and recovery, and the ratekeeper, all
+hosted on simulated processes over the deterministic network
+(`SimCluster`).
+"""
+
+from .cluster import SimCluster
 from .types import (
     CLEAR_RANGE,
     SET_VALUE,
@@ -16,5 +17,5 @@ from .types import (
     MutationRef,
 )
 
-__all__ = ["types", "CommitRequest", "MutationRef", "SET_VALUE",
+__all__ = ["SimCluster", "CommitRequest", "MutationRef", "SET_VALUE",
            "CLEAR_RANGE"]

@@ -19,6 +19,7 @@ from .. import flow
 from ..flow import SERVER_KNOBS, NotifiedVersion, TaskPriority
 from ..models import ResolverTransaction, create_resilient_conflict_set
 from ..models.conflict_set import clip_checkpoint, graft_checkpoint
+from ..ops.fault_injection import DeviceFaultError
 from ..rpc import RequestStream, SimProcess
 from .critical_path import RolePathRecorder
 from .types import (ResolutionMetricsReply, ResolveReply, ResolveRequest,
@@ -109,8 +110,12 @@ class ConflictHotSpots:
 
 class Resolver:
     def __init__(self, process: SimProcess, backend: str = "python",
-                 recovery_version: int = 0, device=None):
+                 recovery_version: int = 0, device=None, on_fatal=None):
         self.process = process
+        # called with a DeviceFaultError before it leaves an actor of
+        # this role, so that the cluster hosting it stops instead of
+        # recruiting a new resolver on the same card
+        self.on_fatal = on_fatal
         # device backends arrive wrapped in the failover controller
         # (models/failover.py): checkpoint cadence, replay-log rebuild
         # on device faults, sampled shadow validation. `device=None` is
@@ -246,6 +251,10 @@ class Resolver:
                 reply.send(self.version.get())
             else:
                 reply.send_error(flow.error("client_invalid_operation"))
+        except DeviceFaultError as e:
+            # a lost device is not a bad piece: it fails the role
+            self._fatal(e)
+            raise
         except flow.FdbError as e:
             if e.name == "operation_cancelled":
                 raise
@@ -256,6 +265,13 @@ class Resolver:
                 Error=repr(e)).log()
             self.stats.counter("handoff_errors").add(1)
             reply.send_error(flow.error("internal_error"))
+
+    def _fatal(self, e: DeviceFaultError) -> None:
+        flow.TraceEvent("ResolverDeviceFault", self.process.name,
+                        severity=flow.trace.SevError).detail(
+            Error=str(e)).log()
+        if self.on_fatal is not None:
+            self.on_fatal(e)
 
     @staticmethod
     def _mark(req, location):
@@ -405,6 +421,9 @@ class Resolver:
                 self.path.record(t_sorted - t0, done - t_sorted)
             reply.send(payload)
             self._check_state_pressure(req.version)
+        except DeviceFaultError as e:
+            self._fatal(e)
+            raise
         finally:
             self._inflight.pop(req.version, None)
             flow.g_trace_batch.finish_spans(spans)

@@ -742,3 +742,223 @@ def commit_leg(P, backend: str, ids, versions, step: int, *,
             "reads_s": log["reads_s"], "recovery_s": log["recovery_s"],
             "resolver": res, "committed": committed, "rows": len(want),
             "sample": len(sample)}
+
+
+# -- the whole cluster --------------------------------------------------
+
+# FDB 6.1's default role counts (fdbclient/Knobs.cpp DEFAULT_AUTO_PROXIES,
+# DEFAULT_AUTO_LOGS, DEFAULT_AUTO_RESOLVERS) in `double` mode (teams of
+# 2) on the memory engine, over 4 storage teams, durable
+CLUSTER_LAYOUT = {"n_proxies": 3, "n_logs": 3, "n_resolvers": 1,
+                  "n_storage": 4, "storage_replicas": 2, "durable": True}
+CLUSTER_KEY_BYTES = 16
+CLUSTER_RETRIES = 100     # a transaction's attempts before it gives up
+CLUSTER_PAGE_ROWS = 1000
+
+
+def cluster_package():
+    """The port's modules under the names `cluster_run` reads."""
+    from . import flow
+    from .client import run_transaction
+    from .server import SimCluster
+    from .server.chaos import database_digest
+    from .server.types import ADD_VALUE
+    return SimpleNamespace(flow=flow, SimCluster=SimCluster,
+                           run_transaction=run_transaction,
+                           database_digest=database_digest,
+                           ADD_VALUE=ADD_VALUE)
+
+
+def cluster_keys(ids, key_bytes: int, n_ids: int) -> list:
+    """Keys of integer ids in [0, n_ids): the id spread uniformly over
+    the first 8 bytes below b"\\xff" (so the default first-byte storage
+    and resolver splits divide the ids evenly), big-endian, then zero
+    bytes to `key_bytes`."""
+    step = np.uint64((0xFF << 56) // n_ids)
+    raw = (np.asarray(ids, np.uint64) * step).astype(">u8").tobytes()
+    pad = bytes(key_bytes - 8)
+    return [raw[j:j + 8] + pad for j in range(0, len(raw), 8)]
+
+
+def cluster_ops(seed: int, n_clients: int, n_txns: int, n_ids: int,
+                key_bytes: int, mixed: bool) -> list:
+    """Each client's transactions, drawn by numpy from `seed`: ("rmw",
+    read key, write key), a point read and a point write of ids uniform
+    over n_ids. With `mixed`, client 0's second transaction clears the
+    range between its two keys and client 1's (the last client's, with
+    one) third adds 1 to its write key's 8-byte little-endian value."""
+    ids = np.random.default_rng(seed).integers(
+        0, n_ids, size=(n_clients, n_txns, 2), dtype=np.int64)
+    keys = cluster_keys(ids.reshape(-1), key_bytes, n_ids)
+    ops = [[("rmw", keys[2 * (c * n_txns + j)],
+             keys[2 * (c * n_txns + j) + 1]) for j in range(n_txns)]
+           for c in range(n_clients)]
+    if mixed:
+        if n_txns > 1:
+            _k, a, b = ops[0][1]
+            ops[0][1] = ("clear", min(a, b), max(a, b))
+        if n_txns > 2:
+            c = min(1, n_clients - 1)
+            ops[c][2] = ("add", None, ops[c][2][2])
+    return ops
+
+
+def _add_le(value, delta: int) -> bytes:
+    """ADD_VALUE of an 8-byte little-endian operand (the stored value
+    cut or zero-padded to the operand's length)."""
+    cur = int.from_bytes((value or b"")[:8].ljust(8, b"\x00"), "little")
+    return ((cur + delta) % (1 << 64)).to_bytes(8, "little")
+
+
+def cluster_model(outcomes) -> dict:
+    """The plain model: the committed transactions applied in
+    versionstamp order (commit version, then the proxy's batch order)."""
+    model = {}
+    done = sorted((o for o in outcomes if isinstance(o[3], bytes)),
+                  key=lambda o: o[3])
+    for _c, _j, op, _vs, written in done:
+        kind, a, b = op
+        if kind == "rmw":
+            model[b] = written
+        elif kind == "clear":
+            for k in [k for k in model if a <= k < b]:
+                del model[k]
+        else:
+            model[b] = _add_le(model.get(b), 1)
+    return model
+
+
+def cluster_run(P, backend: str, seed: int, n_clients: int, n_txns: int,
+                n_ids: int, *, key_bytes: int = CLUSTER_KEY_BYTES,
+                kill_at=None, retry: bool = True, mixed: bool = False,
+                buggify: bool = False, cluster_kwargs=None,
+                on_cluster=None) -> dict:
+    """A seeded client workload on a SimCluster of package `P`
+    (attributes flow, SimCluster, run_transaction, database_digest,
+    ADD_VALUE; `cluster_package()` for the port): `SimCluster(seed,
+    conflict_backend=backend, buggify=buggify, **CLUSTER_LAYOUT,
+    **cluster_kwargs)` and `n_clients` clients, each running its
+    `cluster_ops` transactions one after another, all clients at once.
+    A transaction's attempt reads its read key and writes its write key
+    to the last 8 bytes of what it read, then "|client.txn.attempt"
+    (the clear and the add of `mixed` read nothing). With `retry` a
+    failed attempt goes through `on_error` (the retry loop of
+    `run_transaction`, whose commit it times) up to CLUSTER_RETRIES
+    times; without it each transaction makes one attempt. At client 0's
+    transaction `kill_at` the worker that holds the resolver is
+    killed, and the run notes when the next epoch is fully recovered.
+
+    After the workload: `database_digest` of the user keyspace, the
+    keyspace itself (paged), the epoch, and the status document. Unless
+    some transaction ended in commit_unknown_result, the keyspace must
+    equal `cluster_model` of the outcomes: every acknowledged write is
+    there, and no write of a failed attempt (AssertionError otherwise).
+    `on_cluster(cluster)` runs after the cluster is built.
+
+    Returns {"outcomes": (client, txn, versionstamp or error name) in
+    the order they completed, "digest", "epoch", "kill_epoch",
+    "status", "committed", "latency": (virtual s, wall s) a commit,
+    "kill": (virtual, wall) at the kill, "recovered": (virtual, wall)
+    when the next epoch was fully recovered, "wall_s": the workload's
+    wall seconds, "rows": the keyspace's row count, "tasks": the
+    scheduler's per-task report when armed}."""
+    flow = P.flow
+    ops = cluster_ops(seed, n_clients, n_txns, n_ids, key_bytes, mixed)
+    c = P.SimCluster(seed=seed, conflict_backend=backend, buggify=buggify,
+                     **CLUSTER_LAYOUT, **(cluster_kwargs or {}))
+    out = {"latency": [], "kill": None, "recovered": None}
+    written, rows = [], []
+    try:
+        if on_cluster is not None:
+            on_cluster(c)
+        dbs = [c.client(f"client{i}") for i in range(n_clients)]
+
+        async def recovered(epoch):
+            var = c.cc.dbinfo
+            while not (var.get().epoch > epoch and
+                       var.get().recovery_state == "fully_recovered"):
+                await var.on_change()
+            out["recovered"] = (flow.now(), time.perf_counter())
+
+        async def client(ci):
+            db = dbs[ci]
+            for j, op in enumerate(ops[ci]):
+                if ci == 0 and j == kill_at:
+                    out["kill"] = (flow.now(), time.perf_counter())
+                    out["kill_epoch"] = c.cc.dbinfo.get().epoch
+                    flow.spawn(recovered(out["kill_epoch"]),
+                               name="recovered")
+                    c.kill_role("resolver")
+                kind, a, b = op
+                tr = db.create_transaction()
+                result, value = None, None
+                for attempt in range(CLUSTER_RETRIES if retry else 1):
+                    try:
+                        if kind == "rmw":
+                            cur = await tr.get(a)
+                            value = ((cur or b"")[-8:]
+                                     + b"|%d.%d.%d" % (ci, j, attempt))
+                            tr.set(b, value)
+                        elif kind == "clear":
+                            tr.clear_range(a, b)
+                        else:
+                            tr.atomic_op(b, _add_le(None, 1), P.ADD_VALUE)
+                        t0, w0 = flow.now(), time.perf_counter()
+                        await tr.commit()
+                        out["latency"].append((flow.now() - t0,
+                                               time.perf_counter() - w0))
+                        result = tr.get_versionstamp()
+                        break
+                    except flow.FdbError as e:
+                        result = e.name
+                        if not retry:
+                            break
+                        try:
+                            await tr.on_error(e)
+                        except flow.FdbError as e2:
+                            result = e2.name
+                            break
+                written.append((ci, j, op, result, value))
+
+        async def read_keyspace(db):
+            cursor = b""
+            while True:
+                async def page(tr, cursor=cursor):
+                    return await tr.get_range(cursor, b"\xff",
+                                              limit=CLUSTER_PAGE_ROWS)
+                got = await P.run_transaction(db, page, max_retries=500)
+                rows.extend(got)
+                if len(got) < CLUSTER_PAGE_ROWS:
+                    return
+                cursor = got[-1][0] + b"\x00"
+
+        async def main():
+            t0 = time.perf_counter()
+            await flow.wait_for_all([flow.spawn(client(i), name=f"client{i}")
+                                     for i in range(n_clients)])
+            out["wall_s"] = time.perf_counter() - t0
+            if c.sched.task_stats_armed:
+                out["tasks"] = c.sched.task_stats_report()
+            out["digest"] = await P.database_digest(dbs[0])
+            await read_keyspace(dbs[0])
+            out["status"] = await dbs[0].get_status()
+            return True
+
+        c.run(main(), timeout_time=1e6)
+        out["epoch"] = c.cc.dbinfo.get().epoch
+    finally:
+        c.shutdown()
+    out["outcomes"] = [(ci, j, result) for ci, j, _op, result, _v in written]
+    out["committed"] = sum(isinstance(o[2], bytes) for o in out["outcomes"])
+    if not any(o[3] == "commit_unknown_result" for o in written):
+        model = cluster_model(written)
+        got = dict(rows)
+        if got != model:
+            diff = sorted(set(got) ^ set(model)) + sorted(
+                k for k in set(got) & set(model) if got[k] != model[k])
+            raise AssertionError(
+                f"cluster run: {len(got)} rows read back, {len(model)} in "
+                f"the model of the outcomes, {len(diff)} differ, first "
+                f"{diff[:3]}")
+    out["rows"] = len(rows)
+    return out

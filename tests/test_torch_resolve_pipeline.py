@@ -1,6 +1,5 @@
 """The reference's split submit/drain pipeline cases
-(tests/test_resolve_pipeline.py, all but the cluster stress, which
-waits for the port's sim cluster) on the port's device backends:
+(tests/test_resolve_pipeline.py) on the port's device backends:
 pipelined verdicts equal serial ones on directed and randomized
 streams, attribution through drained tickets, out-of-order drains,
 depth 1 as the synchronous path, version order, capacity growth and
@@ -10,7 +9,10 @@ not drain. Each runs over `cuda`, `cuda-point` and `sharded-cuda` at
 `device="cpu"` (4 shards split on the first key byte), and again on the
 card under the `cuda` marker; the serial verdicts are also held to the
 reference's backend of the same kind (`TpuConflictSet`,
-`PointConflictSet`) and to its brute-force set on the same batches."""
+`PointConflictSet`) and to its brute-force set on the same batches.
+The cluster stress (one-or-two transaction batches through a tiny
+pipeline) runs on the port's SimCluster over `python`, as the
+reference's does, and over the three CUDA backends."""
 
 import random
 
@@ -383,3 +385,69 @@ def test_interval_count_does_not_drain_pipeline(where, depth_knob):
         cs.drain(t)
     cs._sync_count()
     assert cs.interval_count == cs._count_hint
+
+
+@pytest.mark.parametrize("where", [("python", "cpu")] + on(BACKENDS))
+def test_buggified_tiny_depth_under_small_batch_window(where):
+    """Cluster stress: one-or-two txn batches (proxy/small_batch_window
+    buggified ON) through a tiny resolve pipeline — commits, conflicts,
+    duplicate-safe replies, and the pipeline counters all hold up."""
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.flow import rng as flow_rng
+    from foundationdb_tpu_torch.server import SimCluster
+
+    kind, device = where
+    if device is None and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cluster = SimCluster(seed=777, durable=True,
+                         conflict_backend=NAMES.get(kind, kind),
+                         device=device)
+    # force the tiny-batch stressor deterministically (site activation
+    # happens at proxy recruitment, during recovery inside run()), and
+    # shrink the pipeline to the buggified depth
+    fire_p = flow_rng.g_buggify.fire_p
+    flow_rng.g_buggify.enabled = True
+    flow_rng.g_buggify.fire_p = 1.0
+    flow_rng.g_buggify._sites["proxy/small_batch_window"] = True
+    SERVER_KNOBS.set("resolve_pipeline_depth", 2)
+    try:
+        db = cluster.client("pipe")
+
+        async def workload():
+            async def seed(tr):
+                tr.set(b"hot", b"0")
+            await run_transaction(db, seed)
+            conflicts = 0
+            for i in range(8):
+                tr = db.create_transaction()
+                await tr.get(b"hot")
+                tr.set(b"mine%d" % i, b"v")
+
+                async def bump(t2):
+                    t2.set(b"hot", b"x")
+                await run_transaction(db, bump)
+                try:
+                    await tr.commit()
+                except flow.FdbError as e:
+                    assert e.name == "not_committed", e.name
+                    conflicts += 1
+            assert conflicts == 8, conflicts
+            return await db.get_status()
+
+        status = cluster.run(workload(), timeout_time=300)
+        resolvers = status["cluster"]["resolvers"]
+        assert resolvers
+        for r in resolvers:
+            pipe = r["pipeline"]
+            assert pipe["depth"] == 2
+            assert pipe["submits"] > 0
+            assert pipe["drains"] == pipe["submits"]
+    finally:
+        # the fire rate goes back too: a later test of this process
+        # must draw BUGGIFY as a fresh one would
+        flow_rng.g_buggify.enabled = False
+        flow_rng.g_buggify.fire_p = fire_p
+        flow_rng.g_buggify._sites.clear()
+        SERVER_KNOBS.set("resolve_pipeline_depth", 4)
+        cluster.shutdown()

@@ -5,9 +5,11 @@ of tests/test_resolver_splits.py:101-322, one for one, over the port's
 backends on the CPU (the CUDA backends at `device="cpu"` run their
 plain PyTorch steps), and again on the card under the `cuda` marker.
 The handoff is the port's `clip_checkpoint`/`graft_checkpoint`
-(`foundationdb_tpu_torch/models/conflict_set.py`); the routing helper,
-`KeyResolverMap`, is the reference proxy's, which the port has not
-taken yet. Verdicts and attribution are integers: equality is exact."""
+(`foundationdb_tpu_torch/models/conflict_set.py`); the routing helper
+is the port proxy's `KeyResolverMap`. The cluster cases (the balance
+loop off, and a forced split under a skewed workload) run on the port's
+SimCluster. Verdicts and attribution are integers: equality is
+exact."""
 
 import functools
 import random
@@ -17,7 +19,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from foundationdb_tpu.server.proxy import KeyResolverMap  # noqa: E402
 from foundationdb_tpu_torch.models import (  # noqa: E402
     COMMITTED,
     CONFLICT,
@@ -33,6 +34,7 @@ from foundationdb_tpu_torch.models.conflict_set import (  # noqa: E402
     clip_checkpoint,
     graft_checkpoint,
 )
+from foundationdb_tpu_torch.server.proxy import KeyResolverMap  # noqa: E402
 
 WINDOW = 5000
 # the backends that take ranges; "@card" runs one on the card under the
@@ -283,3 +285,98 @@ def test_split_merge_cycle_attribution_parity(backend):
         assert v1 == v2, (backend, bi, phase, v1, v2, batch)
         assert [tuple(x) for x in a1] == list(a2), (
             backend, bi, phase, a1, a2, batch)
+
+
+# ---------------------------------------------------------- cluster e2e --
+def test_off_posture_spawns_nothing_and_counts_nothing():
+    """RESOLVER_BALANCE=0 (default): the balance loop is never
+    spawned — not one timer event, not one counter — and the status
+    rollup reports the off posture."""
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.server import SimCluster
+    c = SimCluster(seed=900, n_resolvers=2)
+    try:
+        db = c.client("off")
+
+        async def main():
+            async def body(tr):
+                tr.set(b"\x10k", b"v")
+            await run_transaction(db, body)
+            return await db.get_status()
+
+        status = c.run(main(), timeout_time=120)
+        assert c.cc.balance_stats.snapshot() == {}
+        bal = status["cluster"]["resolver_balance"]
+        assert bal == {"enabled": 0, "splits": 0, "merges": 0,
+                       "releases": 0, "handoff_timeouts": 0,
+                       "last_split": None}
+        aux_names = [t.name for t in c.cc._recovery.aux.tasks]
+        assert not any("resolverBalance" in n for n in aux_names), \
+            aux_names
+        # the legacy work-histogram balancer still runs (unchanged
+        # reference behavior)
+        assert any("resolutionBalancing" in n for n in aux_names), \
+            aux_names
+    finally:
+        c.shutdown()
+
+
+@pytest.mark.parametrize("backend", ["python", "cuda"])
+def test_forced_split_cluster_end_to_end(backend):
+    """Armed + one-shot FORCE on a seeded skewed workload: >=1
+    automatic split with live handoff (install + early release), all
+    increments exact across the handoff window, and the donor sheds
+    owned ranges; on `python` as the reference's case, and on `cuda` at
+    `device="cpu"`, whose handoffs checkpoint and graft the plain
+    step's history."""
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.server import SimCluster
+    c = SimCluster(seed=901, n_resolvers=2, conflict_backend=backend,
+                   device="cpu")
+    flow.SERVER_KNOBS.set("resolver_balance", 1)
+    flow.SERVER_KNOBS.set("resolver_balance_force", 1)
+    flow.SERVER_KNOBS.set("resolver_balance_interval", 0.5)
+    flow.SERVER_KNOBS.set("resolver_balance_merge_work", -1)
+    try:
+        dbs = [c.client(f"cl{i}") for i in range(3)]
+
+        async def incr(db, key, n):
+            for _ in range(n):
+                async def body(tr):
+                    cur = await tr.get(key)
+                    tr.set(key, b"%d" % (int(cur or b"0") + 1))
+                await run_transaction(db, body, max_retries=500)
+                await flow.delay(0.05)
+
+        async def main():
+            await flow.wait_for_all([
+                flow.spawn(incr(dbs[0], b"\x10hot", 30)),
+                flow.spawn(incr(dbs[1], b"\x20hot", 30)),
+                flow.spawn(incr(dbs[2], b"\x20hot2", 30))])
+            vals = []
+
+            async def rd(tr):
+                vals.clear()
+                for k in (b"\x10hot", b"\x20hot", b"\x20hot2"):
+                    vals.append(await tr.get(k))
+            await run_transaction(dbs[0], rd)
+            return vals, await dbs[0].get_status()
+
+        vals, status = c.run(main(), timeout_time=600)
+        assert vals == [b"30", b"30", b"30"], vals
+        bal = status["cluster"]["resolver_balance"]
+        assert bal["enabled"] == 1
+        assert bal["splits"] >= 1, bal
+        assert bal["releases"] >= 1, bal
+        assert bal["last_split"] is not None
+        resolvers = status["cluster"]["resolvers"]
+        installs = sum(r["splits"]["installs"] for r in resolvers)
+        checkpoints = sum(r["splits"]["checkpoints_served"]
+                          for r in resolvers)
+        assert installs >= 1 and checkpoints >= 1, resolvers
+        owned = [r["splits"].get("owned_ranges") for r in resolvers]
+        assert all(o and o >= 1 for o in owned), owned
+    finally:
+        flow.reset_server_knobs(randomize=False)
+        c.shutdown()
