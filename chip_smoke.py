@@ -81,6 +81,29 @@ resolver re-bases its int32 version window mid-run.
     the card as at device="cpu". It prints committed txn/s, commit
     latency, resolve batches, launches a batch, the busy share, the
     host's busy time by task and the recovery's time.
+  - The simulation tester (`foundationdb_tpu_torch.testing`
+    `contention_run` and `region_run`): the reference smoke's
+    contention cell, `SimCluster(8383, durable=True,
+    conflict_backend="cuda")` with 4 client handles and TESTER_DURATION
+    virtual seconds of 150 arrivals a second, each a read-modify-write
+    of one of 2 hot keys, with the conflict scheduler, the client
+    windows and transaction repair off, then on; then a region
+    failover at seed 801: a remote region attached, 40 writes, a
+    concurrent writer, a blackout of the primary and `promote()`,
+    whose recovery recruits a resolver on the card in the second DC.
+    The hot keys' total must lie within the committed and unknown
+    counts, the consistency sweep pass (both clusters keep one replica
+    of each shard, so on the card it reads every shard but compares no
+    replica with another), the off run conflict, every
+    write at or below the promoted recovery version read back through
+    the promoted region; no device fault, no failover, K1-K3 launched
+    in each run (by the promoted resolver after the blackout), and
+    every result equal to the same run at device="cpu" (made in a child
+    process, `--tester-cpu`, while the kernels build and the edge checks
+    run). It prints
+    goodput per virtual and per wall second, attempts a commit,
+    deferrals and repairs, resolve batches, launches a batch, the busy
+    share, the host's busy time by task and the promotion's time.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -105,11 +128,16 @@ device, or outside a checkout, it exits 2.
 
 from __future__ import annotations
 
+import gc
+import atexit
 import json
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,9 +155,9 @@ POINT_CAPACITY = 1 << 19                       # next_pow2(22 * N_TXNS + 2)
 WARMUP = 3
 TIMED = 384                 # 0.3-0.5 s per timed window: 96-batch point
 #                             windows (~0.1 s) spread +-30% with host noise
-CPU_BATCHES = WARMUP + 32   # the interval path's CPU comparison: past the
+CPU_BATCHES = WARMUP + 24   # the interval path's CPU comparison: past the
                             # re-base at batch 8 and the first GC of the
-                            # 20-batch window (~50 s)
+                            # 20-batch window (~40-55 s)
 POINT_CPU_BATCHES = 30                         # GC has pruned for 10
 FIRST_VERSION = (1 << 30) - 8 * VERSION_STEP   # crosses 2^30: one re-base
 LAST = WARMUP + TIMED - 1
@@ -144,7 +172,8 @@ SHARD_CAPACITY = 1 << 18      # per shard: ~650K live rows split 4 ways
 SPLIT_IDS = [i * KEYSPACE // N_SHARDS for i in range(1, N_SHARDS)]
 SHARD_SPLITS = [bytes(8) + (i * KEYSPACE // N_SHARDS).to_bytes(8, "big")
                 for i in range(1, N_SHARDS)]
-SHARDED_CPU_BATCHES = 14      # the sharded path's CPU comparison (~2 min)
+SHARDED_CPU_BATCHES = 10      # the sharded path's CPU comparison: past
+                              # the re-base at batch 8 (~75 s)
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 # int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes at
@@ -174,6 +203,8 @@ CLUSTER_CLIENTS = 64     # the cluster phase: concurrent clients, each
 CLUSTER_TXNS = 100       # with this many transactions (the kill at half)
 CLUSTER_SHORT_TXNS = 10  # a client's transactions in the short runs
 CLUSTER_IDS = 1_000_000  # ids the keys are drawn from, uniform
+TESTER_DURATION = 4.0    # the contention cell's virtual seconds
+TESTER_KERNELS = ("searchsorted_i32", "range_max", "resolve")
 # the backends of the short runs, the kernels each must launch there
 # and its key width (the point backend's is 8 bytes)
 CLUSTER_BACKENDS = (
@@ -2227,18 +2258,13 @@ def commit_leg_phase(tag) -> dict:
     return counts
 
 
-def cluster_drive(backend, n_txns, key_bytes, device, timed=False):
-    """`testing.cluster_run` over the port: a SimCluster at FDB 6.1's
-    default role counts (`testing.CLUSTER_LAYOUT`) on `backend` at
-    `device`, CLUSTER_CLIENTS clients of `n_txns` transactions each at
-    SEED, the resolver's worker killed when client 0 reaches half of
-    them. Every resolver the cluster starts is caught, with its
-    platform (its device time is taken in CUDA-event spans when it is
-    on the card; an error raised inside the recruitment would make
-    every recovery retry it, so the platform is checked after the run).
-    With `timed`, the scheduler's task stats are armed. Returns (the
-    run's result, the resolvers)."""
-    from foundationdb_tpu_torch import testing as tg
+def drive_resolvers(label, run, device):
+    """`run(seen)` with every resolver it starts caught in `seen`, with
+    its platform (its device time is taken in CUDA-event spans when it
+    is on the card; an error raised inside the recruitment would make
+    every recovery retry it, so the platform is checked after the run:
+    each must be on the card when `device` is None, else on the CPU).
+    Returns (run's result, the resolvers)."""
     from foundationdb_tpu_torch.server import resolver_role
     seen = []
     start = resolver_role.Resolver.start
@@ -2251,24 +2277,64 @@ def cluster_drive(backend, n_txns, key_bytes, device, timed=False):
         seen.append(self)
         start(self)
 
-    def arm(c):
-        if timed:
-            c.sched.start_task_stats()
-
     resolver_role.Resolver.start = caught
     try:
-        out = tg.cluster_run(tg.cluster_package(), backend, SEED,
-                             CLUSTER_CLIENTS, n_txns, CLUSTER_IDS,
-                             key_bytes=key_bytes, kill_at=n_txns // 2,
-                             cluster_kwargs={"device": device},
-                             on_cluster=arm)
+        out = run(seen)
     finally:
         resolver_role.Resolver.start = start
     want = "gpu" if device is None else "cpu"
     if any(r.platform != want for r in seen):
-        raise AssertionError(f"cluster {backend}: resolvers on "
+        raise AssertionError(f"{label}: resolvers on "
                              f"{[r.platform for r in seen]}, not {want}")
     return out, seen
+
+
+def arm_task_stats(c):
+    c.sched.start_task_stats()
+
+
+def settle_heap(tag, label):
+    """Collect what earlier runs left behind before a timed run: a
+    finished cluster's actors are finalized in one collection and freed
+    in the next, and a full collection left to run inside the timed
+    window is charged to whichever task set it off. Prints what it
+    freed and how long it took."""
+    t0 = time.perf_counter()
+    freed, rounds = 0, 0
+    while n := gc.collect():
+        freed += n
+        rounds += 1
+    print(f"[{tag}] {label}: heap settled before the run, {freed} "
+          f"unreachable objects in {rounds} collections, "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms", flush=True)
+
+
+def cluster_drive(backend, n_txns, key_bytes, device, timed=False):
+    """`testing.cluster_run` over the port: a SimCluster at FDB 6.1's
+    default role counts (`testing.CLUSTER_LAYOUT`) on `backend` at
+    `device`, CLUSTER_CLIENTS clients of `n_txns` transactions each at
+    SEED, the resolver's worker killed when client 0 reaches half of
+    them, every resolver caught (`drive_resolvers`). With `timed`, the
+    scheduler's task stats are armed. Returns (the run's result, the
+    resolvers)."""
+    from foundationdb_tpu_torch import testing as tg
+    return drive_resolvers(
+        f"cluster {backend}",
+        lambda seen: tg.cluster_run(
+            tg.cluster_package(), backend, SEED, CLUSTER_CLIENTS, n_txns,
+            CLUSTER_IDS, key_bytes=key_bytes, kill_at=n_txns // 2,
+            cluster_kwargs={"device": device},
+            on_cluster=arm_task_stats if timed else None),
+        device)
+
+
+def no_failover(label, resolvers):
+    """No device fault and no failover in any of the resolvers."""
+    for r in resolvers:
+        fo = r.failover_stats()
+        if fo.get("failovers") or fo.get("device_faults") \
+                or not fo.get("on_primary", True):
+            raise AssertionError(f"{label}: failover stats {fo}")
 
 
 def cluster_checks(label, out, resolvers):
@@ -2283,14 +2349,27 @@ def cluster_checks(label, out, resolvers):
     if len(resolvers) < 2:
         raise AssertionError(f"{label}: {len(resolvers)} resolvers started; "
                              "the recovery must recruit one anew")
-    for r in resolvers:
-        fo = r.failover_stats()
-        if fo.get("failovers") or fo.get("device_faults") \
-                or not fo.get("on_primary", True):
-            raise AssertionError(f"{label}: failover stats {fo}")
+    no_failover(label, resolvers)
     kern = out["status"]["cluster"]["kernels"]
     if not kern or any(v <= 0 for v in kern.values()):
         raise AssertionError(f"{label}: status kernel counters {kern}")
+
+
+def resolve_totals(resolvers):
+    """(resolve batches, transactions, device ms in CUDA-event spans)
+    over the resolvers."""
+    snaps = [r.stats.snapshot() for r in resolvers]
+    return (sum(x.get("batches_resolved", 0) for x in snaps),
+            sum(x.get("transactions_resolved", 0) for x in snaps),
+            sum(r.conflict_set.active.device_ms() for r in resolvers
+                if r.platform == "gpu"))
+
+
+def host_tasks(tasks, top=12) -> str:
+    busy = sorted(tasks["tasks"], key=lambda r: -r["busy_us"])
+    return (", ".join(f"{r['task']} {r['busy_us'] / 1e3:.3f}"
+                      for r in busy[:top])
+            + f"; all {sum(r['busy_us'] for r in busy) / 1e3:.3f}")
 
 
 def cluster_phase(tag) -> dict:
@@ -2315,6 +2394,7 @@ def cluster_phase(tag) -> dict:
     share, the host's busy time by task and the recovery's time;
     returns the main run's launch counts and its resolve batches."""
     t_phase = time.perf_counter()
+    settle_heap(tag, "cluster cuda")
     zero_counts()
     out, resolvers = cluster_drive("cuda", CLUSTER_TXNS, KEY_BYTES, None,
                                    timed=True)
@@ -2328,11 +2408,7 @@ def cluster_phase(tag) -> dict:
     if out["committed"] != n_all:
         raise AssertionError(f"{label}: {out['committed']} of {n_all} "
                              "transactions committed")
-    batches = sum(r.stats.snapshot().get("batches_resolved", 0)
-                  for r in resolvers)
-    txns = sum(r.stats.snapshot().get("transactions_resolved", 0)
-               for r in resolvers)
-    dev_ms = sum(r.conflict_set.active.device_ms() for r in resolvers)
+    batches, txns, dev_ms = resolve_totals(resolvers)
     wall = out["wall_s"]
     lat = np.asarray(out["latency"]) * 1e3
     print(f"[{tag}] {label}: {out['committed']} of {n_all} transactions "
@@ -2359,12 +2435,8 @@ def cluster_phase(tag) -> dict:
           f"spans); recovery {1e3 * (rw - kw):.3f} wall ms, "
           f"{1e3 * (rv - kv):.3f} virtual ms from the kill to the next "
           "epoch fully recovered", flush=True)
-    busy = sorted(out["tasks"]["tasks"], key=lambda r: -r["busy_us"])
     print(f"[{tag}] {label}: host busy ms by task over the workload: "
-          + ", ".join(f"{r['task']} {r['busy_us'] / 1e3:.3f}"
-                      for r in busy[:12])
-          + f"; all {sum(r['busy_us'] for r in busy) / 1e3:.3f}",
-          flush=True)
+          + host_tasks(out["tasks"]), flush=True)
     for backend, kernels, key_bytes in CLUSTER_BACKENDS:
         t0 = time.perf_counter()
         zero_counts()
@@ -2391,6 +2463,230 @@ def cluster_phase(tag) -> dict:
     print(f"[{tag}] cluster phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return counts, batches
+
+
+TESTER_CPU_FLAG = "--tester-cpu"   # the child that makes the CPU runs
+
+
+def tester_cpu_runs() -> dict:
+    """The tester phase's runs at device="cpu" (the storm off and on, the
+    failover), each with no failover or device fault in its resolvers,
+    which the card's runs must equal: {label: (the run's result, its
+    wall seconds)}."""
+    from foundationdb_tpu_torch import testing as tg
+    P = tg.tester_package()
+    out = {}
+    for on in (False, True):
+        label = f"tester contention {'on' if on else 'off'}"
+        t0 = time.perf_counter()
+        run, res = drive_resolvers(f"{label} cpu", lambda seen: (
+            tg.contention_run(P, "cuda", tg.CONTENTION_SEED, on,
+                              TESTER_DURATION,
+                              cluster_kwargs={"device": "cpu"})), "cpu")
+        no_failover(f"{label} cpu", res)
+        out[label] = (run, time.perf_counter() - t0)
+    label = "tester region failover"
+    t0 = time.perf_counter()
+    run, res = drive_resolvers(f"{label} cpu", lambda seen: tg.region_run(
+        P, "cuda", tg.REGION_SEED, cluster_kwargs={"device": "cpu"}), "cpu")
+    no_failover(f"{label} cpu", res)
+    out[label] = (run, time.perf_counter() - t0)
+    return out
+
+
+class TesterCpuRuns:
+    """`tester_cpu_runs` in a child process (`chip_smoke.py --tester-cpu
+    PATH`, one torch thread), started before the kernel build: it needs
+    no card and no kernel, so it runs beside the build and the edge
+    checks (not beside the CPU prefixes, whose torch threads it would
+    slow) and not after each card run. `result()` waits for it and
+    fails if it failed; `stop()` (at exit) kills it if it still runs."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.path = os.path.join(self.dir, "tester_cpu.pkl")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), TESTER_CPU_FLAG,
+             self.path], cwd=ROOT, stdout=subprocess.DEVNULL,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        atexit.register(self.stop)
+
+    def result(self) -> dict:
+        rc = self.proc.wait(timeout=900)
+        if rc:
+            raise AssertionError(f"the tester's CPU runs exited {rc}")
+        with open(self.path, "rb") as f:
+            return pickle.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def tester_cpu_main(path) -> int:
+    """`--tester-cpu PATH`: `tester_cpu_runs`, pickled to PATH."""
+    import torch
+    torch.set_num_threads(1)
+    runs = tester_cpu_runs()
+    with open(path + ".part", "wb") as f:
+        pickle.dump(runs, f)
+    os.replace(path + ".part", path)
+    return 0
+
+
+def tester_phase(tag, cpu_runs) -> tuple:
+    """The simulation tester on the card (`foundationdb_tpu_torch.
+    testing`): the reference smoke's contention cell
+    (`contention_run`: `SimCluster(8383, durable=True,
+    conflict_backend="cuda")`, 4 client handles, TESTER_DURATION
+    virtual s of 150 arrivals a second on 2 hot keys) with the conflict
+    scheduler, the client windows and repair off, then on; then the
+    region failover (`region_run`, seed 801, `conflict_backend="cuda"`:
+    a remote region attached, 40 writes, a concurrent writer, a primary
+    blackout, `promote()`). Each run again at device="cpu", whose stats
+    (without the host clock's fields), hot-key total, consistency
+    sweep and digest the card's must equal: the sim does not depend on
+    the device. Checks: the hot-key oracle (inside `contention_run`),
+    `check_consistency` with rows, the off run conflicted, no device
+    fault and no failover, no recovery past the boot's, every resolver
+    on the card and K1-K3 launched in each run; in the failover, the
+    promoted region's resolver on the card launching K1-K3 after the
+    blackout, every write at or below the recovery version read back
+    through the promoted region, each write lost above it by at most
+    the advertised lag. `cpu_runs()` gives the device="cpu" runs
+    (`tester_cpu_runs`). Prints goodput per virtual and per wall second,
+    attempts a commit, deferrals and repairs, resolve batches and their
+    transactions, launches a batch, the device's busy share, the host's
+    busy ms by task, and the promotion's time. Returns the runs' summed
+    launch counts and resolve batches."""
+    from foundationdb_tpu_torch import testing as tg
+    t_phase = time.perf_counter()
+    P = tg.tester_package()
+    cpu_run = cpu_runs()
+    total = dict.fromkeys(launch_counts(), 0)
+    total_batches = 0
+    for on in (False, True):
+        label = f"tester contention {'on' if on else 'off'}"
+        settle_heap(tag, label)
+        zero_counts()
+        card, res = drive_resolvers(label, lambda seen: tg.contention_run(
+            P, "cuda", tg.CONTENTION_SEED, on, TESTER_DURATION,
+            cluster_kwargs={"device": None}, on_cluster=arm_task_stats),
+            None)
+        counts = launch_counts()
+        cpu, cpu_s = cpu_run[label]
+        no_failover(label, res)
+        idle = [k for k in TESTER_KERNELS if counts[k] <= 0]
+        if idle:
+            raise AssertionError(f"{label} never launched {idle}")
+        stats = card["stats"]
+        if card["epoch"] != 1 or card["consistency"]["rows"] <= 0 \
+                or stats["committed"] <= 0 or (not on and
+                                               stats["conflicts"] <= 0):
+            raise AssertionError(f"{label}: epoch {card['epoch']}, "
+                                 f"consistency {card['consistency']}, "
+                                 f"stats {stats}")
+        for k in ("total", "consistency", "digest", "epoch"):
+            if card[k] != cpu[k]:
+                raise AssertionError(f"{label}: {k} {card[k]} differs from "
+                                     f"the CPU run's {cpu[k]}")
+        if tg.sim_stats(stats) != tg.sim_stats(cpu["stats"]):
+            raise AssertionError(f"{label}: stats differ from the CPU run's")
+        batches, txns, dev_ms = resolve_totals(res)
+        total_batches += batches
+        for k in total:
+            total[k] += counts[k]
+        wall = card["wall_s"]
+        doc = card["status"]["cluster"]["conflict_scheduling"]
+        print(f"[{tag}] {label}: {stats['committed']} of {stats['issued']} "
+              f"arrivals committed, hot-key total {card['total']} "
+              f"(committed {stats['committed']}, unknown "
+              f"{stats['unknown']}), {stats['conflicts']} conflicts, "
+              f"{stats['failed']} failed; consistency "
+              f"{card['consistency']['rows']} rows over "
+              f"{card['consistency']['replicas']} replicas; stats, total, "
+              f"sweep and digest {card['digest'][:16]} equal to the "
+              f"device=\"cpu\" run's (made beside the earlier phases in "
+              f"{cpu_s:.1f} s); {len(res)} resolver on "
+              "the card, 0 failovers, 0 device faults", flush=True)
+        print(f"[{tag}] {label}: goodput {stats['goodput_per_sec']:.2f} a "
+              f"virtual s, {stats['committed'] / wall:.2f} a wall s "
+              f"({wall:.3f} s for {stats['wall_seconds']} virtual s); "
+              f"{stats['attempts_per_commit']:.3f} attempts a commit; "
+              f"{doc.get('deferrals', 0)} deferrals, "
+              f"{doc.get('repair_committed', 0)} repairs committed", flush=True)
+        print(f"[{tag}] {label}: {batches} resolve batches, "
+              f"{txns / max(batches, 1):.3f} transactions a batch; launches "
+              "a batch " + ", ".join(f"{k} {counts[k] / max(batches, 1):.3f}"
+                                     for k in counts if counts[k])
+              + f" (window_upkeep {counts['window_upkeep']}); device busy "
+              f"{100 * dev_ms / (wall * 1e3):.3f}% of the wall "
+              f"({dev_ms / max(batches, 1):.4f} ms a batch in CUDA-event "
+              f"spans); host busy ms by task: {host_tasks(card['tasks'])}",
+              flush=True)
+
+    label = "tester region failover"
+    at_blackout = {}
+
+    def blackout(seen):
+        at_blackout.update(resolvers=len(seen), counts=launch_counts(),
+                           wall=time.perf_counter())
+
+    settle_heap(tag, label)
+    zero_counts()
+    card, res = drive_resolvers(label, lambda seen: tg.region_run(
+        P, "cuda", tg.REGION_SEED, cluster_kwargs={"device": None},
+        on_blackout=lambda c: blackout(seen)), None)
+    counts = launch_counts()
+    cpu, _cpu_s = cpu_run[label]
+    no_failover(label, res)
+    promoted = res[at_blackout["resolvers"]:]
+    after = {k: counts[k] - at_blackout["counts"][k] for k in counts}
+    idle = [k for k in TESTER_KERNELS if after[k] <= 0]
+    if not promoted or idle:
+        raise AssertionError(f"{label}: {len(promoted)} promoted resolvers, "
+                             f"never launched {idle} after the blackout")
+    for k in ("committed", "epoch", "promoted_epoch", "recovery_version",
+              "lag", "survived", "lost", "consistency", "digest"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"{label}: {k} differs from the CPU run's")
+    rv, lag = card["recovery_version"], card["lag"]
+    lost = {k: card["committed"][k] - rv for k in card["lost"]}
+    if len(card["survived"]) < tg.REGION_SHIPPED or card["consistency"][
+            "rows"] <= 0 or any(not 0 < d <= lag for d in lost.values()):
+        raise AssertionError(f"{label}: survived {len(card['survived'])}, "
+                             f"consistency {card['consistency']}, lost "
+                             f"{lost} against a lag of {lag}")
+    batches, txns, dev_ms = resolve_totals(res)
+    p_batches, _p_txns, _p_dev = resolve_totals(promoted)
+    total_batches += batches
+    for k in total:
+        total[k] += counts[k]
+    bv, bw = card["blackout"]
+    rv_t, rw = card["recovered"]
+    print(f"[{tag}] {label}: epoch {card['epoch']} -> promoted epoch "
+          f"{card['promoted_epoch']} at recovery version {rv}; "
+          f"{len(card['survived'])} of {len(card['committed'])} writes read "
+          f"back through the promoted region, {len(lost)} lost, each above "
+          f"the recovery version by at most the advertised lag of {lag} "
+          f"versions ({', '.join(str(d) for d in sorted(lost.values()))}); "
+          f"consistency {card['consistency']['rows']} rows; committed "
+          f"versions, survivors, sweep and digest {card['digest'][:16]} "
+          "equal to the device=\"cpu\" run's", flush=True)
+    print(f"[{tag}] {label}: blackout to the promoted epoch fully "
+          f"recovered {1e3 * (rw - bw):.3f} wall ms, "
+          f"{1e3 * (rv_t - bv):.3f} virtual ms; {len(res)} resolvers on the "
+          f"card, {len(promoted)} in the promoted region with "
+          f"{p_batches} resolve batches and launches after the blackout "
+          + ", ".join(f"{k} {after[k]}" for k in after if after[k])
+          + f"; {batches} resolve batches in all, "
+          f"{txns / max(batches, 1):.3f} transactions a batch; 0 failovers, "
+          "0 device faults", flush=True)
+    print(f"[{tag}] tester phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total, total_batches
 
 
 def probe_main(tag, dev) -> int:
@@ -2595,6 +2891,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if TESTER_CPU_FLAG in sys.argv[1:]:
+        return tester_cpu_main(sys.argv[sys.argv.index(TESTER_CPU_FLAG) + 1])
     from foundationdb_tpu_torch import device as fdev
     from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.models import create_conflict_set
@@ -2607,12 +2905,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
+    probe = "--probe" in sys.argv[1:]
+    tester_cpu = None if probe else TesterCpuRuns()   # beside the build
     t0 = time.perf_counter()
     _build.lib()
     print(f"[{tag}] kernel build: {time.perf_counter() - t0:.3f} s "
           f"({_build.build_info.get('units')} sources, nvcc "
           f"{_build.build_info.get('seconds', 0.0):.3f} s)", flush=True)
-    if "--probe" in sys.argv[1:]:
+    if probe:
         return probe_main(tag, dev)
 
     check_edges(dev)
@@ -2794,6 +3094,7 @@ def main() -> int:
     role_counts = role_phase(tag)
     commit_counts = commit_leg_phase(tag)
     cluster_counts, cluster_batches = cluster_phase(tag)
+    tester_counts, tester_batches = tester_phase(tag, tester_cpu.result)
 
     failover_phase(tag)
 
@@ -2893,6 +3194,7 @@ def main() -> int:
                         for b, c in role_counts.items()})
         by_path["commit leg"] = commit_counts[name]
         by_path["cluster"] = cluster_counts[name]
+        by_path["tester"] = tester_counts[name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -2937,7 +3239,8 @@ def main() -> int:
                           f"{b}" for b in role_counts)
               + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg, "
               f"{by_path['cluster'] / cluster_batches:.3f} "
-              "cluster batch", flush=True)
+              f"cluster batch, {by_path['tester'] / tester_batches:.3f} "
+              "tester batch", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

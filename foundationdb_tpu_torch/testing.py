@@ -962,3 +962,247 @@ def cluster_run(P, backend: str, seed: int, n_clients: int, n_txns: int,
                 f"{diff[:3]}")
     out["rows"] = len(rows)
     return out
+
+
+# -- the simulation tester: a contention storm and a region failover ----
+
+# the reference smoke's contention cell (tools/smoke.py:625-700): 4
+# client handles, 150 arrivals a virtual second on 2 hot keys, each a
+# read-modify-write through a bounded retry loop, on a durable cluster
+CONTENTION_SEED = 8383
+CONTENTION_CLIENTS = 4
+CONTENTION_RATE = 150.0
+CONTENTION_HOT_KEYS = 2
+# test_region.py's failover shape: 40 writes over both halves of the
+# keyspace, the router caught up to the 30th, then a primary blackout
+REGION_SEED = 801
+REGION_WRITES = 40
+REGION_SHIPPED = 30
+REGION_TIMEOUT = 900.0   # virtual s, test_region.py's bound
+# the stats fields that read the host's clock (`sim_perf_report`'s wall
+# budget, and the task-stats tables when those are armed): they differ
+# from run to run in either package, the rest of a storm's stats not
+WALL_FIELDS = ("wall_seconds", "sim_per_wall", "tasks_per_wall_sec",
+               "top_tasks", "priority_bands")
+
+
+def tester_package():
+    """The port's modules under the names `contention_run` and
+    `region_run` read."""
+    from . import flow
+    from .client import run_transaction
+    from .server import SimCluster
+    from .server.chaos import database_digest
+    from .server.consistency import check_consistency
+    from .server.dbinfo import FULLY_RECOVERED
+    from .server.region import RemoteRegion
+    from .server.workloads import ContentionStorm
+    return SimpleNamespace(flow=flow, SimCluster=SimCluster,
+                           run_transaction=run_transaction,
+                           database_digest=database_digest,
+                           check_consistency=check_consistency,
+                           FULLY_RECOVERED=FULLY_RECOVERED,
+                           RemoteRegion=RemoteRegion,
+                           ContentionStorm=ContentionStorm)
+
+
+def sim_stats(stats: dict) -> dict:
+    """A storm's stats without the fields that read the host's clock."""
+    out = dict(stats)
+    out["sim_perf"] = {k: v for k, v in stats["sim_perf"].items()
+                       if k not in WALL_FIELDS}
+    return out
+
+
+def contention_run(P, backend: str, seed: int, on: bool, duration: float,
+                   *, cluster_kwargs=None, on_cluster=None) -> dict:
+    """The reference smoke's contention cell on package `P` (attributes
+    of `tester_package()`): `SimCluster(seed, durable=True,
+    conflict_backend=backend, **cluster_kwargs)`, then the conflict
+    scheduler, the client conflict windows and transaction repair all
+    on or all off (`on`), set after the cluster re-initialized the
+    knobs as the smoke sets them, and a `ContentionStorm` of `duration`
+    virtual seconds over CONTENTION_CLIENTS handles. After it: the hot keys'
+    total, which must lie in [committed, committed + unknown] (every
+    committed transaction added exactly 1; an unknown outcome may or
+    may not have), `check_consistency` of the cluster, `database_digest`
+    and the status document. `on_cluster(cluster)` runs after the
+    cluster is built. The knobs are reset after the run.
+
+    Returns {"stats" (the storm's), "total", "consistency", "digest",
+    "status", "epoch", "wall_s" (the storm's wall seconds), "tasks"
+    (the scheduler's per-task report when armed)}."""
+    flow = P.flow
+    c = P.SimCluster(seed=seed, durable=True, conflict_backend=backend,
+                     **(cluster_kwargs or {}))
+    flow.SERVER_KNOBS.set("conflict_scheduling", int(on))
+    flow.SERVER_KNOBS.set("client_conflict_windows", int(on))
+    flow.SERVER_KNOBS.set("txn_repair", int(on))
+    flow.SERVER_KNOBS.set("sched_hot_push_interval", 0.05)
+    out = {}
+    try:
+        if on_cluster is not None:
+            on_cluster(c)
+        dbs = [c.client(f"cont{i}") for i in range(CONTENTION_CLIENTS)]
+
+        async def main():
+            storm = P.ContentionStorm(dbs, flow.g_random, duration=duration,
+                                      rate=CONTENTION_RATE,
+                                      hot_keys=CONTENTION_HOT_KEYS)
+            t0 = time.perf_counter()
+            stats = await storm.run()
+            out["wall_s"] = time.perf_counter() - t0
+            if c.sched.task_stats_armed:
+                out["tasks"] = c.sched.task_stats_report()
+            total = await storm.read_hot_total(dbs[0])
+            if not stats["committed"] <= total <= \
+                    stats["committed"] + stats["unknown"]:
+                raise AssertionError(f"contention run: hot-key total "
+                                     f"{total} outside the oracle {stats}")
+            out.update(stats=stats, total=total)
+            out["consistency"] = await P.check_consistency(c)
+            out["digest"] = await P.database_digest(dbs[0])
+            out["status"] = await dbs[0].get_status()
+            return True
+
+        c.run(main(), timeout_time=1e6)
+        out["epoch"] = c.cc.dbinfo.get().epoch
+    finally:
+        flow.reset_server_knobs(randomize=False)
+        c.shutdown()
+    return out
+
+
+def _region_key(i: int) -> bytes:
+    # alternate halves of the keyspace, so the stream feeds both remote
+    # shards (split at 0x80)
+    return (b"k%03d" if i % 2 else b"\xc8%03d") % i
+
+
+def region_run(P, backend: str, seed: int, *, cluster_kwargs=None,
+               on_blackout=None) -> dict:
+    """`tests/test_region.py`'s failover on package `P` (attributes of
+    `tester_package()`): `SimCluster(seed, durable=True,
+    auto_reboot=False, n_coordinators=5, n_storage=2,
+    conflict_backend=backend, **cluster_kwargs)`; a `RemoteRegion`
+    attached (a recovery), REGION_WRITES writes, a concurrent writer
+    that never stops, the router caught up to the REGION_SHIPPED-th
+    write, then a blackout of every primary process and two
+    coordinators, and `promote()`: a recovery in the second DC that
+    recruits its own master, resolver, proxies and logs. Through the
+    promoted region: every write at or below the recovery version must
+    read back (the others are the advertised lag, which an async region
+    may lose), the writer commits 3 more times, `check_consistency`
+    and `database_digest`. `on_blackout(cluster)` runs just before the
+    blackout; the run fails at virtual time REGION_TIMEOUT.
+
+    Returns {"committed": {key: commit version}, "epoch" (the primary's
+    at the blackout), "promoted_epoch", "recovery_version", "survived"
+    (the written keys read back), "lost" (those that were not, each
+    above the recovery version), "lag" (the router's advertised lag in
+    versions at the blackout), "digest", "consistency", "blackout" and
+    "recovered": (virtual s, wall s) at the blackout and when the
+    promoted epoch was fully recovered}."""
+    flow = P.flow
+    c = P.SimCluster(seed=seed, durable=True, auto_reboot=False,
+                     n_coordinators=5, n_storage=2, conflict_backend=backend,
+                     **(cluster_kwargs or {}))
+    out = {}
+    try:
+        db = c.client()
+
+        async def main():
+            region = P.RemoteRegion(c)
+            await region.start()
+            committed = {}
+            for i in range(REGION_WRITES):
+                tr = db.create_transaction()
+                tr.set(_region_key(i), b"v%d" % i)
+                committed[_region_key(i)] = await tr.commit()
+                if i % 5 == 0:
+                    await flow.delay(0.05)
+
+            progress = {"before": 0, "after": 0}
+            phase = ["before"]
+            stop = [False]
+
+            async def writer():
+                n = 0
+                while not stop[0]:
+                    async def body(tr, n=n):
+                        tr.set(b"live-%04d" % n, b"x")
+                    await P.run_transaction(db, body, max_retries=100000)
+                    progress[phase[0]] += 1
+                    n += 1
+                    await flow.delay(0.1)
+
+            writer_task = flow.spawn(writer(), name="concurrentWriter")
+            target = committed[_region_key(REGION_SHIPPED - 1)]
+            deadline = flow.now() + 60
+            while region._pushed_to < target:
+                if flow.now() >= deadline:
+                    raise AssertionError("region run: the router never "
+                                         "caught up")
+                tr = db.create_transaction()   # nudges known_committed
+                tr.set(b"nudge", b"x")
+                await tr.commit()
+                await flow.delay(0.05)
+
+            if on_blackout is not None:
+                on_blackout(c)
+            out["epoch"] = c.cc.dbinfo.get().epoch
+            out["lag"] = region.lag()
+            out["blackout"] = (flow.now(), time.perf_counter())
+            for w in list(c.workers.values()):
+                if w.process.alive:
+                    c.net.kill(w.process)
+            c.net.kill(c.cc.process)
+            for i, coord in enumerate(c.coordinators):
+                if i not in (2, 3, 4) and coord.process.alive:
+                    c.net.kill(coord.process)
+            phase[0] = "after"
+
+            promoted = await region.promote()
+            out["recovered"] = (flow.now(), time.perf_counter())
+            info = promoted.cc.dbinfo.get()
+            if not (info.epoch > out["epoch"]
+                    and info.recovery_state == P.FULLY_RECOVERED):
+                raise AssertionError(f"region run: promoted epoch "
+                                     f"{info.epoch}, {info.recovery_state}")
+            out["promoted_epoch"] = info.epoch
+            rv = out["recovery_version"] = promoted.recovery_version
+            pdb = promoted.client()
+
+            async def read_all(tr):
+                lo = await tr.get_range(b"k", b"l")
+                hi = await tr.get_range(b"\xc8", b"\xc9")
+                return list(lo) + list(hi)
+            rows = dict(await P.run_transaction(pdb, read_all,
+                                                max_retries=500))
+            out["survived"] = sorted(k for k in committed if k in rows)
+            out["lost"] = sorted(k for k in committed if k not in rows)
+            for key, v in committed.items():
+                want = b"v%d" % int(key[1:])
+                if (v <= rv and rows.get(key) != want) or \
+                        (key in rows and rows[key] != want):
+                    raise AssertionError(f"region run: {key!r} at version "
+                                         f"{v} (recovery version {rv}) "
+                                         f"reads {rows.get(key)!r}")
+            deadline = flow.now() + 120
+            while progress["after"] < 3:
+                if flow.now() >= deadline:
+                    raise AssertionError("region run: the writer never "
+                                         "committed after the failover")
+                await flow.delay(0.5)
+            stop[0] = True
+            await flow.catch_errors(writer_task)
+            out["committed"] = committed
+            out["consistency"] = await P.check_consistency(
+                promoted.client("consistency"))
+            out["digest"] = await P.database_digest(pdb)
+            return True
+
+        c.run(main(), timeout_time=REGION_TIMEOUT)
+    finally:
+        c.shutdown()
+    return out

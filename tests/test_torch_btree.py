@@ -1,11 +1,12 @@
 """The reference's KeyValueStoreBTree cases (tests/test_btree.py) on the
-port's `server.btree`: randomized model checking and crash recovery
-via the shadow-paging superblock flip (ref: fdbserver/VersionedBTree
-.actor.cpp + IndirectShadowPager; test style: KVStoreTest workload).
-The engine's case inside a whole cluster comes with the port's
-cluster."""
+port's `server.btree`, its cluster case on the port's SimCluster.
+
+KeyValueStoreBTree: randomized model checking + crash recovery via
+the shadow-paging superblock flip (ref: fdbserver/VersionedBTree
+.actor.cpp + IndirectShadowPager; test style: KVStoreTest workload)."""
 
 import random
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -114,6 +115,34 @@ def test_randomized_vs_model_with_crashes(seed):
         _run(s, main())
     finally:
         fl.set_scheduler(None)
+
+
+def test_btree_as_storage_engine_in_cluster():
+    """The engine slots in behind the storage server like the memory
+    engine does."""
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.server import SimCluster
+
+    c = SimCluster(seed=31, durable=True, storage_engine="btree")
+    try:
+        db = c.client()
+
+        async def main():
+            async def body(tr):
+                for i in range(50):
+                    tr.set(b"bt%02d" % i, b"v%d" % i)
+            await run_transaction(db, body)
+            c.kill_role("storage")
+
+            async def check(tr):
+                got = await tr.get_range(b"bt", b"bu")
+                assert len(got) == 50
+            await run_transaction(db, check, max_retries=300)
+            return True
+
+        assert c.run(main(), timeout_time=600)
+    finally:
+        c.shutdown()
 
 
 def test_reverse_paging_returns_rows_nearest_end():

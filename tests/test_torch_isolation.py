@@ -7,7 +7,9 @@ interpreter), and the CUDA backends, the resolver role and the cluster
 asked for with no device raise on a host without a card instead of
 running on the CPU. A device fault that outlasts the failover
 wrapper's retries fails the cluster's run instead of being absorbed by
-a recovery."""
+a recovery. A remote region carries its cluster's device and fatal
+hook: at device="cpu" it promotes without asking for a card, and a
+device fault in its promoted resolver fails the run."""
 
 import ast
 import os
@@ -220,3 +222,64 @@ def test_device_fault_past_retries_fails_run():
     finally:
         c.shutdown()
         flow.reset_server_knobs(randomize=False)
+
+
+def test_region_promotes_on_cpu_without_card(monkeypatch):
+    """A `cuda` cluster at device="cpu" attaches a remote region and
+    promotes it on a host without a card: the region's workers and the
+    promoted controller carry the cluster's device, so the second DC's
+    resolver is built on the plain versions too, never asking for a
+    card."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.server import resolver_role
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seen = []
+    start = resolver_role.Resolver.start
+
+    def caught(self):
+        seen.append(self.conflict_set.active.kernel_stats()["platform"])
+        start(self)
+
+    monkeypatch.setattr(resolver_role.Resolver, "start", caught)
+    at_blackout = []
+    P = tg.tester_package()
+    try:
+        out = tg.region_run(P, "cuda", tg.REGION_SEED,
+                            cluster_kwargs={"device": "cpu"},
+                            on_blackout=lambda c: at_blackout.append(
+                                len(seen)))
+    finally:
+        P.flow.reset_server_knobs(randomize=False)
+    assert out["promoted_epoch"] > out["epoch"]
+    assert len(out["survived"]) >= tg.REGION_SHIPPED
+    # the promotion recruited a resolver of its own, on the CPU
+    assert at_blackout and len(seen) > at_blackout[0]
+    assert set(seen) == {"cpu"}
+
+
+def test_device_fault_in_promoted_resolver_fails_run():
+    """Every device seam faults from the blackout on: the promoted
+    region's resolver rebuilds DEVICE_FAULT_RETRIES times, then raises
+    DeviceFaultError into the cluster's fatal hook, which stops the
+    loop; `run` raises it instead of the region retrying its recovery
+    for ever."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops.fault_injection import DeviceFaultError
+    P = tg.tester_package()
+    at_blackout = []
+
+    def arm(c):
+        at_blackout.append(P.flow.now())
+        P.flow.SERVER_KNOBS.set("device_fault_injection", 1.0)
+
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(DeviceFaultError):
+            tg.region_run(P, "cuda", tg.REGION_SEED,
+                          cluster_kwargs={"device": "cpu"},
+                          on_blackout=arm)
+    finally:
+        P.flow.reset_server_knobs(randomize=False)
+    assert at_blackout, "the fault must come after the blackout"
+    assert time.perf_counter() - t0 < 60.0
+    assert int(P.flow.SERVER_KNOBS.device_fault_retries) >= 1

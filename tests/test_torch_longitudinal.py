@@ -1,0 +1,213 @@
+"""The reference's longitudinal cases (tests/test_longitudinal.py) on the
+port's `server.timekeeper`, `server.slo`, `server.systemkeys` and
+SimCluster: the codecs, the time map's lookups, the SLO rules and the
+off posture. The cases that read the history through `layers.metrics`,
+bundle an incident or merge traces need the layers and the tools.
+
+Longitudinal observability pins: (1) the TimeKeeper/metric-history
+key+value codecs round-trip (including '/'-bearing signal names and
+negative deltas) and skip foreign rows; (2) the time map's interpolated
+lookups invert; (3) the default METRIC_HISTORY=0 posture adds NOTHING —
+no recorder, no system rows, and same-seed runs stay bit-identical
+across digest/steps/messages; (4) the SLO math is directed — multiwindow
+burn rates trip only when fast AND slow windows burn, ceilings need a
+sustained window, insufficient data never pages. The armed cluster's
+recorded rows, the SLO verdict and the time map are held against the
+reference in tests/test_torch_workload_parity.py.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from foundationdb_tpu_torch import flow  # noqa: E402
+from foundationdb_tpu_torch.client import run_transaction  # noqa: E402
+from foundationdb_tpu_torch.server import SimCluster  # noqa: E402
+from foundationdb_tpu_torch.server import slo as slo_mod  # noqa: E402
+from foundationdb_tpu_torch.server import systemkeys as sk  # noqa: E402
+from foundationdb_tpu_torch.server import timekeeper as tk  # noqa: E402
+from foundationdb_tpu_torch.server.chaos import database_digest  # noqa: E402
+
+
+# -- codecs (pure) ---------------------------------------------------------
+
+def test_timekeeper_key_roundtrip_and_order():
+    k1 = sk.timekeeper_key(1_000)
+    k2 = sk.timekeeper_key(2_000)
+    assert sk.TIMEKEEPER_PREFIX < k1 < k2 < sk.TIMEKEEPER_END
+    assert sk.parse_timekeeper_key(k1) == (sk.TIMEKEEPER_VERSION, 1_000)
+    # the cutoff key IS the first key at that timestamp: clear_range
+    # up to it removes strictly-older rows only
+    assert sk.timekeeper_cutoff_key(2_000) == k2
+    # foreign shapes parse to None, never raise
+    assert sk.parse_timekeeper_key(b"\xff\x02/other/1") is None
+    assert sk.parse_timekeeper_key(sk.TIMEKEEPER_PREFIX + b"junk") is None
+    assert sk.parse_timekeeper_key(
+        sk.TIMEKEEPER_PREFIX + b"1/zz/extra") is None
+
+
+def test_metric_chunk_codec_roundtrip():
+    # negative deltas both axes... no — time is monotone, VALUES dip
+    # (a gauge falling, a counter re-baselining after restart)
+    samples = [(1_000, 50), (2_000, 75), (3_500, 60), (3_600, 0)]
+    enc = sk.encode_metric_chunk(samples)
+    assert sk.decode_metric_chunk(enc) == samples
+    assert sk.decode_metric_chunk(sk.encode_metric_chunk(
+        [(7, -3)])) == [(7, -3)]
+    # foreign / future-version rows decode to None (reader skips)
+    assert sk.decode_metric_chunk(b"gibberish") is None
+    assert sk.decode_metric_chunk(b"9|1|2|") is None
+    # signals carry '/' — the key parse splits the ts off the RIGHT
+    key = sk.metric_history_key("latency/commit/p99_ms", 42_000)
+    assert sk.parse_metric_history_key(key) == \
+        (sk.METRIC_HISTORY_VERSION, "latency/commit/p99_ms", 42_000)
+    assert sk.parse_metric_history_key(b"\xff\x02/metrics/zz") is None
+    assert key.startswith(
+        sk.metric_history_signal_prefix("latency/commit/p99_ms"))
+
+
+def test_timekeeper_pure_lookup_interpolates_and_extrapolates():
+    tmap = [(10.0, 1_000_000), (20.0, 11_000_000)]
+    # interior: linear between the rows
+    assert tk.version_at_time_from_map(tmap, 15.0) == 6_000_000
+    assert tk.time_at_version_from_map(tmap, 6_000_000) == 15.0
+    # past the ends: nominal 1e6 versions/second slope
+    assert tk.version_at_time_from_map(tmap, 22.0) == 13_000_000
+    assert tk.version_at_time_from_map(tmap, 9.0) == 0  # clamped >= 0
+    assert tk.time_at_version_from_map(tmap, 12_000_000) == 21.0
+    assert tk.version_at_time_from_map([], 5.0) is None
+    assert tk.time_at_version_from_map([], 5) is None
+
+
+# -- SLO math (pure, directed) ---------------------------------------------
+
+def _mk_burn(budget=0.01):
+    return slo_mod.SloRule(
+        "r", "burn_rate", "bad", total_signal="total", budget=budget,
+        fast_window_s=10.0, slow_window_s=60.0, fast_rate=14.0,
+        slow_rate=3.0)
+
+
+def test_burn_rate_directed_math():
+    now = 100_000
+    total = [(40_000, 0), (90_000, 500), (100_000, 600)]
+    # fast window: 20 bad / 100 total = 20x budget; slow: 30/600 = 5x
+    bad = [(40_000, 0), (90_000, 10), (100_000, 30)]
+    assert slo_mod.burn_rate(bad, total, now, 10.0, 0.01) == 20.0
+    assert slo_mod.burn_rate(bad, total, now, 60.0, 0.01) == 5.0
+    doc = slo_mod._eval_rule(_mk_burn(), {"bad": bad, "total": total},
+                             now)
+    assert doc["ok"] is False and doc["value"] == 20.0 \
+        and doc["slow_value"] == 5.0
+
+    # slow window still burning but the fast window cooled: NO page
+    # (the multiwindow shape — a resolved incident stops alerting)
+    bad2 = [(40_000, 0), (90_000, 28), (100_000, 30)]
+    doc2 = slo_mod._eval_rule(_mk_burn(), {"bad": bad2, "total": total},
+                              now)
+    assert doc2["ok"] is True and doc2["value"] == 2.0
+
+    # under two samples in a window -> no verdict, rule stays ok
+    doc3 = slo_mod._eval_rule(
+        _mk_burn(), {"bad": [(99_000, 5)], "total": total}, now)
+    assert doc3["ok"] is True and doc3["value"] is None
+    assert slo_mod.burn_rate([], total, now, 10.0, 0.01) is None
+
+
+def test_ceiling_zero_and_recovery_rules():
+    now = 100_000
+    ceil = slo_mod.SloRule("p99", "ceiling", "g", threshold=250.0,
+                           window_s=10.0)
+    over = {"g": [(95_000, 300), (100_000, 310)]}
+    blip = {"g": [(95_000, 300), (100_000, 200)]}
+    one = {"g": [(100_000, 9_999)]}
+    assert slo_mod._eval_rule(ceil, over, now)["ok"] is False
+    assert slo_mod._eval_rule(ceil, blip, now)["ok"] is True
+    # a single over-limit sample never pages a sustained ceiling
+    assert slo_mod._eval_rule(ceil, one, now)["ok"] is True
+
+    zero = slo_mod.SloRule("div", "zero", "m")
+    assert slo_mod._eval_rule(zero, {"m": [(1, 0)]}, now)["ok"] is True
+    assert slo_mod._eval_rule(zero, {"m": [(1, 2)]}, now)["ok"] is False
+    assert slo_mod._eval_rule(zero, {}, now)["ok"] is True
+
+    # recovery age: window_s=0 means instantaneous (the signal already
+    # integrates time — one over-limit sample IS a sustained outage)
+    rec = slo_mod.SloRule("rec", "ceiling", "age", threshold=5_000.0,
+                          window_s=0.0)
+    assert slo_mod._eval_rule(rec, {"age": [(now, 6_000)]},
+                              now)["ok"] is False
+    assert slo_mod._eval_rule(rec, {"age": [(now, 0)]},
+                              now)["ok"] is True
+
+    # empty series under the shipped rule table -> state ok
+    v = slo_mod.evaluate(slo_mod.default_rules(), {}, now)
+    assert v["state"] == "ok" and v["breached"] == []
+
+
+# -- armed sim: record, translate, read back -------------------------------
+
+def _armed_workload(c, horizon=13.0, capture=None):
+    db = c.client("lg")
+
+    async def main():
+        for i in range(int(horizon / 0.25)):
+            tr = db.create_transaction()
+            tr.set(b"lg/%03d" % (i % 40), b"%d" % i)
+            await tr.commit()
+            await flow.delay(0.25)
+        if capture is not None:
+            return await capture(db)
+        return True
+
+    return db, main
+
+
+def test_off_posture_adds_nothing(sim_seed):
+    """METRIC_HISTORY=0 (the default): no recorder object, a disabled
+    status stanza, ZERO rows in any longitudinal keyspace, and two
+    same-seed runs stay bit-identical — the feature's presence is
+    unobservable until armed."""
+    seed = sim_seed(1703)
+
+    def run_off():
+        c = SimCluster(seed=seed)
+        try:
+            async def capture(db):
+                async def body(tr):
+                    tr.set_option("read_system_keys")
+                    tk_rows = await tr.get_range(
+                        sk.TIMEKEEPER_PREFIX, sk.TIMEKEEPER_END)
+                    mh_rows = await tr.get_range(
+                        sk.METRIC_HISTORY_PREFIX, sk.METRIC_HISTORY_END)
+                    return tk_rows, mh_rows
+                tk_rows, mh_rows = await run_transaction(db, body)
+                status = await db.get_status()
+                digest = await database_digest(db)
+                return tk_rows, mh_rows, status, digest
+
+            _db, main = _armed_workload(c, horizon=6.0, capture=capture)
+            tk_rows, mh_rows, status, digest = c.run(main(),
+                                                     timeout_time=600)
+            assert c.cc.metric_recorder is None
+            return (tk_rows, mh_rows, status["cluster"]["slo"], digest,
+                    c.sched.tasks_run, c.net.messages_sent)
+        finally:
+            c.shutdown()
+
+    a, b = run_off(), run_off()
+    tk_rows, mh_rows, slo_doc, _digest, _steps, _msgs = a
+    assert tk_rows == [] and mh_rows == []
+    assert slo_doc == {"enabled": 0}
+    assert a == b, "off-posture same-seed runs must stay bit-identical"
+
+
+# -- retention: one janitor, three keyspaces -------------------------------
+
+
+# -- incident bundles ------------------------------------------------------
+
+
+# -- trace rolling + grouped merge -----------------------------------------
+
+

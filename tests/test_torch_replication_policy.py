@@ -1,10 +1,13 @@
-"""The reference's replication-policy algebra cases
+"""The reference's replication-policy cases
 (tests/test_replication_policy.py) on the port's
-`server.replication_policy`. Its two recruitment cases need the
-cluster controller and come with the port's cluster.
+`server.replication_policy`, its two recruitment cases on the port's
+SimCluster.
+
+Replication policy algebra + locality-aware recruitment.
 
 Ref: fdbrpc/ReplicationPolicy.h:101-168 (PolicyOne/Across/And trees over
-LocalityData).
+LocalityData), fdbserver/ClusterController recruitment applying the
+configured policies to worker placement.
 """
 
 import pytest
@@ -12,8 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from foundationdb_tpu_torch.server.replication_policy import (Locality, PolicyAnd,  # noqa: E402
-                                                              PolicyAcross,
-                                                              PolicyOne)
+                                                        PolicyAcross,
+                                                        PolicyOne)
 
 
 def _cands(spec):
@@ -77,3 +80,55 @@ def test_policy_and():
 def test_missing_attribute_is_skipped():
     p = PolicyAcross(1, "zoneid", PolicyOne())
     assert p.select([("a", Locality(processid="a"))]) is None
+
+
+def test_recruitment_places_logs_across_machines():
+    """n_logs=2 TLogs land on two distinct machines whenever the worker
+    pool spans two, across repeated recoveries (ref: tLogPolicy
+    placement in recruitEverything)."""
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    c = SimCluster(seed=31, n_logs=2, n_workers=5)
+    try:
+        async def main():
+            import foundationdb_tpu_torch.flow as fl
+            while c.cc.dbinfo.get().recovery_state != "fully_recovered":
+                await c.cc.dbinfo.on_change()
+            for _ in range(3):
+                info = c.cc.dbinfo.get()
+                machines = {lr.machine for lr in info.logs.logs}
+                assert len(machines) == 2, info.logs
+                c.kill_role("tlog")
+                await fl.delay(3.0)
+                while c.cc.dbinfo.get().recovery_state != "fully_recovered":
+                    await c.cc.dbinfo.on_change()
+            return True
+
+        assert c.run(main(), timeout_time=300)
+    finally:
+        c.shutdown()
+
+
+def test_recruitment_degrades_on_single_machine():
+    """A one-zone pool still recruits (degraded mode) instead of
+    stalling recovery."""
+    from foundationdb_tpu_torch.server.cluster import SimCluster
+
+    c = SimCluster(seed=32, n_logs=2, n_workers=4)
+    try:
+        async def main():
+            while c.cc.dbinfo.get().recovery_state != "fully_recovered":
+                await c.cc.dbinfo.on_change()
+            # collapse every registered worker onto one zone: the policy
+            # becomes unsatisfiable and selection must fall back instead
+            # of raising
+            c.cc.workers = {name: wi._replace(machine="onezone")
+                            for name, wi in c.cc.workers.items()}
+            team = c.cc.pick_workers(2, role="tlog")
+            assert len(team) == 2
+            assert len(set(map(id, team))) == 2  # still distinct workers
+            return True
+
+        assert c.run(main(), timeout_time=60)
+    finally:
+        c.shutdown()

@@ -1,10 +1,14 @@
-"""The reference's byte-sample StorageMetrics cases
-(tests/test_storage_metrics.py, the ones without a cluster) on the
-port's `server.storage`.
+"""The reference's StorageMetrics cases (tests/test_storage_metrics.py) on
+the port's `server.storage`, its two split cases on the port's
+SimCluster.
+
+Byte-sample storage metrics + bandwidth-driven shard splits.
 
 Ref: storageserver.actor.cpp:310-312 (byteSample — probabilistic size
 sampling), StorageMetrics.actor.h:302 (splitMetrics byte-balanced
-split points).
+split points), Knobs.cpp SHARD_MAX_BYTES / SHARD_MAX_BYTES_PER_KSEC
+(size- and bandwidth-triggered splits).
+DD decisions must run on sampled bytes, not row counts.
 """
 
 import pytest
@@ -12,6 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from foundationdb_tpu_torch import flow  # noqa: E402
+from foundationdb_tpu_torch.client import run_transaction  # noqa: E402
+from foundationdb_tpu_torch.server import SimCluster  # noqa: E402
 from foundationdb_tpu_torch.server.storage import StorageMetrics  # noqa: E402
 
 
@@ -152,3 +158,88 @@ def test_bandwidth_meter_decays(knobs):
     r = m.write_bytes_per_sec(10.0)
     assert 500 < r < 1500, r
     assert m.write_bytes_per_sec(60.0) < 10   # decays when idle
+
+
+def test_skewed_values_split_at_byte_balanced_key():
+    """A shard hot by BYTES (few rows, huge
+    values at one end) splits, and the boundary lands where bytes —
+    not rows — balance. 160 one-byte-value rows plus 8 rows of 400B
+    values: row-median splits near a0080; byte-median must land in the
+    big-value tail (>= b"big")."""
+    c = SimCluster(seed=1501, durable=True, n_storage=1, n_workers=5)
+    flow.SERVER_KNOBS.init("DD_SHARD_SPLIT_BYTES", 2500)
+    try:
+        db = c.client()
+
+        async def main():
+            async def seed(tr):
+                for i in range(160):
+                    tr.set(b"a%04d" % i, b"v")        # ~8 B/row
+            await run_transaction(db, seed)
+
+            async def seed_big(tr):
+                for i in range(8):
+                    tr.set(b"big%02d" % i, b"X" * 400)  # ~3.2 KB
+            await run_transaction(db, seed_big)
+
+            for _ in range(120):
+                await flow.delay(0.5)
+                info = c.cc.dbinfo.get()
+                if len(info.storages) >= 2:
+                    break
+            else:
+                raise AssertionError("byte-hot shard never split")
+            info = c.cc.dbinfo.get()
+            boundary = info.storages[1].begin
+            assert boundary >= b"big", boundary
+
+            async def check(tr):
+                rows = await tr.get_range(b"a", b"c")
+                assert len(rows) == 168, len(rows)
+            await run_transaction(db, check)
+            return True
+
+        assert c.run(main(), timeout_time=600)
+    finally:
+        flow.reset_server_knobs()
+        c.shutdown()
+
+
+def test_write_bandwidth_triggers_split():
+    """A shard small in bytes but hammered by writes splits on the
+    bandwidth ceiling (ref: SHARD_MAX_BYTES_PER_KSEC)."""
+    c = SimCluster(seed=1503, durable=True, n_storage=1, n_workers=5)
+    flow.SERVER_KNOBS.init("DD_SHARD_SPLIT_BYTES_PER_KSEC", 40_000)
+    try:
+        db = c.client()
+
+        async def main():
+            stop = [False]
+
+            async def hammer():
+                i = 0
+                while not stop[0]:
+                    async def body(tr, i=i):
+                        # overwrite a small keyset: bytes stay low,
+                        # bandwidth stays high
+                        tr.set(b"h%02d" % (i % 20), b"W" * 40)
+                    await run_transaction(db, body, max_retries=500)
+                    i += 1
+                    await flow.delay(0.02)
+
+            t = flow.spawn(hammer())
+            ok = False
+            for _ in range(240):
+                await flow.delay(0.5)
+                if len(c.cc.dbinfo.get().storages) >= 2:
+                    ok = True
+                    break
+            stop[0] = True
+            await flow.catch_errors(t)
+            assert ok, "bandwidth-hot shard never split"
+            return True
+
+        assert c.run(main(), timeout_time=600)
+    finally:
+        flow.reset_server_knobs()
+        c.shutdown()
