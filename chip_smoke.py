@@ -48,7 +48,8 @@ resolver re-bases its int32 version window mid-run.
     backend's 8; one shard on one card), on a virtual scheduler and a
     simulated network: ROLE_BATCHES ResolveRequests of the same traffic
     (16-byte keys; 8-byte keys with the same ids for the point
-    backend), 4 in flight from a proxy process. Every reply must equal
+    backend; the first ROLE_CUT_BATCHES of them on the point and the
+    sharded backend), 4 in flight from a proxy process. Every reply must equal
     the backend driven directly (verdicts and attributed ranges), the
     first ROLE_CPU_BATCHES the port's CPU role's; no failover; one
     re-base; an in-flight and a cached duplicate answer as the first
@@ -104,6 +105,20 @@ resolver re-bases its int32 version window mid-run.
     goodput per virtual and per wall second, attempts a commit,
     deferrals and repairs, resolve batches, launches a batch, the busy
     share, the host's busy time by task and the promotion's time.
+  - The server process (FDB's fdbserver under fdbmonitor, operated by
+    fdbcli): `python -m foundationdb_tpu_torch.tools.monitor` as a child
+    with the server's flags (the cluster phase's role counts, a data
+    directory, a cluster file), `tools.cli -C <cluster file> --exec
+    "configure conflict_backend=cuda"` as another, then 16 concurrent
+    clients of 50 transactions over TCP from this process through
+    `RemoteCluster` (the cluster phase's transaction shape), a SIGKILL
+    of the server and the monitor's restart. Every acknowledged write
+    must read back after the restart; the status document must show
+    the resolver on `cuda` on the card, no failover, and K1-K3 launched
+    once a resolve batch, growing again after the restart; no child may
+    build the kernels again. It prints committed txn a wall second,
+    commit latency, conflicts, launches a batch, the kernels' busy share
+    and the seconds from the kill to the first commit.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -133,11 +148,15 @@ import atexit
 import json
 import os
 import pickle
+import queue
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -192,9 +211,10 @@ WINDOW_SHAPES = (("interval", (CAPACITY,)), ("point", (POINT_CAPACITY,)),
                  ("sharded", (N_SHARDS, SHARD_CAPACITY)))
 L2_FLUSH_BYTES = 128 << 20
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
-ROLE_BATCHES = 32      # the role phase: ResolveRequests a backend
+ROLE_BATCHES = 32      # the role phase: cuda's ResolveRequests (the leg's)
+ROLE_CUT_BATCHES = 16  # cuda-point's and sharded-cuda's (cut for the time)
 ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
-ROLE_DUP_AT = 24       # batch whose successor's two copies wait on it
+ROLE_DUP_AT = 12       # batch whose successor's two copies wait on it
 ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
 COMMIT_READ_AT = 30    # the commit leg's older point reads: batch 30's
 COMMIT_SAMPLE = 4096   # version, inside the storage's MVCC window
@@ -1858,8 +1878,9 @@ def chain_probe(dev, tag) -> dict:
 # the resolver role: ResolveRequests through the sim network
 # ---------------------------------------------------------------------------
 
-ROLE_BACKENDS = (("cuda", INTERVAL_KERNELS), ("cuda-point", POINT_KERNELS),
-                 ("sharded-cuda", SHARDED_KERNELS))
+ROLE_BACKENDS = (("cuda", INTERVAL_KERNELS, ROLE_BATCHES),
+                 ("cuda-point", POINT_KERNELS, ROLE_CUT_BATCHES),
+                 ("sharded-cuda", SHARDED_KERNELS, ROLE_CUT_BATCHES))
 
 
 def role_requests(key_bytes):
@@ -2002,8 +2023,8 @@ def _verdicts(reply):
 def role_phase(tag) -> dict:
     """The resolver role on each CUDA backend at its defaults (a 32-byte
     key width, the point backend's 8, whose requests carry the same ids
-    in 8-byte keys; one shard on one card): ROLE_BATCHES requests through
-    `role_run` on the card. Every reply must equal the
+    in 8-byte keys; one shard on one card): the first ROLE_BATCHES
+    (cuda) or ROLE_CUT_BATCHES requests through `role_run` on the card. Every reply must equal the
     same backend driven directly on the card (`resolve_with_attribution`
     over the same batches at the role's oldest versions): verdicts, and
     the attributed ranges where the batch asked for them; the first
@@ -2021,9 +2042,9 @@ def role_phase(tag) -> dict:
     t_phase = time.perf_counter()
     cell_requests = role_requests(KEY_BYTES)
     counts_by = {}
-    for backend, kernels in ROLE_BACKENDS:
+    for backend, kernels, n_batches in ROLE_BACKENDS:
         requests = (role_requests(ROLE_POINT_KEY_BYTES)
-                    if backend == "cuda-point" else cell_requests)
+                    if backend == "cuda-point" else cell_requests)[:n_batches]
         cov0 = {k: coverage.hits(f"resolver.reply_cache.{k}")
                 for k in ("inflight_dup", "hit")}
         zero_counts()
@@ -2689,6 +2710,362 @@ def tester_phase(tag, cpu_runs) -> tuple:
     return total, total_batches
 
 
+SERVER_CLIENTS = 16      # the server phase: concurrent remote clients,
+SERVER_TXNS = 50         # each with this many transactions before the kill
+SERVER_AFTER_TXNS = 10   # and this many after the monitor's restart
+SERVER_LAYOUT = ("--proxies", "3", "--logs", "3", "--storage", "4",
+                 "--replicas", "2")   # FDB 6.1's role counts (cluster phase)
+SERVER_KERNELS = ("searchsorted_i32", "range_max", "resolve")
+SERVER_WAIT = 300.0      # seconds a child may take to print what is awaited
+SERVER_KNOBS = ("--knob_kernel_profile_every", "1")   # time every step
+
+
+class Child:
+    """A child process of the server phase (`python -m <args>` from the
+    checkout's root): its standard output read line by line into a
+    queue by a thread, its standard error kept in a file."""
+
+    def __init__(self, label, args, tmp):
+        self.label = label
+        self.err_path = os.path.join(tmp, f"{label}.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=ROOT, env=child_env(),
+            stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self.lines, self.seen = queue.Queue(), []
+
+        def pump():
+            for line in self.proc.stdout:
+                self.lines.put(line.rstrip("\n"))
+            self.lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    def wait_for(self, pred, what, timeout=SERVER_WAIT) -> str:
+        """The first line from here on that `pred` accepts."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise AssertionError(f"{self.label}: no {what} in {timeout} "
+                                     f"s; stderr:\n{self.stderr()}")
+            if line is None:
+                raise AssertionError(f"{self.label} exited before {what}; "
+                                     f"stderr:\n{self.stderr()}")
+            self.seen.append(line)
+            if pred(line):
+                return line
+
+    def stderr(self, tail=4000) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-tail:]
+
+    def close(self):
+        self._err.close()
+
+
+def child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def cli_child(tag, cf, script, label):
+    """`python -m foundationdb_tpu_torch.tools.cli -C <cf> --exec
+    <script>` to its end: its standard output, or AssertionError with
+    its standard error when it fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "foundationdb_tpu_torch.tools.cli", "-C", cf,
+         "--exec", script], cwd=ROOT, env=child_env(), capture_output=True,
+        text=True, timeout=SERVER_WAIT)
+    if out.returncode:
+        raise AssertionError(f"server phase: cli {label} exited "
+                             f"{out.returncode}; stderr:\n{out.stderr[-4000:]}")
+    print(f"[{tag}] server phase: cli {label}: rc 0, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out.stdout
+
+
+def server_status(tag, cf, label) -> dict:
+    return json.loads(cli_child(tag, cf, "status json", label))
+
+
+def server_resolvers(doc, label):
+    """The current epoch's resolvers in a status document, each on
+    `cuda` on the server's device, with no device fault and no
+    failover."""
+    cl = doc["cluster"]
+    res = [r for r in cl.get("resolvers", ()) if r.get("kernel")]
+    if cl["configuration"]["conflict_backend"] != "cuda" or not res \
+            or any(r["kernel"]["backend"] != "cuda"
+                   or r["kernel"]["platform"] != "gpu" for r in res):
+        raise AssertionError(f"{label}: backend "
+                             f"{cl['configuration']['conflict_backend']}, "
+                             f"resolvers {[r.get('kernel') for r in res]}")
+    for r in res:
+        fo = r["failover"]
+        if fo.get("failovers") or fo.get("device_faults") \
+                or not fo.get("on_primary", True):
+            raise AssertionError(f"{label}: {r['name']} failover {fo}")
+    return res
+
+
+def server_counts(doc, label) -> dict:
+    """Launches of K1-K3 in the server process (the status document's
+    `launches.<kernel>` counters), its resolve batches and the profiled
+    entries' calls, first calls (the library's load, timed on the host),
+    CUDA-event-timed calls and their microseconds."""
+    kern = doc["cluster"]["kernels"]
+    out = {k: kern.get(f"launches.{k}", 0) for k in SERVER_KERNELS}
+    out["batches"] = sum(r["counters"].get("batches_resolved", 0)
+                         for r in server_resolvers(doc, label))
+    for stat in ("calls", "compiles", "timed_calls", "execute_us"):
+        out[stat] = sum(v for k, v in kern.items()
+                        if k.startswith("resolve_packed[")
+                        and k.endswith(f".{stat}"))
+    return out
+
+
+def child_pids(ppid, needle) -> list:
+    """Pids of `ppid`'s children whose command line holds `needle`."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == ppid and needle in cmd:
+            out.append(int(d))
+    return out
+
+
+def server_phase(tag) -> tuple:
+    """A separate server process on the card (FDB's fdbserver under
+    fdbmonitor, operated by fdbcli): `python -m foundationdb_tpu_torch.
+    tools.monitor` started as a child with the server's flags (a free
+    port, SEED, a data directory, a cluster file, SERVER_LAYOUT); the
+    kernels were built by this process before any child starts, and no
+    child builds them again. Then, each through its own child process
+    or over TCP:
+      - `fdbcli -C <cluster file> --exec "configure
+        conflict_backend=cuda"`, and `status json` until the new epoch
+        is fully recovered with its resolver on `cuda` on the card;
+      - SERVER_CLIENTS concurrent clients of SERVER_TXNS transactions
+        from this process through `RemoteCluster` (the cluster phase's
+        transaction shape: a point read and a point write of 16-byte
+        keys over CLUSTER_IDS uniform ids, through `run_transaction`'s
+        retry loop; `testing.remote_traffic`), every acknowledged write
+        kept in a model dict;
+      - `status json` again: no failover, and K1-K3 launched once a
+        resolve batch over the traffic (the server's `launches.*`
+        counters);
+      - a SIGKILL of the server (not the monitor), the monitor's restart
+        on the same data directory, which prints LISTENING only once
+        the epoch recruited with the stored conf row has its resolver
+        on the card; the first commit after it; every acknowledged
+        write read back; SERVER_CLIENTS x SERVER_AFTER_TXNS more, read
+        back too, with the restarted server's counters growing;
+      - SIGINT to the monitor, every child's exit checked.
+    The server times every resolve step with CUDA events (SERVER_KNOBS).
+    Prints committed txn a wall second, commit latency, conflicts,
+    launches a batch, the kernels' busy share of the traffic's wall time
+    and the seconds from the kill to LISTENING and to the first commit;
+    returns (the server's launch counts over the first traffic, its
+    resolve batches)."""
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.client.cluster_file import resolve_connect
+    from foundationdb_tpu_torch.client.remote import RemoteCluster
+    from foundationdb_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    lib_path = _build.build_info["path"]
+    built = (sorted(os.listdir(_build.BUILD_ROOT)),
+             os.stat(lib_path).st_mtime_ns)
+    tmp = tempfile.mkdtemp(prefix="fdb-server-")
+    cf = os.path.join(tmp, "fdb.cluster")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mon = Child("monitor", ["foundationdb_tpu_torch.tools.monitor",
+                            "--port", str(port), "--seed", str(SEED),
+                            "--data-dir", os.path.join(tmp, "data"),
+                            "--cluster-file", cf, *SERVER_LAYOUT,
+                            *SERVER_KNOBS], tmp)
+    stopped = False
+    try:
+        started = mon.wait_for(lambda l: l.startswith("MONITOR starting"),
+                               "its server's start")
+        if " -m foundationdb_tpu_torch.tools.server " not in started:
+            raise AssertionError(f"server phase: the monitor runs {started}")
+        mon.wait_for(lambda l: "LISTENING" in l, "LISTENING")
+        t_boot = time.perf_counter() - t_phase
+        out = cli_child(tag, cf, "configure conflict_backend=cuda",
+                        "configure")
+        if "Configuration changed" not in out:
+            raise AssertionError(f"server phase: configure said {out!r}")
+        for poll in range(60):
+            doc = server_status(tag, cf, f"status {poll}")
+            cl = doc["cluster"]
+            if cl["epoch"] > 1 and cl["recovery_state"] == "fully_recovered" \
+                    and cl["configuration"]["conflict_backend"] == "cuda" \
+                    and any(r.get("kernel") for r in cl["resolvers"]):
+                break
+            time.sleep(1.0)
+        else:
+            raise AssertionError("server phase: the cuda epoch never "
+                                 "recovered")
+        res = server_resolvers(doc, "server phase after configure")
+        before = server_counts(doc, "server phase after configure")
+        print(f"[{tag}] server phase: monitor and server up in {t_boot:.1f} "
+              f"s; epoch {cl['epoch']} fully recovered on conflict_backend "
+              f"cuda, {len(res)} resolver on "
+              f"{res[0]['kernel'].get('device', res[0]['kernel']['platform'])}"
+              f" after {poll + 1} status polls", flush=True)
+
+        host, port = resolve_connect(None, cf)
+        rc = RemoteCluster(host or "127.0.0.1", port)
+        try:
+            traffic = tg.remote_traffic(rc, SEED, SERVER_CLIENTS, SERVER_TXNS,
+                                        CLUSTER_IDS)
+        finally:
+            rc.close()
+        n_all = SERVER_CLIENTS * SERVER_TXNS
+        if traffic["committed"] != n_all:
+            raise AssertionError(f"server phase: {traffic['committed']} of "
+                                 f"{n_all} transactions acknowledged")
+        doc = server_status(tag, cf, "status after the traffic")
+        after = server_counts(doc, "server phase after the traffic")
+        counts = {k: after[k] - before[k] for k in after}
+        batches = counts["batches"]
+        off = [k for k in SERVER_KERNELS if counts[k] != batches]
+        if batches <= 0 or off:
+            raise AssertionError(f"server phase: {batches} resolve batches, "
+                                 f"launches {counts}")
+        if counts["timed_calls"] + counts["compiles"] != counts["calls"]:
+            raise AssertionError(f"server phase: {counts['timed_calls']} of "
+                                 f"{counts['calls']} steps timed")
+        wall = traffic["wall_s"]
+        lat = np.asarray(traffic["latency"]) * 1e3
+        busy_ms = counts["execute_us"] / 1e3
+        print(f"[{tag}] server phase: {traffic['committed']} of {n_all} "
+              f"transactions acknowledged over TCP ({SERVER_CLIENTS} "
+              f"clients), {traffic['conflicts']} conflicted attempts "
+              f"retried; {traffic['committed'] / wall:.1f} committed txn/s "
+              f"over the wall ({wall:.3f} s); commit latency p50 / p99 "
+              f"{np.percentile(lat, 50):.3f} / {np.percentile(lat, 99):.3f} "
+              f"wall ms", flush=True)
+        print(f"[{tag}] server phase: {batches} resolve batches in the "
+              f"server, {traffic['committed'] / batches:.3f} acknowledged "
+              "transactions a batch; launches a batch "
+              + ", ".join(f"{k} {counts[k] / batches:.3f}"
+                          for k in SERVER_KERNELS)
+              + "; the kernels' busy share of the traffic's wall "
+              f"{100 * busy_ms / (wall * 1e3):.3f}% ({busy_ms:.3f} ms over "
+              f"{counts['timed_calls']} steps, each timed with CUDA events; "
+              f"{counts['compiles']} first call, the library's load, "
+              "not counted); "
+              "0 failovers, 0 device faults", flush=True)
+
+        pids = child_pids(mon.proc.pid, "foundationdb_tpu_torch.tools.server")
+        if len(pids) != 1:
+            raise AssertionError(f"server phase: server pids {pids}")
+        t_kill = time.perf_counter()
+        os.kill(pids[0], signal.SIGKILL)
+        exited = mon.wait_for(lambda l: "child exited" in l, "the kill")
+        mon.wait_for(lambda l: "LISTENING" in l, "LISTENING after the kill")
+        t_listen = time.perf_counter() - t_kill
+        rc = RemoteCluster(host or "127.0.0.1", port)
+        try:
+            # a restarted server opens its gateway only once the epoch
+            # recruited with the stored conf row (cuda) is fully
+            # recovered: no client is served on its flags' backend
+            doc = rc.call(rc.db.get_status(), timeout=SERVER_WAIT)
+            cl = doc["cluster"]
+            if cl["recovery_state"] != "fully_recovered":
+                raise AssertionError("server phase: LISTENING after the "
+                                     f"kill at {cl['recovery_state']}")
+            again = server_counts(doc, "server phase after the restart")
+
+            async def mark(tr):
+                tr.set(b"\xfe/server-phase/restarted", b"1")
+            rc.call(run_transaction(rc.db, mark, max_retries=500),
+                    timeout=SERVER_WAIT)
+            t_first = time.perf_counter() - t_kill
+            n_read = tg.remote_read_back(rc, traffic["model"])
+            more = tg.remote_traffic(rc, SEED + 1, SERVER_CLIENTS,
+                                     SERVER_AFTER_TXNS, CLUSTER_IDS,
+                                     tag=b"r.")
+            model = {**traffic["model"], **more["model"]}
+            n_read2 = tg.remote_read_back(rc, model)
+            doc = rc.call(rc.db.get_status(), timeout=SERVER_WAIT)
+            grown = server_counts(doc, "server phase after the second round")
+        finally:
+            rc.close()
+        if more["committed"] != SERVER_CLIENTS * SERVER_AFTER_TXNS:
+            raise AssertionError(f"server phase: {more['committed']} "
+                                 "acknowledged after the restart")
+        idle = [k for k in SERVER_KERNELS if grown[k] <= again[k]]
+        if idle:
+            raise AssertionError(f"server phase: the restarted server never "
+                                 f"launched {idle}: {again} -> {grown}")
+        print(f"[{tag}] server phase: SIGKILL of the server ({exited}); "
+              f"LISTENING again {t_listen:.3f} s after the kill with epoch "
+              f"{cl['epoch']} fully recovered on cuda, the first commit "
+              f"(on the card) {t_first:.3f} s after it; {n_read} "
+              "acknowledged "
+              f"writes read back equal; {more['committed']} more "
+              f"committed, {n_read2} read back; the restarted server's "
+              "launches " + ", ".join(f"{k} {again[k]} -> {grown[k]}"
+                                      for k in SERVER_KERNELS)
+              + f" over {grown['batches'] - again['batches']} resolve "
+              "batches, its resolver on the card, 0 failovers", flush=True)
+
+        mon.proc.send_signal(signal.SIGINT)
+        rc_mon = mon.proc.wait(timeout=120)
+        stopped = True
+        mon.wait_for(lambda l: "MONITOR stopped" in l, "its stop", 30)
+        if rc_mon != 0:
+            raise AssertionError(f"server phase: the monitor exited {rc_mon}; "
+                                 f"stderr:\n{mon.stderr()}")
+    except BaseException:
+        print(f"[{tag}] server phase: monitor output:\n"
+              + "\n".join(mon.seen[-40:]) + f"\nmonitor stderr:\n"
+              + mon.stderr(), flush=True)
+        raise
+    finally:
+        if not stopped and mon.proc.poll() is None:
+            mon.proc.send_signal(signal.SIGINT)
+            try:
+                mon.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                mon.proc.kill()
+                mon.proc.wait(timeout=30)
+        for pid in child_pids(mon.proc.pid, "foundationdb_tpu_torch"):
+            os.kill(pid, signal.SIGKILL)
+        mon.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    now = (sorted(os.listdir(_build.BUILD_ROOT)),
+           os.stat(lib_path).st_mtime_ns)
+    if now != built:
+        raise AssertionError(f"server phase: a child built the kernels "
+                             f"again: {built} -> {now}")
+    print(f"[{tag}] server phase: the children loaded this process's "
+          f"kernel build ({os.path.relpath(lib_path, ROOT)}), none started "
+          f"nvcc; the monitor exited 0; {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return {k: counts.get(k, 0) for k in launch_counts()}, batches
+
+
 def probe_main(tag, dev) -> int:
     """`--probe`: only K4's table and the chains' traced window, for a
     checkout whose own smoke script predates them; one JSON line."""
@@ -3095,6 +3472,7 @@ def main() -> int:
     commit_counts = commit_leg_phase(tag)
     cluster_counts, cluster_batches = cluster_phase(tag)
     tester_counts, tester_batches = tester_phase(tag, tester_cpu.result)
+    server_counts_, server_batches = server_phase(tag)
 
     failover_phase(tag)
 
@@ -3195,6 +3573,7 @@ def main() -> int:
         by_path["commit leg"] = commit_counts[name]
         by_path["cluster"] = cluster_counts[name]
         by_path["tester"] = tester_counts[name]
+        by_path["server"] = server_counts_[name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -3235,12 +3614,13 @@ def main() -> int:
               f"{by_path['point'] / n_batches:.3f} point, "
               f"{by_path['sharded'] / n_batches:.3f} sharded, "
               f"{by_path['chain'] / chain_steps:.3f} chain step, "
-              + ", ".join(f"{by_path[f'role {b}'] / ROLE_BATCHES:.3f} role "
-                          f"{b}" for b in role_counts)
+              + ", ".join(f"{by_path[f'role {b}'] / n:.3f} role {b}"
+                          for b, _k, n in ROLE_BACKENDS)
               + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg, "
               f"{by_path['cluster'] / cluster_batches:.3f} "
               f"cluster batch, {by_path['tester'] / tester_batches:.3f} "
-              "tester batch", flush=True)
+              f"tester batch, {by_path['server'] / server_batches:.3f} "
+              "server batch", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

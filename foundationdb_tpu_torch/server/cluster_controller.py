@@ -33,7 +33,10 @@ from .worker import RegisterWorkerRequest
 def _global_kernel_counters() -> dict:
     """Process-wide kernel launch profile for status. Guarded through
     sys.modules: a python-backend cluster never imported the ops layer,
-    and status must not be the thing that drags torch's kernels in."""
+    and status must not be the thing that drags torch's kernels in.
+    Beside the profiled entries' counters, `launches.<kernel>` counts
+    each CUDA kernel's launches in this process (`ops/*.launches`;
+    only the ones launched, so the plain versions add none)."""
     import sys
     out: dict = {}
     for mod in ("foundationdb_tpu_torch.ops.conflict_kernel",
@@ -41,6 +44,11 @@ def _global_kernel_counters() -> dict:
         m = sys.modules.get(mod)
         if m is not None:
             out.update(m.g_kernel_counters.snapshot())
+    for mod in ("keys", "rmq", "conflict_kernel", "point_kernel"):
+        m = sys.modules.get(f"foundationdb_tpu_torch.ops.{mod}")
+        if m is not None:
+            out.update((f"launches.{k}", n) for k, n in m.launches.items()
+                       if n)
     return out
 
 

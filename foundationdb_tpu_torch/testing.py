@@ -1206,3 +1206,142 @@ def region_run(P, backend: str, seed: int, *, cluster_kwargs=None,
     finally:
         c.shutdown()
     return out
+
+
+# -- out of process: a gatewayed cluster and traffic over TCP ------------
+
+class GatewayedCluster:
+    """A wall-clock SimCluster of the port whose client surface a
+    TcpGateway serves, on a background thread: `with
+    GatewayedCluster(seed=..., **cluster_kwargs) as gc:` then dial
+    127.0.0.1:gc.port (`client.remote.RemoteCluster`). An error of the
+    cluster's thread is raised at `__enter__` when it comes before the
+    port, else at `__exit__`."""
+
+    def __init__(self, **kw):
+        import queue
+        import threading
+        self.kw = kw
+        self.q = queue.Queue()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._main, daemon=True)
+        self.port = None
+
+    def __enter__(self):
+        self.thread.start()
+        item = self.q.get(timeout=120)
+        if isinstance(item, BaseException):
+            raise item
+        self.port = item
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=120)
+        while not self.q.empty():
+            item = self.q.get_nowait()
+            if isinstance(item, BaseException) and exc == (None, None, None):
+                raise item
+
+    def _main(self):
+        from . import flow
+        from .rpc.gateway import TcpGateway
+        from .server.cluster import SimCluster
+
+        gw = None
+        c = None
+        try:
+            c = SimCluster(virtual=False, **self.kw)
+            gw = TcpGateway(c.client("gateway-host"))
+
+            async def main():
+                gw.start()
+                self.q.put(gw.port)
+                while not self.stop.is_set():
+                    await flow.delay(0.02)
+
+            c.run(main())
+        except BaseException as e:  # noqa: BLE001 — surface to the test
+            self.q.put(e)
+        finally:
+            if gw is not None:
+                gw.close()
+            if c is not None:
+                c.shutdown()
+
+
+def remote_traffic(rc, seed: int, n_clients: int, n_txns: int, n_ids: int,
+                   *, key_bytes: int = CLUSTER_KEY_BYTES,
+                   tag: bytes = b"") -> dict:
+    """`cluster_ops`' transactions (point read-writes, no `mixed`) over
+    a `client.remote.RemoteCluster` `rc`: `n_clients` concurrent clients
+    on its loop, each running its transactions one after another
+    through `run_transaction`'s retry loop. An attempt reads its read
+    key and writes its write key to the last 8 bytes of what it read,
+    then b"|" + tag + b"client.txn.attempt".
+
+    Returns {"outcomes": (client, txn, op, versionstamp, written) of
+    every acknowledged transaction, "model": `cluster_model` of them
+    (every acknowledged write, in commit order), "committed",
+    "conflicts" (attempts that did not commit), "latency" (wall s from
+    the successful attempt's commit call to its acknowledgement, a
+    transaction), "wall_s"}."""
+    from .client import run_transaction
+    ops = cluster_ops(seed, n_clients, n_txns, n_ids, key_bytes, False)
+    written, latency = [], []
+    attempts = [0]
+
+    async def client(ci):
+        for j, (_kind, a, b) in enumerate(ops[ci]):
+            tr = rc.db.create_transaction()
+            last = {}
+
+            async def body(tr, ci=ci, j=j, a=a, b=b, last=last):
+                n = last["attempt"] = last.get("attempt", -1) + 1
+                attempts[0] += 1
+                cur = await tr.get(a)
+                last["value"] = ((cur or b"")[-8:]
+                                 + b"|%s%d.%d.%d" % (tag, ci, j, n))
+                tr.set(b, last["value"])
+                last["t0"] = time.perf_counter()
+
+            await run_transaction(rc.db, body, max_retries=CLUSTER_RETRIES,
+                                  tr=tr)
+            latency.append(time.perf_counter() - last["t0"])
+            written.append((ci, j, ("rmw", a, b), tr.get_versionstamp(),
+                            last["value"]))
+
+    async def main():
+        from . import flow
+        await flow.wait_for_all([flow.spawn(client(i), name=f"client{i}")
+                                 for i in range(n_clients)])
+
+    t0 = time.perf_counter()
+    rc.call(main(), timeout=3600)
+    wall = time.perf_counter() - t0
+    return {"outcomes": written, "model": cluster_model(written),
+            "committed": len(written), "conflicts": attempts[0] - len(written),
+            "latency": latency, "wall_s": wall}
+
+
+def remote_read_back(rc, model: dict) -> int:
+    """Read every key of `model` back over `rc` (a RemoteCluster),
+    CLUSTER_PAGE_ROWS keys a transaction; AssertionError at the first
+    key whose value differs. Returns the keys read."""
+    from . import flow
+    from .client import run_transaction
+    keys = sorted(model)
+    for i in range(0, len(keys), CLUSTER_PAGE_ROWS):
+        chunk = keys[i:i + CLUSTER_PAGE_ROWS]
+
+        async def body(tr, chunk=chunk):
+            return await flow.wait_for_all([flow.spawn(tr.get(k))
+                                            for k in chunk])
+
+        got = rc.call(run_transaction(rc.db, body, max_retries=500),
+                      timeout=600)
+        for k, v in zip(chunk, got):
+            if v != model[k]:
+                raise AssertionError(f"read back: {k!r} is {v!r}, the "
+                                     f"acknowledged write {model[k]!r}")
+    return len(keys)

@@ -1,5 +1,6 @@
 """The reference's cases of tests/test_admission_control.py on the port's
-SimCluster, without the CLI and exporter cases (they need the tools).
+SimCluster, the CLI's throttle case among them, without the exporter
+case (it needs `tools/exporter.py`, which the port does not have yet).
 
 Enforced admission control: GRV token
 buckets, strict priority ordering, bounded queues with retryable
@@ -29,6 +30,7 @@ from foundationdb_tpu_torch.server.types import (GetReadVersionReply,  # noqa: E
                                            PRIORITY_BATCH,
                                            PRIORITY_DEFAULT,
                                            PRIORITY_IMMEDIATE)
+from foundationdb_tpu_torch.tools.cli import Cli  # noqa: E402
 
 
 def _entry(count=1, prio=PRIORITY_DEFAULT, t0=0.0, tags=()):
@@ -705,3 +707,50 @@ def test_open_loop_storm_reports_attainment():
 
 # -- exporter families -------------------------------------------------
 
+
+def test_manual_throttle_roundtrip_through_cli():
+    c = SimCluster(seed=4040, durable=True)
+    try:
+        flow.SERVER_KNOBS.set("tag_throttling", 1)
+        flow.SERVER_KNOBS.set("tag_throttle_poll_interval", 0.1)
+        cli = Cli.for_cluster(c)
+        out = cli.execute("throttle on webtag 5 default 60")
+        assert "Throttle set" in out, out
+        lst = cli.execute("throttle list")
+        assert "webtag" in lst and "tps=5" in lst and "manual" in lst, lst
+
+        db = c.client("mt")
+
+        async def wait_installed():
+            for _ in range(60):
+                await flow.delay(0.2)
+                st = await db.get_status()
+                rows = (st["cluster"]["admission_control"]
+                        ["throttled_tags"])
+                if any(r["tag"] == b"webtag".hex() and not r["auto"]
+                       for r in rows):
+                    return st
+            raise AssertionError("proxy never installed the manual row")
+
+        st = c.run(wait_installed(), timeout_time=120)
+        row = [r for r in st["cluster"]["admission_control"]
+               ["throttled_tags"] if r["tag"] == b"webtag".hex()][0]
+        assert row["tps"] == 5.0 and row["priority"] == "default", row
+
+        assert "cleared" in cli.execute("throttle off webtag")
+        assert "webtag" not in cli.execute("throttle list")
+
+        async def wait_gone():
+            for _ in range(60):
+                await flow.delay(0.2)
+                st = await db.get_status()
+                rows = (st["cluster"]["admission_control"]
+                        ["throttled_tags"])
+                if not rows:
+                    return True
+            raise AssertionError("proxy never dropped the cleared row")
+
+        assert c.run(wait_gone(), timeout_time=120)
+    finally:
+        _reset()
+        c.shutdown()

@@ -1,5 +1,6 @@
 """The reference's chaos cases (tests/test_chaos_storms.py) on the port's
-SimCluster, without its two exporter cases (they need the tools), and
+SimCluster, without its two exporter cases (they need `tools/exporter.py`, which
+the port does not have yet), and
 the port's chaos stations and format-aware corruption helpers
 (`server.chaos`) without a cluster.
 
@@ -29,7 +30,7 @@ What is pinned here, in order:
   any red sim test replayable via `--seed`.
 - **The shared chaos schema**: network/disk/kill injections AND the
   device-fault seams roll into one `status.cluster.chaos` document
-  (the reference's exporter family needs the tools).
+  (the reference's exporter family needs `tools/exporter.py`).
 """
 
 import pytest

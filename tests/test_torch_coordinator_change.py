@@ -1,6 +1,6 @@
 """The reference's coordinator-change cases
-(tests/test_coordinator_change.py) on the port's SimCluster, without
-its CLI case (`tools.cli` is not ported yet). Coordinator change:
+(tests/test_coordinator_change.py) on the port's SimCluster and CLI.
+Coordinator change:
 MovableCoordinatedState + the `coordinators` management command.
 
 Ref: fdbserver/CoordinatedState.actor.cpp:220 (MovableCoordinatedState),
@@ -203,5 +203,48 @@ def test_election_follows_forwarded_quorum():
             return True
 
         assert c.run(main(), timeout_time=120)
+    finally:
+        c.shutdown()
+
+
+def test_cli_does_not_reap_after_committed_timeout():
+    """Advisor r4: a change_coordinators timeout can fire AFTER the
+    move committed (tombstone in the old quorum). The CLI's failure
+    cleanup must detect that and leave the new quorum alive — reaping
+    it would brick the coordinated state (old set forwards to a dead
+    set)."""
+    from foundationdb_tpu_torch.tools.cli import Cli
+    c = SimCluster(seed=611, n_coordinators=3)
+    try:
+        cli = Cli.for_cluster(c)
+        new = []
+
+        async def setup():
+            new.extend(c.add_coordinators(3, tag="t"))
+            return True
+
+        assert c.run(setup(), timeout_time=120)
+        # before anything lands, a reap is safe (the guard drives the
+        # sim loop itself — call it between runs, as the CLI does)
+        assert not cli._move_may_have_landed(new)
+
+        async def tombstone():
+            # simulate the committed-but-timed-out race: the mover got
+            # as far as the tombstone write into the old quorum
+            proc = c.net.new_process("mv", machine="mv")
+            old_refs = [c._coord_refs(x) for x in c.coordinators[:3]]
+            old_cs = CoordinatedState([(x[0], x[1]) for x in old_refs],
+                                      proc)
+            for _ in range(20):   # the live CC races us on the register
+                try:
+                    cur = await old_cs.read()
+                    await old_cs.set_exclusive(MovedValue(tuple(new), cur))
+                    break
+                except flow.FdbError:
+                    await flow.delay(0.1)
+            return True
+
+        assert c.run(tombstone(), timeout_time=120)
+        assert cli._move_may_have_landed(new)
     finally:
         c.shutdown()

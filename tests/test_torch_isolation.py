@@ -9,7 +9,13 @@ running on the CPU. A device fault that outlasts the failover
 wrapper's retries fails the cluster's run instead of being absorbed by
 a recovery. A remote region carries its cluster's device and fatal
 hook: at device="cpu" it promotes without asking for a card, and a
-device fault in its promoted resolver fails the run."""
+device fault in its promoted resolver fails the run. The server process
+(`tools.server`) switched to `cuda` on a host without a card exits
+nonzero naming NoCudaDeviceError, its monitor restarts it into the same
+failure, and `serve` lets a device fault past the retries end it; with
+`--device cpu` it commits. The monitor spawns the port's server, and
+the port's server, monitor and CLI children serve, restart and answer
+with a `foundationdb_tpu` first on their path whose import raises."""
 
 import ast
 import os
@@ -62,7 +68,17 @@ def test_port_sources_import_no_jax():
                                   "process_metrics", "sim_validation",
                                   "worker", "cluster_controller",
                                   "cluster")),
-                      ("client", ("profiling", "transaction"))):
+                      ("client", ("profiling", "transaction",
+                                  "cluster_file", "remote")),
+                      ("rpc", ("tcp", "gateway")),
+                      ("layers", ("__init__", "tuple_layer", "subspace",
+                                  "directory", "taskbucket", "backup",
+                                  "backup_agent", "backup_container",
+                                  "backup_driver", "clientlog", "metrics",
+                                  "pubsub", "queue")),
+                      ("tools", ("__init__", "_tlsargs", "networktest",
+                                 "server", "monitor", "profiler",
+                                 "backup_tool", "cli"))):
         for mod in mods:
             assert os.path.join(PKG, sub, f"{mod}.py") in sources
     assert os.path.join(PKG, "parallel", "sharded_resolver.py") in sources
@@ -101,6 +117,19 @@ def test_port_import_loads_no_jax():
             "import foundationdb_tpu_torch.server.cluster\n"
             "import foundationdb_tpu_torch.client\n"
             "from foundationdb_tpu_torch.server import SimCluster\n"
+            "import foundationdb_tpu_torch.rpc.gateway\n"
+            "import foundationdb_tpu_torch.client.remote\n"
+            "import foundationdb_tpu_torch.layers.backup_driver\n"
+            "import foundationdb_tpu_torch.layers.clientlog\n"
+            "import foundationdb_tpu_torch.layers.metrics\n"
+            "import foundationdb_tpu_torch.layers.pubsub\n"
+            "import foundationdb_tpu_torch.layers.queue\n"
+            "import foundationdb_tpu_torch.tools.server\n"
+            "import foundationdb_tpu_torch.tools.monitor\n"
+            "import foundationdb_tpu_torch.tools.cli\n"
+            "import foundationdb_tpu_torch.tools.backup_tool\n"
+            "import foundationdb_tpu_torch.tools.profiler\n"
+            "import foundationdb_tpu_torch.tools.networktest\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -283,3 +312,306 @@ def test_device_fault_in_promoted_resolver_fails_run():
     assert at_blackout, "the fault must come after the blackout"
     assert time.perf_counter() - t0 < 60.0
     assert int(P.flow.SERVER_KNOBS.device_fault_retries) >= 1
+
+
+# -- the server process, its monitor and the CLI --------------------------
+
+def _child_env(path_first=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT if path_first is None else \
+        path_first + os.pathsep + ROOT
+    return env
+
+
+def _cli(args, cwd=ROOT, env=None, timeout=120):
+    return subprocess.run(
+        [sys.executable, "-m", "foundationdb_tpu_torch.tools.cli", *args],
+        cwd=cwd, env=env or _child_env(), capture_output=True, text=True,
+        timeout=timeout)
+
+
+def _until(proc, pred, what, timeout=120.0):
+    """Read `proc`'s stdout lines until `pred(line)`; returns the lines."""
+    import queue
+    import threading
+    lines = getattr(proc, "_lines", None)
+    if lines is None:
+        lines = proc._lines = queue.Queue()
+
+        def pump():
+            for line in proc.stdout:
+                lines.put(line)
+            lines.put(None)
+        threading.Thread(target=pump, daemon=True).start()
+    seen = []
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+        except queue.Empty:
+            raise AssertionError(f"no {what} in {timeout} s: {seen}")
+        if line is None:
+            raise AssertionError(f"exited before {what}: {seen}")
+        seen.append(line)
+        if pred(line):
+            return seen
+
+
+def _stop(proc):
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def test_server_switched_to_cuda_without_card_exits(tmp_path):
+    """A port server at the default device on a host without a card
+    serves on `python`; `configure conflict_backend=cuda` through the
+    CLI makes the next recovery ask for the card, and the server exits
+    nonzero with NoCudaDeviceError on its stderr. Its monitor restarts
+    it on the same data directory into the same failure, never on the
+    CPU: the restarted server reads the stored conf row back before it
+    opens its gateway, so it fails without printing LISTENING. A child
+    that hangs instead has its threads' stacks dumped (faulthandler)
+    into the stderr the failure prints."""
+    import signal
+    err = open(tmp_path / "monitor.err", "w")
+    cf = str(tmp_path / "fdb.cluster")
+    env = _child_env()
+    env["PYTHONFAULTHANDLER"] = "1"
+    mon = subprocess.Popen(
+        [sys.executable, "-m", "foundationdb_tpu_torch.tools.monitor",
+         "--port", "0", "--seed", "31", "--data-dir", str(tmp_path / "d"),
+         "--cluster-file", cf],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        _until(mon, lambda l: "LISTENING" in l, "LISTENING")
+        out = _cli(["-C", cf, "--exec", "set k v; configure "
+                    "conflict_backend=cuda"])
+        assert "Committed" in out.stdout, (out.stdout, out.stderr)
+        for n in range(2):   # the switch, then the restart into it
+            try:
+                seen = _until(mon, lambda l: "child exited rc=" in l
+                              and "rc=0" not in l, "a failed child")
+            except AssertionError as e:
+                for pid in _server_pids(mon.pid):
+                    os.kill(pid, signal.SIGABRT)
+                time.sleep(2.0)
+                err.flush()
+                raise AssertionError(
+                    f"{e}; child {n}, monitor stderr:\n"
+                    + (tmp_path / "monitor.err").read_text()[-6000:])
+            if n == 1:
+                assert not any("LISTENING" in l for l in seen), seen
+    finally:
+        _stop(mon)
+        err.close()
+    text = (tmp_path / "monitor.err").read_text()
+    assert text.count("NoCudaDeviceError") >= 2, text[-2000:]
+
+
+def _server_pids(ppid):
+    """Pids of `ppid`'s children that run the port's server."""
+    out = subprocess.run(["pgrep", "-f", "-P", str(ppid),
+                          "foundationdb_tpu_torch.tools.server"],
+                         capture_output=True, text=True).stdout
+    return [int(p) for p in out.split()]
+
+
+def test_serve_lets_device_fault_end_it():
+    """`serve` catches only KeyboardInterrupt: with the resolver on
+    `cuda` at device="cpu" and every device seam faulting, the failover
+    wrapper's retries run out and DeviceFaultError ends `serve`."""
+    import queue
+    import threading
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.client.remote import RemoteCluster
+    from foundationdb_tpu_torch.ops.fault_injection import DeviceFaultError
+    from foundationdb_tpu_torch.tools.server import serve
+    ports, ended = queue.Queue(), queue.Queue()
+
+    def host():
+        try:
+            serve(port=0, seed=33, device="cpu", backup_agent=False,
+                  announce=lambda m, flush=True: ports.put(int(m.split()[1])))
+            ended.put(None)
+        except BaseException as e:  # noqa: BLE001 — what ended serve
+            ended.put(e)
+
+    t = threading.Thread(target=host, daemon=True)
+    t.start()
+    try:
+        port = ports.get(timeout=120)
+        rc = RemoteCluster("127.0.0.1", port)
+        try:
+            rc.call(rc.db.configure(conflict_backend="cuda"), timeout=120)
+            flow.SERVER_KNOBS.set("device_fault_injection", 1.0)
+
+            async def body(tr):
+                tr.set(b"k", b"v")
+            from foundationdb_tpu_torch.client import run_transaction
+            for _ in range(100):    # commits until serve has ended
+                if not t.is_alive():
+                    break
+                try:
+                    rc.call(run_transaction(rc.db, body, max_retries=5),
+                            timeout=2)
+                except flow.FdbError:
+                    pass
+        finally:
+            rc.close()
+        e = ended.get(timeout=120)
+        assert isinstance(e, DeviceFaultError), repr(e)
+    finally:
+        flow.reset_server_knobs(randomize=False)
+        t.join(timeout=60)
+
+
+def test_server_on_cpu_device_commits_on_cuda(tmp_path):
+    """The same switch with `--device cpu`: the resolver is recruited
+    on the plain versions, the status shows `cuda` on the CPU, and the
+    server goes on committing; `--knob_kernel_profile_every 1` times
+    every resolve step after the first. Killed and restarted on its
+    data directory, the server prints LISTENING only once the epoch
+    recruited with the stored `cuda` row is fully recovered, and the
+    write is read back."""
+    import signal
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.client.remote import RemoteCluster
+    args = [sys.executable, "-m", "foundationdb_tpu_torch.tools.server",
+            "--port", "0", "--seed", "32", "--device", "cpu",
+            "--data-dir", str(tmp_path / "d"),
+            "--knob_kernel_profile_every", "1"]
+
+    def start():
+        srv = subprocess.Popen(args, cwd=ROOT, env=_child_env(),
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+        port = int(_until(srv, lambda l: l.startswith("LISTENING"),
+                          "LISTENING")[-1].split()[1])
+        return srv, RemoteCluster("127.0.0.1", port)
+
+    def on_cuda(st):
+        kern = [r["kernel"] for r in st["resolvers"] if r.get("kernel")]
+        return st["recovery_state"] == "fully_recovered" \
+            and st["configuration"]["conflict_backend"] == "cuda" \
+            and [k["platform"] for k in kern] == ["cpu"]
+
+    async def read(tr):
+        return await tr.get(b"after")
+
+    srv, rc = start()
+    try:
+        rc.call(rc.db.configure(conflict_backend="cuda"), timeout=120)
+
+        async def body(tr):
+            tr.set(b"after", b"switch")
+        for _ in range(60):
+            rc.call(run_transaction(rc.db, body), timeout=60)
+            st = rc.call(rc.db.get_status(), timeout=60)["cluster"]
+            if on_cuda(st):
+                break
+            time.sleep(0.2)
+        assert on_cuda(st), st["resolvers"]
+        for _ in range(3):
+            rc.call(run_transaction(rc.db, body), timeout=60)
+        assert rc.call(run_transaction(rc.db, read)) == b"switch"
+        kern = rc.call(rc.db.get_status(), timeout=60)["cluster"]["kernels"]
+        stat = {s: sum(v for k, v in kern.items()
+                       if k.startswith("resolve_packed[")
+                       and k.endswith(f".{s}"))
+                for s in ("calls", "timed_calls", "compiles")}
+        assert stat["calls"] > 1, kern
+        assert stat["timed_calls"] + stat["compiles"] == stat["calls"], stat
+        rc.close()
+        assert srv.poll() is None
+        os.kill(srv.pid, signal.SIGKILL)
+        srv.wait(timeout=30)
+
+        srv, rc = start()
+        st = rc.call(rc.db.get_status(), timeout=60)["cluster"]
+        assert on_cuda(st), (st["recovery_state"], st["configuration"],
+                             st["resolvers"])
+        assert rc.call(run_transaction(rc.db, read)) == b"switch"
+    finally:
+        rc.close()
+        srv.terminate()
+        srv.wait(timeout=30)
+
+
+def test_server_refuses_an_unknown_knob(capsys):
+    """`--knob_<name>` names a SERVER_KNOBS entry; any other name ends
+    `main` with exit code 2 before a cluster is built."""
+    from foundationdb_tpu_torch.tools import server
+    assert server.main(["--knob_no_such_knob", "1"]) == 2
+    assert "unknown knob no_such_knob" in capsys.readouterr().err
+    assert server._knob_value("7") == 7
+    assert server._knob_value("0.25") == 0.25
+    assert server._knob_value("memory") == "memory"
+
+
+def test_monitor_spawns_the_ports_server(monkeypatch):
+    """The monitor's command line names foundationdb_tpu_torch's
+    server, with the server's flags (`--device` among them) as given."""
+    from foundationdb_tpu_torch.tools import monitor
+    cmds = []
+
+    class Child:
+        stdout = iter(())
+
+        def wait(self):
+            return 1
+
+    def popen(cmd, **kw):
+        cmds.append(cmd)
+        return Child()
+
+    monkeypatch.setattr(monitor.subprocess, "Popen", popen)
+    monkeypatch.setattr(monitor.time, "sleep", lambda s: None)
+    args = ["--port", "4500", "--device", "cpu"]
+    assert monitor.supervise(args, max_restarts=1,
+                             announce=lambda *a, **k: None) == 1
+    assert len(cmds) == 2
+    for cmd in cmds:
+        assert cmd[1:3] == ["-m", "foundationdb_tpu_torch.tools.server"]
+        assert cmd[3:] == args
+
+
+def test_children_run_with_the_reference_unimportable(tmp_path):
+    """A `foundationdb_tpu` whose import raises stands first on the
+    children's path: the port's monitor starts its server, the CLI
+    commits and reads through the cluster file, the server is killed,
+    the monitor restarts it, and the CLI reads the write back."""
+    import signal
+    poison = tmp_path / "poison"
+    (poison / "foundationdb_tpu").mkdir(parents=True)
+    (poison / "foundationdb_tpu" / "__init__.py").write_text(
+        "raise ImportError('the reference must not be imported')\n")
+    env = _child_env(str(poison))
+    cf = str(tmp_path / "fdb.cluster")
+    mon = subprocess.Popen(
+        [sys.executable, "-m", "foundationdb_tpu_torch.tools.monitor",
+         "--port", "0", "--seed", "34", "--data-dir", str(tmp_path / "d"),
+         "--cluster-file", cf],
+        cwd=str(poison), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        lines = _until(mon, lambda l: "LISTENING" in l, "LISTENING")
+        assert any("foundationdb_tpu_torch.tools.server" in l
+                   for l in lines if "MONITOR starting" in l), lines
+        out = _cli(["-C", cf, "--exec", "set iso lated; get iso"],
+                   cwd=str(poison), env=env)
+        assert "`iso' is `lated'" in out.stdout, (out.stdout, out.stderr)
+        os.kill(_server_pids(mon.pid)[0], signal.SIGKILL)
+        _until(mon, lambda l: "child exited" in l, "the child's exit")
+        _until(mon, lambda l: "LISTENING" in l, "LISTENING again")
+        out = _cli(["-C", cf, "--exec", "get iso"], cwd=str(poison),
+                   env=env)
+        assert "`iso' is `lated'" in out.stdout, (out.stdout, out.stderr)
+    finally:
+        _stop(mon)
+    assert "must not be imported" not in mon.stderr.read()

@@ -1,8 +1,10 @@
 """The reference's longitudinal cases (tests/test_longitudinal.py) on the
 port's `server.timekeeper`, `server.slo`, `server.systemkeys` and
-SimCluster: the codecs, the time map's lookups, the SLO rules and the
-off posture. The cases that read the history through `layers.metrics`,
-bundle an incident or merge traces need the layers and the tools.
+SimCluster: the codecs, the time map's lookups, the SLO rules, the off
+posture, and the history read back through `layers.metrics` with its
+janitor. The incident-bundle and trace-merge cases stay out: they need
+`tools/incident.py` and `tools/tracemerge.py`, which the port does not
+have yet.
 
 Longitudinal observability pins: (1) the TimeKeeper/metric-history
 key+value codecs round-trip (including '/'-bearing signal names and
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from foundationdb_tpu_torch import flow  # noqa: E402
 from foundationdb_tpu_torch.client import run_transaction  # noqa: E402
+from foundationdb_tpu_torch.layers import metrics as metrics_layer  # noqa: E402
 from foundationdb_tpu_torch.server import SimCluster  # noqa: E402
 from foundationdb_tpu_torch.server import slo as slo_mod  # noqa: E402
 from foundationdb_tpu_torch.server import systemkeys as sk  # noqa: E402
@@ -211,3 +214,147 @@ def test_off_posture_adds_nothing(sim_seed):
 # -- trace rolling + grouped merge -----------------------------------------
 
 
+# -- the history read back, and its janitor ---------------------------------
+
+def test_armed_sim_records_and_translates(sim_seed):
+    seed = sim_seed(1701)
+    c = SimCluster(seed=seed, metric_history=True)
+    try:
+        async def capture(db):
+            tmap = await tk.read_time_map(db)
+            sigs = await metrics_layer.list_history_signals(db)
+            committed = await metrics_layer.read_history(
+                db, "cluster/txn_committed")
+            status = await db.get_status()
+            return tmap, sigs, committed, status
+
+        db, main = _armed_workload(c, capture=capture)
+        tmap, sigs, committed, status = c.run(main(), timeout_time=600)
+    finally:
+        c.shutdown()
+
+    # the map landed and is monotone on both axes
+    assert len(tmap) >= 3, tmap
+    assert tmap == sorted(tmap)
+    assert [v for _t, v in tmap] == sorted(v for _t, v in tmap)
+    # interpolated lookup inverts: clock -> version -> clock
+    mid = (tmap[0][0] + tmap[-1][0]) / 2
+    v_mid = tk.version_at_time_from_map(tmap, mid)
+    assert tmap[0][1] <= v_mid <= tmap[-1][1]
+    assert abs(tk.time_at_version_from_map(tmap, v_mid) - mid) < 0.5
+
+    # the recorder's vocabulary persisted and replays in order
+    for need in ("cluster/txn_committed", "latency/commit/total",
+                 "latency/commit/p99_ms", "cluster/shadow_mismatches",
+                 "chaos/events"):
+        assert need in sigs, sigs
+    assert len(committed) >= 8, committed
+    assert committed == sorted(committed)
+    assert committed[-1][1] > 0   # the workload's commits are visible
+    assert [v for _t, v in committed] == \
+        sorted(v for _t, v in committed)
+
+    slo_doc = status["cluster"]["slo"]
+    assert slo_doc["enabled"] == 1
+    assert slo_doc["state"] == "ok", slo_doc
+    assert slo_doc["timekeeper_rows"] >= 3
+    assert slo_doc["recorder"]["rows_written"] > 0
+    assert {r["name"] for r in slo_doc["rules"]} >= \
+        {"commit_p99", "no_divergence", "commit_error_budget"}
+
+
+def _series_fingerprint(seed):
+    c = SimCluster(seed=seed, metric_history=True)
+    try:
+        async def capture(db):
+            sigs = await metrics_layer.list_history_signals(db)
+            series = {}
+            for s in sigs:
+                series[s] = await metrics_layer.read_history(db, s)
+            tmap = await tk.read_time_map(db)
+            digest = await database_digest(db)
+            return series, tmap, digest
+
+        _db, main = _armed_workload(c, capture=capture)
+        series, tmap, digest = c.run(main(), timeout_time=600)
+        return {"series": series, "tmap": tmap, "digest": digest,
+                "sched_steps": c.sched.tasks_run,
+                "net_messages": c.net.messages_sent}
+    finally:
+        c.shutdown()
+
+
+def test_same_seed_series_bit_identical(sim_seed):
+    seed = sim_seed(1702)
+    a, b = _series_fingerprint(seed), _series_fingerprint(seed)
+    assert a == b, "armed same-seed runs must record identical series"
+    assert a["series"]["cluster/txn_committed"], a["series"].keys()
+
+
+def test_janitor_trims_all_three_keyspaces(sim_seed):
+    seed = sim_seed(1704)
+    c = SimCluster(seed=seed, metric_history=True)
+    try:
+        db = c.client("jt")
+
+        async def main():
+            # populate all three planes: history + timekeeper via the
+            # armed CC loops, the legacy tuple space via log_counters
+            col = flow.CounterCollection("proxy")
+            for i in range(40):
+                tr = db.create_transaction()
+                tr.set(b"jt/%d" % (i % 8), b"v")
+                await tr.commit()
+                if i % 8 == 0:
+                    col.counter("transactions_committed").add(1)
+                    await metrics_layer.log_counters(db, [col])
+                await flow.delay(0.3)
+            before_h = await metrics_layer.read_history(
+                db, "cluster/txn_committed")
+            before_tk = await tk.read_time_map(db)
+            before_leg = await metrics_layer.read_series(
+                db, "proxy", "transactions_committed")
+            assert before_h and before_tk and before_leg
+
+            cutoff_ms = int(flow.now() * 1000) + 1
+            h = await metrics_layer.trim_history(db, cutoff_ms)
+            leg = await metrics_layer.trim_series(db, cutoff_ms)
+            t = await tk.trim_timekeeper(db, flow.now() + 1)
+            assert h > 0 and leg > 0 and t > 0, (h, leg, t)
+
+            after_h = await metrics_layer.read_history(
+                db, "cluster/txn_committed",
+                end_ms=cutoff_ms)
+            after_tk = await tk.read_time_map(db, end_ts=flow.now())
+            after_leg = await metrics_layer.read_series(
+                db, "proxy", "transactions_committed")
+            # trims are chunk-granular for history (a straddling chunk
+            # survives whole); timekeeper + legacy clear fully
+            assert len(after_tk) == 0, after_tk
+            assert after_leg == [], after_leg
+            assert len(after_h) < len(before_h)
+            return True
+
+        assert c.run(main(), timeout_time=600)
+    finally:
+        c.shutdown()
+
+
+def test_metrics_janitor_loop_trims(sim_seed):
+    seed = sim_seed(1705)
+    c = SimCluster(seed=seed, metric_history=True)
+    try:
+        flow.SERVER_KNOBS.set("metric_retention_seconds", 3.0)
+        flow.SERVER_KNOBS.set("timekeeper_retention", 3.0)
+        flow.SERVER_KNOBS.set("metric_janitor_interval", 2.0)
+        jan = metrics_layer.MetricsJanitor(c)
+        jan.start()
+        try:
+            _db, main = _armed_workload(c, horizon=14.0)
+            assert c.run(main(), timeout_time=600)
+        finally:
+            jan.stop()
+        assert jan.rounds > 0
+        assert jan.rows_trimmed > 0, "janitor never trimmed a row"
+    finally:
+        c.shutdown()

@@ -1,5 +1,5 @@
 """The reference's cases of tests/test_qos_telemetry.py on the port's
-SimCluster, without the CLI's qos view case (it needs the tools).
+SimCluster, the CLI's qos view among them.
 
 QoS & saturation telemetry plane: the promoted Smoother (tau
 behavior + the non-increasing-clock clamp), per-role QosSample signals
@@ -477,3 +477,34 @@ def test_rk_batch_only_throttle_reports_its_reason():
     finally:
         flow.reset_server_knobs(randomize=False)
         flow.set_scheduler(None)
+
+
+def test_cli_qos_view_and_status_details_ratekeeper():
+    from foundationdb_tpu_torch.tools.cli import Cli
+    c = SimCluster(seed=719, durable=True)
+    try:
+        cli = Cli.for_cluster(c)
+        db = c.client()
+
+        async def main():
+            async def body(tr):
+                tr.set_option("transaction_tag", b"cli")
+                tr.set(b"k", b"v")
+            await run_transaction(db, body)
+            await flow.delay(1.5)
+            return True
+
+        assert c.run(main(), timeout_time=120)
+        view = cli.execute("qos")
+        for section in ("Ratekeeper:", "limited_by=", "Decision inputs:",
+                        "Storage signals:", "Tlog signals:",
+                        "Proxy signals:", "Resolver signals:",
+                        "Tag traffic", b"cli".hex(),
+                        "Priority classes:"):
+            assert str(section) in view, (section, view)
+        details = cli.execute("status details")
+        assert "Ratekeeper:" in details
+        assert "limited_by=" in details
+        assert "tps_limit=" in details
+    finally:
+        c.shutdown()

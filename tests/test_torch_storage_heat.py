@@ -1,7 +1,6 @@
 """The reference's storage-heat cases (tests/test_storage_heat.py) on the
-port's `server.storage` and SimCluster, without the armed plane's
-end-to-end case (its last check renders the CLI's heat view, which
-needs the tools).
+port's `server.storage` and SimCluster, the armed plane's end-to-end
+case (its last check renders the CLI's heat view) among them.
 
 Storage heat plane: read-bandwidth sampling, read-hot
 sub-range detection, per-storage tag busyness, the typed metrics wire
@@ -312,6 +311,75 @@ def test_hot_shard_storm_runs_and_names_heat():
             bytes.fromhex(top["end"]) > hb, (top, hb, he)
         assert all(r["tag"] == storm.hot_tag.hex()
                    for r in heat["busiest_read_tags"]), heat
+    finally:
+        flow.reset_server_knobs(randomize=False)
+        c.shutdown()
+
+
+def _drive_hot_reads(c, db, rounds=12):
+    async def main():
+        async def seed(tr):
+            for i in range(48):
+                tr.set(b"h%03d" % i, b"V" * 100)
+        await run_transaction(db, seed)
+        for r in range(rounds):
+            async def body(tr, r=r):
+                tr.set_option("transaction_tag", b"hotreader")
+                # hammer the first two keys, graze the rest
+                await tr.get(b"h000")
+                await tr.get(b"h001")
+                await tr.get(b"h%03d" % (2 + r % 46))
+            await run_transaction(db, body)
+            await flow.delay(0.15)
+        await flow.delay(1.0)   # QoS sampler + heat rollup ticks
+        return await db.get_status()
+    return c.run(main(), timeout_time=300)
+
+
+def test_armed_plane_end_to_end_status_qos_cli():
+    c = SimCluster(seed=1607, durable=True)
+    flow.SERVER_KNOBS.set("storage_heat_tracking", 1)
+    flow.SERVER_KNOBS.set("qos_sample_interval", 0.25)
+    try:
+        db = c.client()
+        status = _drive_hot_reads(c, db)
+        cl = status["cluster"]
+
+        # the per-storage tag counter charged the read tag
+        obj = next(iter(c.cc._storage_objs.values()))
+        tag, busy = obj.busiest_read_tag()
+        assert tag == b"hotreader" and busy > 0
+
+        # heat signals ride the storage QosSample — the ARMED schema
+        # pin: exactly the base inventory plus the heat additions
+        # (test_qos_telemetry.py pins the disarmed set)
+        from test_qos_telemetry import (STORAGE_HEAT_SIGNALS,
+                                        STORAGE_SIGNALS)
+        sto = next(iter(cl["qos"]["roles"]["storage"].values()))
+        assert set(sto) == STORAGE_SIGNALS | STORAGE_HEAT_SIGNALS | \
+            {"sampled_at"}, sto
+        assert sto["read_bytes_per_sec"] > 0, sto
+        assert sto["busiest_read_tag_busyness"] > 0, sto
+
+        # the cluster rollup names the hot tag; the replicas report
+        # read meters in the storages section
+        heat = cl["storage_heat"]
+        assert heat["tracking_enabled"] == 1
+        assert any(r["tag"] == b"hotreader".hex()
+                   for r in heat["busiest_read_tags"]), heat
+        rep = cl["storages"][0]["replicas"][0]
+        assert rep["read_bytes_per_sec"] > 0, rep
+        assert rep["read_ops_per_sec"] > 0, rep
+
+        # ratekeeper observe-only input picked the tag up
+        assert cl["qos"]["inputs"]["busiest_read_tag_busyness"] > 0
+        assert cl["qos"]["busiest_read_tag"] == b"hotreader".hex()
+
+        # cli heat renders the armed view
+        from foundationdb_tpu_torch.tools.cli import _render_heat
+        view = _render_heat(cl)
+        assert "Storage heat (STORAGE_HEAT_TRACKING=on)" in view
+        assert b"hotreader".hex() in view, view
     finally:
         flow.reset_server_knobs(randomize=False)
         c.shutdown()

@@ -1,6 +1,6 @@
 """The reference's cases of tests/test_storm_vectorized.py on the port's
 SimCluster, without the slow million-client cell and the simprof cases
-(they need the tools).
+(they need `tools/simprof.py`, which the port does not have yet).
 
 Simulator hot-path overhaul: vectorized storm schedules,
 pooled client actors, the coalesced-timer helper, the lean timer path,

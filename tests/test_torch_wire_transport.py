@@ -2,8 +2,11 @@
 on the port's `rpc` package: encoding round-trips of primitives and of
 the port's registered messages, refusal of an unregistered type, a
 NetworkRef's round trip through the sim, and the simulated network's
-serialize-everything delivery. The reference's TCP and TLS cases wait
-for the port's `rpc/tcp.py`."""
+serialize-everything delivery; and its TCP and TLS cases over the
+port's `rpc/tcp.py`: a dying connection fails pending requests and a
+later one reconnects, a localhost counter service, and mutual TLS with
+a rogue certificate refused at the handshake (its 240 s bound kept:
+loaded machines starve TLS handshakes)."""
 
 import pytest
 
@@ -99,4 +102,163 @@ def test_sim_delivery_serializes_messages():
         t = s.spawn(main())
         assert s.run(until=t, timeout_time=10)
     finally:
+        fl.set_scheduler(None)
+
+
+def test_tcp_connection_death_fails_pending_and_reconnects():
+    """A dying server connection fails in-flight requests with
+    broken_promise (the sim's closed-connection semantics) and a later
+    request transparently reconnects."""
+    from foundationdb_tpu_torch.rpc.tcp import TcpRequestStream, TcpTransport
+
+    fl.set_seed(13)
+    s = fl.Scheduler(virtual=False)
+    fl.set_scheduler(s)
+    server = TcpTransport()
+    client = TcpTransport()
+    try:
+        stream = TcpRequestStream(server)
+        server.start()
+        client.start()
+
+        async def serve():
+            while True:
+                req, reply = await stream.pop()
+                if req == "die":
+                    # kill every server-side connection abruptly
+                    for c in list(server._conns.values()):
+                        c._die()
+                    # also close sockets accepted server-side
+                    reply.send(None)  # may or may not arrive
+                else:
+                    reply.send(req)
+
+        async def main():
+            fl.spawn(serve())
+            ref = client.ref("127.0.0.1", server.port, stream.token)
+            assert await ref.get_reply(41) == 41
+            # sever from the CLIENT side mid-flight: pending must break
+            f = ref.get_reply(42)
+            for c in list(client._conns.values()):
+                c._die()
+            with pytest.raises(fl.FdbError) as ei:
+                await f
+            assert ei.value.name == "broken_promise"
+            # a later request reconnects and succeeds
+            assert await ref.get_reply(43) == 43
+            return True
+
+        t = s.spawn(main())
+        assert s.run(until=t, timeout_time=30)
+    finally:
+        server.close()
+        client.close()
+        fl.set_scheduler(None)
+
+
+def test_tcp_localhost_smoke():
+    """A counter service served over REAL localhost TCP sockets with
+    the wire format — request/reply framing, protocol handshake, and
+    concurrent clients (the production-transport seam)."""
+    from foundationdb_tpu_torch.rpc.tcp import TcpRequestStream, TcpTransport
+
+    fl.set_seed(9)
+    s = fl.Scheduler(virtual=False)   # wall clock: real sockets
+    fl.set_scheduler(s)
+    transport = TcpTransport()
+    try:
+        stream = TcpRequestStream(transport)
+        transport.start()
+        state = {"n": 0}
+
+        async def serve():
+            while True:
+                req, reply = await stream.pop()
+                if req is None:
+                    reply.send(state["n"])
+                else:
+                    state["n"] += req
+                    reply.send(state["n"])
+
+        async def main():
+            fl.spawn(serve())
+            ref = transport.ref("127.0.0.1", transport.port, stream.token)
+            futs = [ref.get_reply(i) for i in range(1, 6)]
+            await fl.wait_for_all(futs)
+            total = await ref.get_reply(None)
+            assert total == 15, total
+            # an unknown token breaks like a closed connection
+            bad = transport.ref("127.0.0.1", transport.port, 999)
+            with pytest.raises(fl.FdbError):
+                await bad.get_reply(None)
+            return True
+
+        t = s.spawn(main())
+        assert s.run(until=t, timeout_time=30)
+    finally:
+        transport.close()
+        fl.set_scheduler(None)
+
+
+# -- TLS (ref: FDBLibTLS — mutual certificate verification under the
+# transport's connect handshake) ---------------------------------------
+
+def _make_cert(tmp_path, name):
+    import subprocess
+    key = str(tmp_path / f"{name}-key.pem")
+    cert = str(tmp_path / f"{name}-cert.pem")
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", cert, "-days", "2",
+         "-subj", f"/CN=fdbtpu-{name}"],
+        check=True, capture_output=True)
+    return cert, key
+
+
+def test_tcp_tls_mutual_auth(tmp_path):
+    """Request/reply over mutually-authenticated TLS; a client with an
+    untrusted certificate is rejected at the handshake."""
+    from foundationdb_tpu_torch.rpc.tcp import (TcpRequestStream,
+                                                TcpTransport, TlsConfig)
+
+    cert, key = _make_cert(tmp_path, "cluster")
+    rogue_cert, rogue_key = _make_cert(tmp_path, "rogue")
+    tls = TlsConfig(cert, key, cert)
+
+    fl.set_seed(17)
+    s = fl.Scheduler(virtual=False)
+    fl.set_scheduler(s)
+    server = TcpTransport(tls=tls)
+    client = TcpTransport(tls=tls)
+    # trusts the cluster CA but presents a cert the server won't trust
+    rogue = TcpTransport(tls=TlsConfig(rogue_cert, rogue_key, cert))
+    try:
+        stream = TcpRequestStream(server)
+        server.start()
+        client.start()
+        rogue.start()
+
+        async def serve():
+            while True:
+                req, reply = await stream.pop()
+                reply.send(req * 2)
+
+        async def main():
+            fl.spawn(serve())
+            ref = client.ref("127.0.0.1", server.port, stream.token)
+            assert await ref.get_reply(21) == 42
+            bad = rogue.ref("127.0.0.1", server.port, stream.token)
+            with pytest.raises(fl.FdbError) as ei:
+                await bad.get_reply(1)
+            assert ei.value.name == "broken_promise"
+            # the trusted client is unaffected by the rejected peer
+            assert await ref.get_reply(100) == 200
+            return True
+
+        t = s.spawn(main())
+        assert s.run(until=t, timeout_time=240)  # loaded machines starve TLS handshakes
+    finally:
+        server.close()
+        client.close()
+        rogue.close()
         fl.set_scheduler(None)
