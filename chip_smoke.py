@@ -46,10 +46,10 @@ resolver re-bases its int32 version window mid-run.
   - The resolver role, `server/resolver_role.py:Resolver`, on each
     CUDA backend at its defaults (a 32-byte key width, the point
     backend's 8; one shard on one card), on a virtual scheduler and a
-    simulated network: ROLE_BATCHES ResolveRequests of the same traffic
-    (16-byte keys; 8-byte keys with the same ids for the point
-    backend; the first ROLE_CUT_BATCHES of them on the point and the
-    sharded backend), 4 in flight from a proxy process. Every reply must equal
+    simulated network: the first ROLE_CUT_BATCHES of ROLE_BATCHES
+    ResolveRequests of the same traffic (16-byte keys; 8-byte keys with
+    the same ids for the point backend), 4 in flight from a proxy
+    process. Every reply must equal
     the backend driven directly (verdicts and attributed ranges), the
     first ROLE_CPU_BATCHES the port's CPU role's; no failover; one
     re-base; an in-flight and a cached duplicate answer as the first
@@ -119,6 +119,24 @@ resolver re-bases its int32 version window mid-run.
     build the kernels again. It prints committed txn a wall second,
     commit latency, conflicts, launches a batch, the kernels' busy share
     and the seconds from the kill to the first commit.
+  - The resolver role in its own OS process (`tools.rolehost`, FDB's
+    one fdbserver process a recruited role), in three parts. (a) One
+    resolver host at the default device, recruited over TCP on `cuda`
+    and sent the role phase's first ROLE_HOST_BATCHES ResolveRequests:
+    every reply must equal the in-process `cuda` role's (kept from the
+    role phase); the host checkpoints, is sent SIGKILL after request
+    8, respawns on its pinned port, restores the checkpoint onto the
+    card and replays its journal; the resend of request 8 must be the
+    byte-identical cached payload; K1-K3 once a resolve batch, K4 once.
+    (b) The commit pipeline with two resolver hosts and a tlog host,
+    a wall-clock SimCluster on `cuda` recruiting them, and two proxy
+    worker processes (`clusterbench --worker`) at 400 arrivals a wall
+    second for 8 s; resolver host 0 is killed halfway: every arrival
+    must commit, commits resume within CHAOS_RECOVERY_BOUND, every
+    acknowledged write reads back. (c) `tools.smoke --faults` and
+    `--packed` in this process on the card. It prints the kill to
+    ready and to the first commit, the replay count, committed a wall
+    second, commit latency and each role host's own launches.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
     cross-check of its modes met, its chains' count equal to this
@@ -174,9 +192,9 @@ POINT_CAPACITY = 1 << 19                       # next_pow2(22 * N_TXNS + 2)
 WARMUP = 3
 TIMED = 384                 # 0.3-0.5 s per timed window: 96-batch point
 #                             windows (~0.1 s) spread +-30% with host noise
-CPU_BATCHES = WARMUP + 24   # the interval path's CPU comparison: past the
+CPU_BATCHES = WARMUP + 19   # the interval path's CPU comparison: past the
                             # re-base at batch 8 and the first GC of the
-                            # 20-batch window (~40-55 s)
+                            # 20-batch window (~30-45 s)
 POINT_CPU_BATCHES = 30                         # GC has pruned for 10
 FIRST_VERSION = (1 << 30) - 8 * VERSION_STEP   # crosses 2^30: one re-base
 LAST = WARMUP + TIMED - 1
@@ -191,8 +209,10 @@ SHARD_CAPACITY = 1 << 18      # per shard: ~650K live rows split 4 ways
 SPLIT_IDS = [i * KEYSPACE // N_SHARDS for i in range(1, N_SHARDS)]
 SHARD_SPLITS = [bytes(8) + (i * KEYSPACE // N_SHARDS).to_bytes(8, "big")
                 for i in range(1, N_SHARDS)]
-SHARDED_CPU_BATCHES = 10      # the sharded path's CPU comparison: past
-                              # the re-base at batch 8 (~75 s)
+SHARDED_CPU_BATCHES = WARMUP  # the sharded path's CPU comparison (~10-30
+                              # s); its re-base at batch 8 is held to the
+                              # interval path's, itself held to the CPU
+                              # past it, by the stitched history
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 # int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes at
@@ -211,8 +231,9 @@ WINDOW_SHAPES = (("interval", (CAPACITY,)), ("point", (POINT_CAPACITY,)),
                  ("sharded", (N_SHARDS, SHARD_CAPACITY)))
 L2_FLUSH_BYTES = 128 << 20
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
-ROLE_BATCHES = 32      # the role phase: cuda's ResolveRequests (the leg's)
-ROLE_CUT_BATCHES = 16  # cuda-point's and sharded-cuda's (cut for the time)
+ROLE_BATCHES = 32      # the role traffic's ResolveRequests (the leg's)
+ROLE_CUT_BATCHES = 16  # each backend's role run (cut for the time)
+ROLE_HOST_BATCHES = 16  # the role-host phase's requests (the role's first)
 ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
 ROLE_DUP_AT = 12       # batch whose successor's two copies wait on it
 ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
@@ -1878,26 +1899,27 @@ def chain_probe(dev, tag) -> dict:
 # the resolver role: ResolveRequests through the sim network
 # ---------------------------------------------------------------------------
 
-ROLE_BACKENDS = (("cuda", INTERVAL_KERNELS, ROLE_BATCHES),
+ROLE_BACKENDS = (("cuda", INTERVAL_KERNELS, ROLE_CUT_BATCHES),
                  ("cuda-point", POINT_KERNELS, ROLE_CUT_BATCHES),
                  ("sharded-cuda", SHARDED_KERNELS, ROLE_CUT_BATCHES))
 
 
-def role_requests(key_bytes):
-    """The cells' traffic as ResolveRequests: ROLE_BATCHES batches of
-    N_TXNS CommitRequests, each one point read [k, k + b"\\x00") and one
-    point write over KEYSPACE uniform ids (big-endian in the key's low 8
-    bytes), read at the previous batch's version, VERSION_STEP versions
-    a batch from just below 2^30, chained by prev_version from the
-    resolver's recovery version 0; one transaction of every other batch
-    asks for report_conflicting_keys. The same ids at every key width.
+def role_requests(key_bytes, n=ROLE_BATCHES):
+    """The cells' traffic as ResolveRequests: the first `n` of
+    ROLE_BATCHES batches of N_TXNS CommitRequests, each one point read
+    [k, k + b"\\x00") and one point write over KEYSPACE uniform ids
+    (big-endian in the key's low 8 bytes), read at the previous batch's
+    version, VERSION_STEP versions a batch from just below 2^30,
+    chained by prev_version from the resolver's recovery version 0; one
+    transaction of every other batch asks for report_conflicting_keys.
+    The same ids at every key width.
     Returns [(ResolveRequest, new oldest version)]."""
     from foundationdb_tpu_torch.server.types import (CommitRequest,
                                                      ResolveRequest)
     rng = np.random.default_rng(SEED + 2)
     pad = bytes(key_bytes - 8)
     out, prev = [], 0
-    for i, (v, o) in zip(range(ROLE_BATCHES), versions()):
+    for i, (v, o) in zip(range(n), versions()):
         ids = rng.integers(0, KEYSPACE, size=2 * N_TXNS, dtype=np.int64)
         raw = ids.astype(">u8").tobytes()
         keys = [pad + raw[j:j + 8] for j in range(0, len(raw), 8)]
@@ -2023,8 +2045,8 @@ def _verdicts(reply):
 def role_phase(tag) -> dict:
     """The resolver role on each CUDA backend at its defaults (a 32-byte
     key width, the point backend's 8, whose requests carry the same ids
-    in 8-byte keys; one shard on one card): the first ROLE_BATCHES
-    (cuda) or ROLE_CUT_BATCHES requests through `role_run` on the card. Every reply must equal the
+    in 8-byte keys; one shard on one card): the first ROLE_CUT_BATCHES
+    requests through `role_run` on the card. Every reply must equal the
     same backend driven directly on the card (`resolve_with_attribution`
     over the same batches at the role's oldest versions): verdicts, and
     the attributed ranges where the batch asked for them; the first
@@ -2035,15 +2057,17 @@ def role_phase(tag) -> dict:
     must launch; the in-flight and the cached duplicate must answer as
     the first delivery did. Prints the role's wall time a batch, the
     host's split of it, the device's busy share and each kernel's
-    launches a batch; returns {backend: launch counts}."""
+    launches a batch; returns ({backend: launch counts}, the cuda run's
+    first ROLE_HOST_BATCHES requests and replies, which the role-host
+    phase holds a resolver in its own process to)."""
     from foundationdb_tpu_torch.flow import coverage
     from foundationdb_tpu_torch.models import (ResolverTransaction,
                                                create_conflict_set)
     t_phase = time.perf_counter()
-    cell_requests = role_requests(KEY_BYTES)
+    cell_requests = role_requests(KEY_BYTES, ROLE_CUT_BATCHES)
     counts_by = {}
     for backend, kernels, n_batches in ROLE_BACKENDS:
-        requests = (role_requests(ROLE_POINT_KEY_BYTES)
+        requests = (role_requests(ROLE_POINT_KEY_BYTES, ROLE_CUT_BATCHES)
                     if backend == "cuda-point" else cell_requests)[:n_batches]
         cov0 = {k: coverage.hits(f"resolver.reply_cache.{k}")
                 for k in ("inflight_dup", "hit")}
@@ -2159,9 +2183,12 @@ def role_phase(tag) -> dict:
               + ", ".join(f"{k} {direct[k] / n:.3f}" for k in direct
                           if direct[k]), flush=True)
         counts_by[backend] = counts
+        if backend == "cuda":
+            kept = ([r for r, _o in requests[:ROLE_HOST_BATCHES]],
+                    {i: replies[i] for i in range(ROLE_HOST_BATCHES)})
     print(f"[{tag}] role phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return counts_by
+    return counts_by, kept
 
 
 def commit_leg_phase(tag) -> dict:
@@ -3066,6 +3093,161 @@ def server_phase(tag) -> tuple:
     return {k: counts.get(k, 0) for k in launch_counts()}, batches
 
 
+ROLE_HOST_KERNELS = ("searchsorted_i32", "range_max", "resolve")
+
+
+def role_host_phase(tag, kept) -> tuple:
+    """The resolver role in its own OS process on the card, in three
+    parts, each of which fails the run if it fails:
+
+    (a) `testing.role_host_run`: one `RoleProcs` resolver host at the
+        default device (the card), recruited over TCP on `cuda`, sent
+        the role phase's first ROLE_CUT_BATCHES ResolveRequests (`kept`:
+        the requests and the replies the in-process `cuda` role gave
+        them, kept from the role phase); every reply must equal the
+        kept one; after request ROLE_HOST_CKPT_AT the host checkpoints,
+        after request ROLE_HOST_KILL_AT (both `testing`'s) it is sent
+        SIGKILL and
+        respawned on its pinned port, restores the checkpoint onto the
+        card and replays the journal above it; the resend of request
+        ROLE_HOST_KILL_AT must be the byte-identical cached payload and
+        the later requests must equal too. K1-K3 must launch once a
+        resolve batch in the host's own counters (replays included) and
+        K4 once (the re-base at 2^30, before the kill).
+    (b) `testing.role_cluster_run`: two resolver hosts and a tlog host,
+        a wall-clock SimCluster on `cuda` with its roles recruited
+        there, two proxy worker processes (`clusterbench --worker`) at
+        400 arrivals a wall s for 8 s on disjoint keys, resolver host 0
+        killed halfway and respawned: every arrival commits, commits
+        resume within CHAOS_RECOVERY_BOUND, every acknowledged write
+        reads back; K1-K3 launch in each resolver host.
+    (c) `tools.smoke`'s `--faults` and `--packed` modes in this process
+        on the card (K1-K3 launched).
+
+    Returns ({kernel: launches of every role host}, their resolve
+    batches)."""
+    from foundationdb_tpu_torch import testing
+    from foundationdb_tpu_torch.ops import _build
+    from foundationdb_tpu_torch.tools import smoke
+    t_phase = time.perf_counter()
+    lib_path = _build.build_info["path"]
+    built = (sorted(os.listdir(_build.BUILD_ROOT)),
+             os.stat(lib_path).st_mtime_ns)
+    requests, replies = kept
+    tmp = tempfile.mkdtemp(prefix="chip-rolehost-")
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = child_env()["PYTHONPATH"]
+    total = dict.fromkeys(launch_counts(), 0)
+    procs_b = None
+    try:
+        # (b)'s role hosts start while (a) runs: their start-up (torch's
+        # import) overlaps it
+        procs_b = testing.role_cluster_procs(os.path.join(tmp, "b"))
+        # (a) one resolver host, a SIGKILL, the checkpoint and the journal
+        t0 = time.perf_counter()
+        a = testing.role_host_run(requests, replies,
+                                  os.path.join(tmp, "a"))
+        secs = time.perf_counter() - t0
+        n_req = len(requests)
+        for i, (c, n) in enumerate(zip(a["launches"], a["batches"])):
+            off = [k for k in ROLE_HOST_KERNELS if c.get(k, 0) != n]
+            if off:
+                raise AssertionError(f"role host (a): incarnation {i} "
+                                     f"launched {c} over {n} batches")
+        k4 = [c.get("window_upkeep", 0) for c in a["launches"]]
+        if k4 != [1, 0]:
+            raise AssertionError(f"role host (a): K4 ran {k4} times by "
+                                 "incarnation; one re-base expected")
+        for c in a["launches"]:
+            for k, n in c.items():
+                total[k] += n
+        print(f"[{tag}] role host (a): {n_req} ResolveRequests of {N_TXNS} "
+              f"txns to a resolver host on cuda over TCP, every reply equal "
+              f"to the in-process cuda role's; checkpoint after request "
+              f"{a['checkpoint_at']} ({a['checkpoints']} before the "
+              f"kill); SIGKILL after request {testing.ROLE_HOST_KILL_AT}, "
+              f"ready "
+              f"again {a['kill_to_ready_s']:.3f} s later, the resend's "
+              f"byte-identical cached payload {a['kill_to_reply_s']:.3f} s "
+              f"after the kill, {a['replayed']} journal requests "
+              f"replayed; requests 0-{testing.ROLE_HOST_KILL_AT} "
+              f"{a['requests_s']:.3f} s ("
+              f"{1e3 * a['requests_s'] / (testing.ROLE_HOST_KILL_AT + 1):.1f}"
+              f" ms a request); the part {secs:.1f} s", flush=True)
+        print(f"[{tag}] role host (a): the host's launches, by "
+              f"incarnation: " + "; ".join(
+                  ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+                  + f" over {n} resolve batches"
+                  for c, n in zip(a["launches"], a["batches"])), flush=True)
+
+        # (b) the commit pipeline with its roles in other processes
+        t0 = time.perf_counter()
+        b = testing.role_cluster_run(os.path.join(tmp, "b"), roles=procs_b)
+        secs = time.perf_counter() - t0
+        if b["kill_to_commit_s"] is None:
+            raise AssertionError("role host (b): no arrival was left for "
+                                 "the respawned resolver host to commit")
+        for name, c in b["launches"].items():
+            if name.startswith("ext-resolver"):
+                idle = [k for k in ROLE_HOST_KERNELS if c.get(k, 0) <= 0]
+                if idle:
+                    raise AssertionError(f"role host (b): {name} never "
+                                         f"launched {idle}")
+            for k, n in c.items():
+                total[k] += n
+        lat = "; ".join(f"worker {i} p50 {c['p50_ms']:.3f} / p99 "
+                        f"{c['p99_ms']:.3f} ms" for i, c in
+                        enumerate(b["commit"]))
+        print(f"[{tag}] role host (b): {b['committed']} of {b['offered']} "
+              f"arrivals committed through 2 resolver hosts and 1 tlog host "
+              f"from 2 proxy worker processes, {b['txn_per_s']:.1f} "
+              f"committed a wall s over {b['elapsed']:.3f} s; commit "
+              f"latency {lat}; SIGKILL of resolver host 0 halfway, ready "
+              f"again {b['kill_to_ready_s']:.3f} s later, the first "
+              f"cluster-wide commit advance {b['kill_to_commit_s']:.3f} s "
+              f"after the kill; {b['read_back']} acknowledged writes read "
+              f"back; the part {secs:.1f} s", flush=True)
+        print(f"[{tag}] role host (b): launches by host: " + "; ".join(
+            f"{name}: " + (", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+                           or "none")
+            for name, c in sorted(b["launches"].items())), flush=True)
+        batches = sum(a["batches"]) + sum(
+            c.get("resolve", 0) for n, c in b["launches"].items())
+    finally:
+        if procs_b is not None:
+            procs_b.terminate_all()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the port's fault and packed smokes, in this process on the card
+    for label, run in (("--faults", smoke.run_smoke_faults),
+                       ("--packed", smoke.run_smoke_packed)):
+        lines = []
+        zero_counts()
+        t0 = time.perf_counter()
+        if run(out=lines.append) != 0:
+            raise AssertionError(f"smoke {label} failed: {lines}")
+        c = launch_counts()
+        idle = [k for k in ROLE_HOST_KERNELS if c[k] <= 0]
+        if idle:
+            raise AssertionError(f"smoke {label} never launched {idle}")
+        print(f"[{tag}] role host (c): smoke {label} on the card: "
+              f"{lines[-1]}; K1-K3 "
+              + ", ".join(str(c[k]) for k in ROLE_HOST_KERNELS)
+              + f" launches; {time.perf_counter() - t0:.1f} s", flush=True)
+    now = (sorted(os.listdir(_build.BUILD_ROOT)),
+           os.stat(lib_path).st_mtime_ns)
+    if now != built:
+        raise AssertionError(f"role host phase: a child built the kernels "
+                             f"again: {built} -> {now}")
+    print(f"[{tag}] role host phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {k: total.get(k, 0) for k in launch_counts()}, batches
+
+
 def probe_main(tag, dev) -> int:
     """`--probe`: only K4's table and the chains' traced window, for a
     checkout whose own smoke script predates them; one JSON line."""
@@ -3468,11 +3650,12 @@ def main() -> int:
           f"and {rows[1]} steps); final rows per shard max {state_s[2]}",
           flush=True)
 
-    role_counts = role_phase(tag)
+    role_counts, role_kept = role_phase(tag)
     commit_counts = commit_leg_phase(tag)
     cluster_counts, cluster_batches = cluster_phase(tag)
     tester_counts, tester_batches = tester_phase(tag, tester_cpu.result)
     server_counts_, server_batches = server_phase(tag)
+    host_counts, host_batches = role_host_phase(tag, role_kept)
 
     failover_phase(tag)
 
@@ -3574,6 +3757,7 @@ def main() -> int:
         by_path["cluster"] = cluster_counts[name]
         by_path["tester"] = tester_counts[name]
         by_path["server"] = server_counts_[name]
+        by_path["role host"] = host_counts[name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -3620,7 +3804,8 @@ def main() -> int:
               f"{by_path['cluster'] / cluster_batches:.3f} "
               f"cluster batch, {by_path['tester'] / tester_batches:.3f} "
               f"tester batch, {by_path['server'] / server_batches:.3f} "
-              "server batch", flush=True)
+              f"server batch, {by_path['role host'] / host_batches:.3f} "
+              "role host batch", flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,

@@ -18,19 +18,22 @@ that loss survivable with BIT-IDENTICAL verdicts:
                batch submitted since.
   failover     a DeviceFaultError at any seam (submit dispatch,
                materialize readback, drain) discards the device state,
-               rebuilds on a FRESH backend from the last checkpoint
-               plus deterministic replay of the logged batches — the
-               version chain makes replayed verdicts bit-identical by
+               rebuilds on a FRESH backend from the last checkpoint plus
+               deterministic replay of the logged batches — the version
+               chain makes replayed verdicts bit-identical by
                construction — resolves any in-flight tickets from the
                replay, and keeps serving. Up to DEVICE_FAULT_RETRIES
-               rebuilds target a fresh device backend; past that the
-               device is declared dead. With no `fallback_factory` (the
-               default, and what create_resilient_conflict_set builds)
-               the wrapper then raises DeviceFaultError: CPU verdicts
-               behind a device that keeps failing could hide a broken
-               kernel, so the port never serves them silently. A caller
-               that passes a fallback gets the reference's behaviour:
-               the fallback takes over.
+               rebuilds of one fault (a batch dispatched to the device,
+               or a replay run to its end, ends a fault; the injector
+               draws once a rebuild) target a fresh device backend; past
+               that the device is declared dead. With no
+               `fallback_factory` (the default, and what
+               create_resilient_conflict_set builds) the wrapper then
+               raises DeviceFaultError: CPU verdicts behind a device
+               that keeps failing could hide a broken kernel, so the
+               port never serves them silently. A caller that passes a
+               fallback gets the reference's behaviour: the fallback
+               takes over.
   reattach     once failed over, the wrapper periodically (exponential
                backoff, DEVICE_REATTACH_BACKOFF..._MAX) tries to move
                the state back onto a fresh device backend.
@@ -50,11 +53,13 @@ wrapped by default — they have no device to lose.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence
 
 from ..flow.knobs import SERVER_KNOBS
 from ..flow.stats import CounterCollection
-from ..ops.fault_injection import DeviceFaultError, convert_device_errors
+from ..ops.fault_injection import (DeviceFaultError, convert_device_errors,
+                                   g_device_faults)
 from .conflict_set import (ConflictSetBase, ConflictSetCheckpoint,
                            PyConflictSet, ResolverTransaction)
 
@@ -186,19 +191,28 @@ class FailoverConflictSet(ConflictSetBase):
         # costs a checkpoint-restore + log replay per sample
         t.shadow = sample > 0 and self.on_primary \
             and self._batches % sample == 0
+        redispatch = False
         while True:
             try:
                 if not self.on_primary:
                     self._primary_validate(
                         txns, oldest_version=self.active.oldest_version)
-                t.inner = self.active.submit(txns, commit_version,
-                                             new_oldest_version,
-                                             attribute=attribute)
+                with (g_device_faults.quiet() if redispatch
+                      else contextlib.nullcontext()):
+                    t.inner = self.active.submit(txns, commit_version,
+                                                 new_oldest_version,
+                                                 attribute=attribute)
+                # a batch dispatched to the device ends a run of faults:
+                # retries count the rebuilds of ONE fault, so faults in
+                # the batches a recovery left in flight get their own
+                self._consecutive_faults = 0
                 break
             except DeviceFaultError as e:
                 # the batch was NOT logged yet: the rebuild restores the
-                # pre-batch state and this loop re-dispatches it
+                # pre-batch state and this loop re-dispatches it, as
+                # part of the recovery (no seeded draws of its own)
                 self._handle_fault(e, "submit")
+                redispatch = True
         # a submit-time failover lands this batch on the fallback: the
         # sample would compare the shadow implementation to itself
         t.shadow = t.shadow and self.on_primary
@@ -237,16 +251,26 @@ class FailoverConflictSet(ConflictSetBase):
         """Restore the checkpoint into `target` and deterministically
         replay every logged batch; returns {version: (verdicts, attrs)}.
         Raises DeviceFaultError if the target (a fresh device) faults
-        mid-rebuild — the caller escalates."""
-        target.restore(self._ckpt)
-        results: dict = {}
-        for txns, v, new_oldest, attribute in self._log:
-            if attribute:
-                results[v] = target.resolve_with_attribution(
-                    txns, v, new_oldest)
-            else:
-                results[v] = (target.resolve(txns, v, new_oldest), None)
-            self.stats.counter("replayed_batches").add(1)
+        mid-rebuild — the caller escalates. On a device target the
+        fault injector treats the whole rebuild as one seam: one seeded
+        draw, not one for every seam of the replay, so a long log does
+        not make every rebuild fault again (the port has no CPU
+        fallback to absorb that)."""
+        if target.BACKEND in DEVICE_BACKENDS:
+            seam = g_device_faults.one_seam(f"{self.backend_name}.rebuild")
+        else:
+            seam = contextlib.nullcontext()
+        with seam:
+            target.restore(self._ckpt)
+            results: dict = {}
+            for txns, v, new_oldest, attribute in self._log:
+                if attribute:
+                    results[v] = target.resolve_with_attribution(
+                        txns, v, new_oldest)
+                else:
+                    results[v] = (target.resolve(txns, v, new_oldest),
+                                  None)
+                self.stats.counter("replayed_batches").add(1)
         return results
 
     def _handle_fault(self, err: DeviceFaultError, where: str) -> None:
@@ -295,6 +319,10 @@ class FailoverConflictSet(ConflictSetBase):
         self.active = cand
         if to_primary:
             self.stats.counter("device_recoveries").add(1)
+            if results:
+                # the fresh device replayed the log to the end: that is
+                # device progress, so the next fault is a new one
+                self._consecutive_faults = 0
         else:
             if self.on_primary:
                 self.stats.counter("failovers").add(1)

@@ -3,20 +3,22 @@
 `DeviceFaultInjector` raises a simulated device fault at the three
 host/device boundaries of a device backend (`submit` = kernel launch,
 `materialize` = verdict readback, `drain` = the blocking wait), driven
-by the `DEVICE_FAULT_INJECTION` knob (a per-seam probability drawn from
-the seeded RNG, amplified by a BUGGIFY site when already armed) or by
-one-shot `schedule()` calls. Real device losses raised at those seams
-(a CUDA error surfaced by PyTorch, device memory exhausted) are
+by the `DEVICE_FAULT_INJECTION` knob (a per-seam probability drawn
+from the seeded RNG, amplified by a BUGGIFY site when already armed)
+or by one-shot `schedule()` calls. Real device losses raised at those
+seams (a CUDA error surfaced by PyTorch, device memory exhausted) are
 converted to the same `DeviceFaultError`, so a failover controller
-handles both through one path. An error that the port's own kernels
-report (`CudaKernelError`: a refused or failed launch, bad arguments,
-too small a scratch, a cooperative grid that does not fit) is NOT a
-device fault: it escapes as it is, so a broken kernel is loud and
-never retried or routed around.
+handles both through one path. A failover rebuild is one seam
+(`one_seam`): one seeded draw, none at the seams of its replay. An
+error that the port's own kernels report (`CudaKernelError`: a refused
+or failed launch, bad arguments, too small a scratch, a cooperative
+grid that does not fit) is NOT a device fault: it escapes as it is, so
+a broken kernel is loud and never retried or routed around.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 
 
@@ -84,6 +86,7 @@ class DeviceFaultInjector:
         self._scheduled: deque = deque()   # points to fault, one-shot
         self.injected: dict = {p: 0 for p in POINTS}
         self.checks = 0
+        self._quiet = 0                    # depth of quiet() scopes
 
     def schedule(self, point: str) -> None:
         """Force the NEXT check at `point` to fault."""
@@ -94,6 +97,29 @@ class DeviceFaultInjector:
     def clear(self) -> None:
         self._scheduled.clear()
 
+    def one_seam(self, where: str = ""):
+        """Context manager that makes the work inside it ONE seam: a
+        single seeded draw at the `submit` point on entry, and no
+        seeded draws at the seams it passes through (scheduled faults
+        still fire). The failover controller's rebuild is such a unit:
+        restoring a checkpoint and replaying the log is one recovery
+        step, so it faults with the per-seam probability, not with
+        that probability once for every replayed seam."""
+        self.check("submit", where)
+        return self.quiet()
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """Context manager under which seeded draws are off (scheduled
+        faults still fire): the failover controller's re-dispatch of
+        the batch whose submit faulted belongs to the recovery whose
+        one draw `one_seam` made."""
+        self._quiet += 1
+        try:
+            yield self
+        finally:
+            self._quiet -= 1
+
     def check(self, point: str, where: str = "") -> None:
         self.checks += 1
         if self._scheduled and self._scheduled[0] == point:
@@ -101,6 +127,8 @@ class DeviceFaultInjector:
             self.injected[point] += 1
             raise DeviceFaultError(
                 f"scheduled device fault at {point} ({where})")
+        if self._quiet:
+            return
         from ..flow.knobs import SERVER_KNOBS
         p = float(getattr(SERVER_KNOBS, "device_fault_injection", 0.0))
         if p <= 0.0:

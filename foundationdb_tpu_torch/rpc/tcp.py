@@ -18,6 +18,7 @@ transport's closed-connection semantics.
 
 from __future__ import annotations
 
+import select
 import socket
 import ssl
 import struct
@@ -236,6 +237,20 @@ class RetryingTcpRef:
             return
 
 
+def _wait_ready(sock, events: int, timeout_ms: int = 50) -> bool:
+    """Wait up to `timeout_ms` for `sock` to be ready for `events`;
+    False once the socket is closed. `poll`, not `select`: select
+    refuses descriptors at or above FD_SETSIZE (1024), which a busy
+    server or gateway reaches."""
+    fd = sock.fileno()
+    if fd < 0:                 # closed under us by _die
+        return False
+    p = select.poll()
+    p.register(fd, events)
+    p.poll(timeout_ms)
+    return True
+
+
 class _Conn:
     """One socket + its reader/writer threads (ref: connectionReader /
     connectionWriter). Outbound frames queue through the writer so the
@@ -252,6 +267,11 @@ class _Conn:
         self._wq: deque = deque()
         self._wq_event = threading.Event()
         self._lock = threading.Lock()
+        # one OpenSSL connection must not be read and written from two
+        # threads at once (a frame can be lost, and both sides wait for
+        # ever): a TLS socket is non-blocking after its handshake and
+        # each read or write holds this lock
+        self._io_lock = threading.Lock()
         self.pending: set = set()     # req_ids in flight on this conn
 
     def start(self) -> None:
@@ -298,6 +318,8 @@ class _Conn:
                             pass
                     raise OSError("bad handshake")
                 self.sock.settimeout(None)
+            if isinstance(self.sock, ssl.SSLSocket):
+                self.sock.setblocking(False)
             threading.Thread(target=self._reader, daemon=True).start()
             while True:
                 self._wq_event.wait()
@@ -308,18 +330,58 @@ class _Conn:
                     if frame is None:
                         self._wq_event.clear()
                         continue
-                self.sock.sendall(frame)
+                self._send_all(frame)
         except OSError:
             self._die()
+
+    def _send_all(self, data: bytes) -> None:
+        if not isinstance(self.sock, ssl.SSLSocket):
+            self.sock.sendall(data)
+            return
+        view = memoryview(data)
+        while view:
+            with self._io_lock:
+                try:
+                    n = self.sock.send(view)
+                except (ssl.SSLWantWriteError, ssl.SSLWantReadError):
+                    n = 0
+            if n:
+                view = view[n:]
+                continue
+            if not _wait_ready(self.sock, select.POLLOUT):
+                raise OSError("connection closed")
+
+    def _recv_exact(self, n: int) -> Optional[bytes]:
+        if not isinstance(self.sock, ssl.SSLSocket):
+            return _read_exact(self.sock, n)
+        buf = b""
+        while len(buf) < n:
+            with self._io_lock:
+                try:
+                    chunk = self.sock.recv(n - len(buf))
+                except (ssl.SSLWantReadError, ssl.SSLWantWriteError):
+                    chunk = None
+                except OSError:
+                    return None
+            if chunk is None:
+                # wait for bytes outside the lock; OpenSSL's own buffer
+                # was drained by the recv above
+                if not _wait_ready(self.sock, select.POLLIN):
+                    return None
+                continue
+            if not chunk:
+                return None
+            buf += chunk
+        return buf
 
     def _reader(self) -> None:
         try:
             while True:
-                hdr = _read_exact(self.sock, _HDR.size)
+                hdr = self._recv_exact(_HDR.size)
                 if hdr is None:
                     break
                 ln, kind, req_id, token = _HDR.unpack(hdr)
-                payload = _read_exact(self.sock, ln)
+                payload = self._recv_exact(ln)
                 if payload is None:
                     break
                 self.transport._post(("frame", self, kind, req_id, token,

@@ -1345,3 +1345,425 @@ def remote_read_back(rc, model: dict) -> int:
                 raise AssertionError(f"read back: {k!r} is {v!r}, the "
                                      f"acknowledged write {model[k]!r}")
     return len(keys)
+
+
+# -- role hosts: a resolver in its own OS process -----------------------------
+
+ROLE_HOST_CKPT_AT = 4       # the request after which the host checkpoints
+ROLE_HOST_KILL_AT = 8       # the SIGKILL comes after this request's reply
+ROLE_HOST_CKPT_EVERY = 6.0  # the host's checkpoint period (wall s)
+ROLE_HOST_WAIT = 300.0      # wall s a role host or a reply may take
+ROLE_HOST_DEPTH = 4         # requests in flight, as a proxy keeps them
+ROLE_CLUSTER_RESOLVERS = 2  # the commit pipeline's resolver hosts
+ROLE_CLUSTER_WORKERS = 2    # its proxy worker processes
+ROLE_CLUSTER_RATE = 400.0   # arrivals a wall s in all (the soak smoke's)
+ROLE_CLUSTER_DURATION = 8.0  # wall s of arrivals
+ROLE_CLUSTER_KILL_AT = 0.5  # the share of them offered at the kill
+
+
+def _wall_scheduler():
+    from . import flow
+    flow.set_seed(0)
+    s = flow.Scheduler(virtual=False)
+    flow.set_scheduler(s)
+    return s
+
+
+async def _role_status(ext, entry) -> dict:
+    """A role host's status document (its own counters and kernel
+    launches) over its status token."""
+    from . import flow
+    from .server.types import STATUS_REQUEST
+    return await flow.timeout_error(
+        ext._ref(entry, "status").get_reply(STATUS_REQUEST), 60.0)
+
+
+def role_launches(doc: dict) -> dict:
+    """{kernel: launches} from a role host's status document."""
+    return {k[len("launches."):]: n
+            for k, n in (doc.get("kernels") or {}).items()
+            if k.startswith("launches.")}
+
+
+def role_host_run(requests, replies, run_dir: str, *,
+                  backend: str = "cuda", device=None) -> dict:
+    """The resolver role in its own OS process (`tools.rolehost`, spawned
+    by `clusterbench.RoleProcs` with `device`), recruited over TCP on
+    `backend` (the master's init RPC) and sent `requests` (the
+    ResolveRequests of a chain from version 0), ROLE_HOST_DEPTH in
+    flight. Every reply must equal `replies[i]`, what the in-process
+    role answered.
+
+    After request ROLE_HOST_CKPT_AT this process waits for the host's
+    checkpoint (the first tick of its ROLE_HOST_CKPT_EVERY period, with
+    the pipeline idle); after request ROLE_HOST_KILL_AT the host is sent
+    SIGKILL and respawned on its pinned port: it restores the checkpoint
+    onto `device` and replays the journal above it (the count is checked
+    against the checkpoint file's version). A resend of request
+    ROLE_HOST_KILL_AT must return the byte-identical cached payload; the
+    requests after it must equal too. AssertionError at the first
+    difference.
+
+    Returns {"kill_to_ready_s", "kill_to_reply_s", "replayed",
+    "checkpoint_at" (the request the checkpoint covers), "checkpoints",
+    "launches" (each incarnation's {kernel: launches}), "batches" (each
+    incarnation's resolve batches, replays included), "requests_s" (the
+    first incarnation's wall s for its requests)}."""
+    import os
+    from . import flow
+    from .rpc import wire
+    from .tools.clusterbench import RoleProcs
+    ckpt_at, kill_at = ROLE_HOST_CKPT_AT, ROLE_HOST_KILL_AT
+    os.makedirs(run_dir, exist_ok=True)
+    roles = RoleProcs(n_resolvers=1, run_dir=run_dir,
+                      state_root=os.path.join(run_dir, "state"),
+                      backend=backend, device=device,
+                      checkpoint_every=ROLE_HOST_CKPT_EVERY)
+    ext = None
+    got = {}
+
+    def check(i, reply):
+        if reply != replies[i]:
+            raise AssertionError(f"role host: reply {i} differs from the "
+                                 "in-process role's")
+        got[i] = reply
+
+    async def send(resolves, indices):
+        """`requests[i]` for i in `indices`, ROLE_HOST_DEPTH in flight;
+        each reply checked in order."""
+        pending = []
+        for i in indices:
+            pending.append((i, resolves.get_reply(requests[i])))
+            while len(pending) >= ROLE_HOST_DEPTH or \
+                    (pending and i == indices[-1]):
+                j, fut = pending.pop(0)
+                check(j, await flow.timeout_error(fut, ROLE_HOST_WAIT))
+
+    try:
+        roles.spawn_all().wait_ready(timeout=ROLE_HOST_WAIT)
+        entry = roles.ready[("resolver", 0)]
+        s = _wall_scheduler()
+        ext = roles.external_roles()
+        out = {}
+
+        async def first():
+            resolves, _m, _h = await flow.timeout_error(flow.spawn(
+                ext.recruit_resolver(0, "role-host-r0", 0, backend)),
+                ROLE_HOST_WAIT)
+            t0 = time.perf_counter()
+            await send(resolves, list(range(ckpt_at + 1)))
+            secs = time.perf_counter() - t0
+            deadline = time.perf_counter() + ROLE_HOST_WAIT
+            while (await _role_status(ext, entry))[
+                    "counters"]["checkpoints"] < 1:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("role host: no checkpoint")
+                await flow.delay(0.05)
+            t0 = time.perf_counter()
+            await send(resolves, list(range(ckpt_at + 1, kill_at + 1)))
+            out["requests_s"] = secs + time.perf_counter() - t0
+            return await _role_status(ext, entry)
+
+        before = s.run(until=s.spawn(first()),
+                       timeout_time=flow.now() + 4 * ROLE_HOST_WAIT)
+        t_kill = time.perf_counter()
+        roles.kill("resolver", 0)
+        with open(os.path.join(run_dir, "state", "ext-resolver-0",
+                               "ckpt.bin"), "rb") as fh:
+            ck_version = wire.from_bytes(fh.read(), None)["version"]
+        covered = [i for i in range(kill_at + 1)
+                   if requests[i].version <= ck_version]
+        roles.respawn("resolver", 0)
+        roles.wait_ready(timeout=ROLE_HOST_WAIT)
+        out["kill_to_ready_s"] = time.perf_counter() - t_kill
+        entry = roles.ready[("resolver", 0)]
+
+        async def second():
+            resolves = ext._ref(entry, "resolves")
+            resend = await flow.timeout_error(
+                resolves.get_reply(requests[kill_at]), ROLE_HOST_WAIT)
+            out["kill_to_reply_s"] = time.perf_counter() - t_kill
+            if wire.to_bytes(resend) != wire.to_bytes(got[kill_at]):
+                raise AssertionError("role host: the resend of request "
+                                     f"{kill_at} is not the cached payload")
+            await send(resolves, list(range(kill_at + 1, len(requests))))
+            return await _role_status(ext, entry)
+
+        after = s.run(until=s.spawn(second()),
+                      timeout_time=flow.now() + 4 * ROLE_HOST_WAIT)
+    finally:
+        if ext is not None:
+            ext.close()
+        roles.terminate_all()
+        flow.set_scheduler(None)
+    replayed = after["counters"]["replayed"]
+    if replayed != kill_at + 1 - len(covered) or not covered:
+        raise AssertionError(
+            f"role host: replayed {replayed} requests; the checkpoint "
+            f"covers requests 0-{len(covered) - 1} of 0-{kill_at}")
+    out.update(
+        replayed=replayed, checkpoint_at=len(covered) - 1,
+        checkpoints=before["counters"]["checkpoints"],
+        launches=[role_launches(before), role_launches(after)],
+        batches=[kill_at + 1, replayed + len(requests) - kill_at - 1])
+    return out
+
+
+def role_cluster_procs(run_dir: str, *, backend: str = "cuda",
+                       device=None):
+    """`role_cluster_run`'s role hosts, spawned (not waited for): a caller
+    may start them early so that their start-up overlaps other work."""
+    import os
+    from .tools.clusterbench import RoleProcs
+    os.makedirs(run_dir, exist_ok=True)
+    return RoleProcs(n_resolvers=ROLE_CLUSTER_RESOLVERS, n_tlogs=1,
+                     run_dir=run_dir,
+                     state_root=os.path.join(run_dir, "state"),
+                     backend=backend, device=device).spawn_all()
+
+
+def role_cluster_run(run_dir: str, *, backend: str = "cuda", device=None,
+                     roles=None) -> dict:
+    """The commit pipeline with its resolvers and its log in other OS
+    processes (`clusterbench.run_tcp_cell(role_processes=True)`'s
+    shape): ROLE_CLUSTER_RESOLVERS resolver role hosts and one tlog role
+    host (`RoleProcs`, `device` handed to each), a wall-clock SimCluster
+    on `backend` with one proxy, one storage server and
+    `cc.external_roles` attached before its first epoch, and
+    ROLE_CLUSTER_WORKERS proxy worker processes (`clusterbench
+    --worker`) that fetch the gateway's peer describe, build their own
+    Proxy over TCP and send ROLE_CLUSTER_RATE arrivals a wall s in all
+    for ROLE_CLUSTER_DURATION s, each a read-write of its own key.
+    `roles`: the role hosts from `role_cluster_procs` (spawned here when
+    None). Resolver host 0 is sent SIGKILL once ROLE_CLUSTER_KILL_AT of
+    the arrivals are offered (halfway) and respawned on its pinned
+    port.
+
+    Checks (AssertionError): every arrival commits (a conflict, a
+    too-old or an error is a divergence); after the kill, commits
+    resume within CHAOS_RECOVERY_BOUND (`kill_to_commit_s`, None when
+    every arrival had committed before the respawn was ready); every
+    acknowledged write is read back afterwards (each worker's keys
+    0..committed-1, once each).
+
+    Returns {"committed", "offered", "elapsed" (wall s of the
+    workers' arrivals and drain), "txn_per_s", "commit" (each worker's
+    latency percentiles, ms), "kill_to_ready_s", "kill_to_commit_s",
+    "launches" ({host name: {kernel: launches}}, resolver host 0's
+    first incarnation as "<name> before the kill"), "read_back"}."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import threading
+    from . import flow
+    from .client import run_transaction
+    from .rpc.gateway import TcpGateway
+    from .rpc.tcp import TcpTransport
+    from .server import SimCluster
+    from .server import dbinfo as dbi
+    from .server.types import STATUS_REQUEST
+    from .tools.exporter import read_proc_files
+    n_res = ROLE_CLUSTER_RESOLVERS
+    rate, duration = ROLE_CLUSTER_RATE, ROLE_CLUSTER_DURATION
+    if roles is None:
+        roles = role_cluster_procs(run_dir, backend=backend, device=device)
+    cluster = gw = ext = probe = None
+    results, errors = [], []
+    out = {"launches": {}, "kill_to_commit_s": None}
+    try:
+        roles.wait_ready(timeout=ROLE_HOST_WAIT)
+        cluster = SimCluster(seed=0, virtual=False, n_proxies=1,
+                             n_resolvers=n_res, n_storage=1, n_logs=1,
+                             conflict_backend=backend, device=device)
+        ext = roles.external_roles()
+        cluster.cc.external_roles = ext
+        gw = TcpGateway(cluster.client("rolegw"), cluster=cluster)
+        probe = TcpTransport()
+        bound = float(flow.SERVER_KNOBS.chaos_recovery_bound)
+
+        def run_worker(idx: int) -> None:
+            cfg = {"host": "127.0.0.1", "port": gw.port,
+                   "seed": 1000 * (idx + 1), "index": idx,
+                   "duration": duration,
+                   "rate": rate / ROLE_CLUSTER_WORKERS,
+                   "run_dir": run_dir, "trace": 0,
+                   "trace_roll_size":
+                       int(flow.SERVER_KNOBS.trace_roll_size),
+                   "sample_every": 0, "commit_cost": 0.0,
+                   "batch_cap": 0, "max_inflight": 2048}
+            try:
+                p = subprocess.run(
+                    [sys.executable, "-m",
+                     "foundationdb_tpu_torch.tools.clusterbench",
+                     "--worker", json.dumps(cfg)],
+                    capture_output=True, text=True,
+                    timeout=duration + ROLE_HOST_WAIT)
+                lines = [ln for ln in p.stdout.splitlines() if ln.strip()]
+                if p.returncode != 0 or not lines:
+                    errors.append(f"worker {idx}: rc={p.returncode} "
+                                  f"stderr={p.stderr[-2000:]}")
+                    return
+                results.append(json.loads(lines[-1]))
+            except Exception as e:  # noqa: BLE001 — collected, reported
+                errors.append(f"worker {idx}: {e!r}")
+
+        async def worker_counts() -> dict:
+            """{worker role: counters} over each worker's status token
+            (all asked at once), or from its result once it has
+            exited."""
+            docs = {f"proxy-{r['index']}": r for r in list(results)}
+
+            async def ask(stub):
+                ref = probe.ref(stub["host"], int(stub["port"]),
+                                int(stub["status_token"]))
+                try:
+                    doc = await flow.timeout_error(
+                        ref.get_reply(STATUS_REQUEST), 5.0)
+                    docs.setdefault(stub["role"], doc.get("counters") or {})
+                except flow.FdbError:
+                    pass
+
+            await flow.wait_for_all([
+                flow.spawn(ask(stub)) for stub in read_proc_files(run_dir)
+                if stub.get("role", "").startswith("proxy-")
+                and stub["role"] not in docs])
+            return docs
+
+        def committed(counts) -> int:
+            return sum(c.get("committed", 0) for c in counts.values())
+
+        async def kill_at_half() -> None:
+            # ROLE_CLUSTER_KILL_AT of the arrivals offered (half: the
+            # other half arrive while resolver host 0 is down, however
+            # late the workers started), or every worker done
+            while len(results) < ROLE_CLUSTER_WORKERS:
+                counts = await worker_counts()
+                if len(counts) == ROLE_CLUSTER_WORKERS and sum(
+                        c.get("offered", 0) for c in counts.values()) \
+                        >= ROLE_CLUSTER_KILL_AT * rate * duration:
+                    break
+                await flow.delay(0.05)
+            entry = roles.ready[("resolver", 0)]
+            doc = await _role_status(ext, entry)
+            out["launches"][f"{entry['name']} before the kill"] = \
+                role_launches(doc)
+            # no batch resolves without resolver 0 (a proxy sends every
+            # batch to every resolver), and the respawn serves none
+            # before it writes its ready file: the first advance past
+            # the last count taken before that file's time is the
+            # pipeline committing again (the commits that land during
+            # the outage were resolved before the kill)
+            samples = [(time.time(), committed(await worker_counts()))]
+            t_kill = time.perf_counter()
+            roles.kill("resolver", 0)
+            roles.respawn("resolver", 0)
+            ready_path = os.path.join(run_dir,
+                                      f"ready.{entry['name']}.json")
+            while roles.check_ready("resolver", 0) is None:
+                if time.perf_counter() - t_kill > ROLE_HOST_WAIT:
+                    raise AssertionError("role cluster: the respawn is "
+                                         "not ready")
+                samples.append((time.time(),
+                                committed(await worker_counts())))
+                await flow.delay(0.05)
+            out["kill_to_ready_s"] = time.perf_counter() - t_kill
+            t_ready = os.stat(ready_path).st_mtime
+            stalled = max(n for t, n in samples if t < t_ready)
+            while True:
+                counts = await worker_counts()
+                if committed(counts) > stalled:
+                    out["kill_to_commit_s"] = time.perf_counter() - t_kill
+                    return
+                if len(results) == ROLE_CLUSTER_WORKERS:
+                    return     # every arrival committed before the kill
+                if time.perf_counter() - t_kill > bound:
+                    raise AssertionError(
+                        f"role cluster: no commit {bound} s after the kill "
+                        f"(ready after {out['kill_to_ready_s']:.3f} s, "
+                        f"{stalled} committed before)")
+                await flow.delay(0.05)
+
+        async def read_back(db) -> dict:
+            """Every worker's keys, by index, from a scan of the whole
+            keyspace (the lead byte is random, \\xff included). A blind
+            write through the host's own proxy first: its read versions
+            know only its own commits, and this one's version comes
+            after every worker's."""
+            async def fence(tr):
+                tr.set(b"\x00rolegw-fence", b"")
+            await run_transaction(db, fence)
+            keys, begin = {}, b""
+            while True:
+                async def page(tr, begin=begin):
+                    tr.set_option("read_system_keys")
+                    return await tr.get_range(begin, b"\xff\xff",
+                                              limit=CLUSTER_PAGE_ROWS)
+                rows = await run_transaction(db, page, max_retries=500)
+                for k, v in rows:
+                    if k[1:4] == b"sb/":
+                        idx, i = k[4:].split(b"/", 1)
+                        if v != b"v":
+                            raise AssertionError(f"read back: {k!r} is {v!r}")
+                        keys.setdefault(int(idx), []).append(int(i))
+                if len(rows) < CLUSTER_PAGE_ROWS:
+                    return keys
+                begin = rows[-1][0] + b"\x00"
+
+        async def main():
+            gw.start()
+            probe.start()
+            while cluster.cc.dbinfo.get().recovery_state != \
+                    dbi.FULLY_RECOVERED:
+                await flow.delay(0.05)
+            threads = [threading.Thread(target=run_worker, args=(i,),
+                                        daemon=True)
+                       for i in range(ROLE_CLUSTER_WORKERS)]
+            for t in threads:
+                t.start()
+            killer = flow.spawn(kill_at_half())
+            while any(t.is_alive() for t in threads):
+                if killer.is_ready:
+                    killer.get()   # raise its failure at once
+                await flow.delay(0.1)
+            await killer
+            for kind, i in roles.keys:
+                entry = roles.ready[(kind, i)]
+                out["launches"][entry["name"]] = role_launches(
+                    await _role_status(ext, entry))
+            return await read_back(cluster.client("readback"))
+
+        found = cluster.run(main(), timeout_time=flow.now()
+                            + 4 * ROLE_HOST_WAIT + duration)
+        if errors:
+            raise AssertionError("role cluster: " + "; ".join(errors))
+    finally:
+        if probe is not None:
+            probe.close()
+        if gw is not None:
+            gw.close()
+        if ext is not None:
+            ext.close()
+        if cluster is not None:
+            cluster.shutdown()
+        roles.terminate_all()
+        flow.set_scheduler(None)
+    for r in results:
+        lost = {k: r[k] for k in ("shed", "conflicted", "too_old", "errors")
+                if r[k]}
+        if lost or r["committed"] != r["offered"]:
+            raise AssertionError(f"role cluster: worker {r['index']} "
+                                 f"committed {r['committed']} of "
+                                 f"{r['offered']}: {lost}")
+        if sorted(found.get(r["index"], ())) != list(range(r["committed"])):
+            raise AssertionError(f"role cluster: worker {r['index']}'s "
+                                 "acknowledged writes not all read back")
+    elapsed = max(r["elapsed"] for r in results)
+    committed = sum(r["committed"] for r in results)
+    out.update(committed=committed,
+               offered=sum(r["offered"] for r in results),
+               elapsed=elapsed, txn_per_s=committed / elapsed,
+               commit=[r["commit"] for r in sorted(
+                   results, key=lambda r: r["index"])],
+               read_back=sum(len(v) for v in found.values()))
+    return out

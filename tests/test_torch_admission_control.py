@@ -1,6 +1,5 @@
 """The reference's cases of tests/test_admission_control.py on the port's
-SimCluster, the CLI's throttle case among them, without the exporter
-case (it needs `tools/exporter.py`, which the port does not have yet).
+SimCluster, the CLI's throttle case and the exporter case among them.
 
 Enforced admission control: GRV token
 buckets, strict priority ordering, bounded queues with retryable
@@ -706,6 +705,62 @@ def test_open_loop_storm_reports_attainment():
 
 
 # -- exporter families -------------------------------------------------
+
+def test_admission_exporter_families_round_trip():
+    from foundationdb_tpu_torch.tools.exporter import (parse_prometheus,
+                                                       render_prometheus)
+    status = {"cluster": {
+        "epoch": 1, "recovery_state": "fully_recovered",
+        "admission_control": {
+            "grv_admission_enabled": 1, "tag_throttling_enabled": 1,
+            "auto_tag_throttling_enabled": 1,
+            "admitted": {"immediate": 2, "default": 40, "batch": 3},
+            "queued_now": 1, "rejected": 4, "timed_out": 2,
+            "throttle_delayed": 7, "throttle_released": 6,
+            "throttle_rejected": 1, "confirm_rounds": 9,
+            "throttled_tags": [
+                {"tag": "ab", "tps": 5.0, "expiry": 99.0,
+                 "priority": "default", "auto": 1, "queued": 2}],
+            "auto_throttler": {"enabled": 1, "auto_throttles": 3,
+                               "auto_cleared": 1, "tracked_tags": 2,
+                               "active_auto": ["ab"]},
+            "client": {"backoffs": 11, "backoff_ms": 1200,
+                       "updates": 5, "tags_cached": 1},
+        },
+        "proxies": [{
+            "name": "proxy-e1-0", "counters": {},
+            "latency_bands": {},
+            "admission": {
+                "grv_admission_enabled": 1, "tag_throttling_enabled": 1,
+                "admitted": {"immediate": 2, "default": 40, "batch": 3},
+                "queued": {"immediate": 0, "default": 1, "batch": 0},
+                "rejected": 4, "timed_out": 2, "throttle_delayed": 7,
+                "throttle_released": 6, "throttle_rejected": 1,
+                "confirm_rounds": 9,
+                "tag_rows": [{"tag": "ab", "tps": 5.0, "expiry": 99.0,
+                              "priority": "default", "auto": 1,
+                              "queued": 2}]}}],
+    }}
+    samples = parse_prometheus(render_prometheus(status))
+    names = {n for n, _l, _v in samples}
+    for need in ("fdbtpu_admission_enabled", "fdbtpu_admission_admitted",
+                 "fdbtpu_admission_queued", "fdbtpu_admission_rejected",
+                 "fdbtpu_admission_timed_out",
+                 "fdbtpu_admission_confirm_rounds",
+                 "fdbtpu_throttle_tags", "fdbtpu_throttle_tag_tps",
+                 "fdbtpu_throttle_delayed", "fdbtpu_throttle_released",
+                 "fdbtpu_throttle_rejected",
+                 "fdbtpu_throttle_auto_written",
+                 "fdbtpu_throttle_auto_cleared",
+                 "fdbtpu_throttle_client", "fdbtpu_throttle_client_tags"):
+        assert need in names, f"exporter missing {need}"
+    tps = [(l, v) for n, l, v in samples if n == "fdbtpu_throttle_tag_tps"]
+    assert tps == [({"tag": "ab", "priority": "default", "auto": "1"},
+                    5.0)]
+    admitted = {l["priority"]: v for n, l, v in samples
+                if n == "fdbtpu_admission_admitted"}
+    assert admitted == {"immediate": 2.0, "default": 40.0, "batch": 3.0}
+
 
 
 def test_manual_throttle_roundtrip_through_cli():

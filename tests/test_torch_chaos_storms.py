@@ -1,8 +1,7 @@
 """The reference's chaos cases (tests/test_chaos_storms.py) on the port's
-SimCluster, without its two exporter cases (they need `tools/exporter.py`, which
-the port does not have yet), and
-the port's chaos stations and format-aware corruption helpers
-(`server.chaos`) without a cluster.
+SimCluster, its two exporter cases among them (the device-fault one on
+`cuda` at device="cpu"), and the port's chaos stations and format-aware
+corruption helpers (`server.chaos`) without a cluster.
 
 Sim2-grade cluster chaos: scenario storms with deterministic seed
 replay (server/chaos.py).
@@ -30,7 +29,7 @@ What is pinned here, in order:
   any red sim test replayable via `--seed`.
 - **The shared chaos schema**: network/disk/kill injections AND the
   device-fault seams roll into one `status.cluster.chaos` document
-  (the reference's exporter family needs `tools/exporter.py`).
+  and one `fdbtpu_chaos_*` exporter family.
 """
 
 import pytest
@@ -58,6 +57,9 @@ from foundationdb_tpu_torch.server.consistency import (  # noqa: E402
     check_consistency,
 )
 from foundationdb_tpu_torch.server.workloads import ChaosStorm  # noqa: E402
+from foundationdb_tpu_torch.ops.fault_injection import (  # noqa: E402
+    g_device_faults,
+)
 
 #: per-scenario default seeds for the matrix (any seed must pass — the
 #: nightly grid sweeps others; these are the deterministic tier-1 picks,
@@ -543,6 +545,86 @@ def test_swizzle_duplicates_oneway_datagrams():
 
 
 # -- the shared chaos schema ---------------------------------------------
+
+def test_device_faults_share_chaos_schema(sim_seed):
+    """The device-fault injector and the scenario storms report
+    through ONE status/exporter schema: a seam fault shows up as
+    `device_<point>` beside the network/disk kinds."""
+    from foundationdb_tpu_torch.tools.exporter import (parse_prometheus,
+                                                       render_prometheus)
+    c = SimCluster(seed=sim_seed(606), durable=True,
+                   conflict_backend="cuda", device="cpu", n_workers=5)
+    try:
+        db = c.client("dev")
+        before = dict(g_device_faults.injected)
+
+        async def main():
+            g_device_faults.schedule("submit")
+            for i in range(3):
+                async def w(tr, i=i):
+                    tr.set(b"d%d" % i, b"v")
+                await run_transaction(db, w)
+            return await db.get_status()
+
+        status = c.run(main(), timeout_time=300)
+        assert g_device_faults.injected["submit"] > before.get(
+            "submit", 0), g_device_faults.injected
+        chaos = status["cluster"]["chaos"]
+        assert chaos["injected"].get("device_submit", 0) >= \
+            g_device_faults.injected["submit"], chaos
+
+        samples = parse_prometheus(render_prometheus(status))
+        kinds = {l["kind"]: v for n, l, v in samples
+                 if n == "fdbtpu_chaos_injected"}
+        assert kinds.get("device_submit", 0) >= 1, kinds
+    finally:
+        c.shutdown()
+
+
+def test_storm_chaos_counters_reach_status_and_exporter(sim_seed):
+    """After a storm, status.cluster.chaos and the fdbtpu_chaos_*
+    exporter family answer 'did it actually fire' without trace greps,
+    and the cli renders a chaos section."""
+    from foundationdb_tpu_torch.tools.cli import Cli
+    from foundationdb_tpu_torch.tools.exporter import (parse_prometheus,
+                                                       render_prometheus)
+    seed = sim_seed(SCENARIO_SEEDS["partition_minority"])
+    kwargs = dict(SCENARIOS["partition_minority"].cluster_kwargs)
+    c = SimCluster(seed=seed, **kwargs)
+    try:
+        cli = Cli.for_cluster(c)
+        dbs = [c.client(f"chaos{i}") for i in range(3)]
+        storm = ChaosStorm(c, dbs, flow.g_random, "partition_minority")
+
+        async def main():
+            rep = await storm.run()
+            status = await dbs[0].get_status()
+            return rep, status
+
+        rep, status = c.run(main(), timeout_time=900)
+        chaos = status["cluster"]["chaos"]
+        assert chaos["scenarios"].get("partition_minority") == 1, chaos
+        assert chaos["injected"].get("partition") == 1, chaos
+        assert chaos["injected"].get("heal") == 1, chaos
+        assert chaos["messages_dropped"] > 0, chaos
+        assert chaos["events"] >= len(rep["events"]), chaos
+
+        samples = parse_prometheus(render_prometheus(status))
+        names = {n for n, _l, _v in samples}
+        for need in ("fdbtpu_chaos_injected", "fdbtpu_chaos_scenario_runs",
+                     "fdbtpu_chaos_events",
+                     "fdbtpu_chaos_messages_dropped"):
+            assert need in names, f"exporter missing {need}"
+        runs = {l["scenario"]: v for n, l, v in samples
+                if n == "fdbtpu_chaos_scenario_runs"}
+        assert runs.get("partition_minority") == 1, runs
+
+        details = cli.execute("status details")
+        assert "Chaos (injected faults):" in details, details
+        assert "scenario partition_minority" in details, details
+    finally:
+        c.shutdown()
+
 
 
 # -- the port's stations and corruption helpers, without a cluster ----

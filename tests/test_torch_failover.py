@@ -372,6 +372,51 @@ def test_device_fault_past_retries_raises(backend, retries, knobs):
     assert st["on_primary"] and st["active_backend"] == backend
 
 
+def test_rebuild_is_one_seam_for_the_injector(knobs):
+    """A failover rebuild draws once (`one_seam`) and its replay not at
+    all: at rate 1.0 the entry draw faults, inside `quiet` no seeded
+    draw does, and a scheduled fault still fires there."""
+    knobs("device_fault_injection", 1.0)
+    with pytest.raises(DeviceFaultError, match="rebuild"):
+        g_device_faults.one_seam("cuda.rebuild")
+    with g_device_faults.quiet():
+        for point in ("submit", "materialize", "drain"):
+            g_device_faults.check(point, "replay")
+        g_device_faults.schedule("drain")
+        with pytest.raises(DeviceFaultError, match="scheduled"):
+            g_device_faults.check("drain", "replay")
+    with pytest.raises(DeviceFaultError, match="injected"):
+        g_device_faults.check("submit", "after")
+
+
+def test_faults_in_flight_after_a_recovery_get_their_own_retries(knobs):
+    """A fault at drain, then a fault at the next submit before any
+    ticket drains from the device: each is its own fault with its own
+    rebuilds, so two retries absorb both, on the device."""
+    knobs("device_fault_retries", 1)
+    knobs("conflict_checkpoint_versions", 10 ** 9)
+    knobs("resolve_pipeline_depth", 4)
+    set_seed(9)
+    batches = rand_batches(14, 12)
+    plain = mk("cuda")
+    want = [plain.resolve(b, v, o) for b, v, o in batches]
+    fo = FailoverConflictSet(_factory("cuda"), backend_name="cuda")
+    got, pending = [], []
+    for i, (b, v, o) in enumerate(batches):
+        if i == 6:
+            g_device_faults.schedule("drain")
+        if i == 7:
+            g_device_faults.schedule("submit")
+        pending.append(fo.submit(b, v, o))
+        if len(pending) >= 4:
+            got.append(fo.drain(pending.pop(0)))
+    got.extend(fo.drain(t) for t in pending)
+    assert got == want
+    st = fo.failover_stats()
+    assert st["device_faults"] == 2 and st["device_recoveries"] == 2, st
+    assert st["failovers"] == 0 and st["on_primary"], st
+
+
 class _KernelBugBackend(PyConflictSet):
     """A backend whose kernel reports an error of its own at launch."""
 
@@ -448,6 +493,100 @@ def test_shadow_fail_stop_halts(knobs):
     with pytest.raises(ShadowResolveMismatch):
         for b, v, o in rand_batches(3, 30):
             fo.resolve(b, v, o)
+
+
+# -- the cluster surface ------------------------------------------------
+
+def test_cluster_failover_counters_in_status_and_exporter(knobs):
+    """A cuda-backed SimCluster (device="cpu") with seeded fault
+    injection: every fault is recovered on a fresh device backend, commits
+    keep succeeding, and the failover/shadow counters surface in
+    status, `status details`, the health messages, and the exporter."""
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.server import SimCluster
+    from foundationdb_tpu_torch.tools.cli import Cli
+    from foundationdb_tpu_torch.tools.exporter import (parse_prometheus,
+                                                       render_prometheus)
+
+    cluster = SimCluster(seed=606, durable=True, conflict_backend="cuda",
+                         device="cpu")
+    # knobs AFTER SimCluster re-initializes them
+    flow.SERVER_KNOBS.set("device_fault_injection", 0.05)
+    flow.SERVER_KNOBS.set("conflict_checkpoint_versions", 200_000)
+    flow.SERVER_KNOBS.set("shadow_resolve_sample", 2)
+    cli = Cli.for_cluster(cluster)
+    try:
+        db = cluster.client("fo")
+
+        async def main():
+            for i in range(25):
+                async def body(tr, i=i):
+                    await tr.get(b"fo%02d" % (i % 7))
+                    tr.set(b"fo%02d" % (i % 7), b"v%d" % i)
+                await run_transaction(db, body, max_retries=200)
+            return await db.get_status()
+
+        status = cluster.run(main(), timeout_time=600)
+        res = status["cluster"]["resolvers"]
+        assert res
+        fo = res[0]["failover"]
+        assert fo, "no failover section for a device backend"
+        assert fo["shadow"]["sample"] == 2
+        assert fo["shadow"]["sampled"] > 0
+        assert fo["shadow"]["mismatches"] == 0, fo
+        assert fo["checkpoints"] >= 0
+        assert fo["device_faults"] > 0, fo
+        assert fo["device_recoveries"] == fo["device_faults"], fo
+        assert fo["failovers"] == 0 and fo["on_primary"], fo
+        details = cli.execute("status details")
+        assert "Backend failover:" in details
+        assert "active=" in details
+        names = {n for n, _, _ in
+                 parse_prometheus(render_prometheus(status))}
+        for need in ("fdbtpu_conflict_failover_on_primary",
+                     "fdbtpu_conflict_failover_device_faults",
+                     "fdbtpu_shadow_resolve_sampled",
+                     "fdbtpu_shadow_resolve_mismatches"):
+            assert need in names, need
+    finally:
+        flow.SERVER_KNOBS.set("device_fault_injection", 0.0)
+        flow.SERVER_KNOBS.set("shadow_resolve_sample", 0)
+        cluster.shutdown()
+
+
+def test_cluster_fault_past_retries_fails_the_run(knobs):
+    """The reference's cluster case with no device retries: the first
+    device fault outlasts them, and the port's cluster stops with
+    DeviceFaultError instead of resolving on the CPU."""
+    from foundationdb_tpu_torch import flow
+    from foundationdb_tpu_torch.client import run_transaction
+    from foundationdb_tpu_torch.ops.fault_injection import DeviceFaultError
+    from foundationdb_tpu_torch.server import SimCluster
+
+    cluster = SimCluster(seed=606, durable=True, conflict_backend="cuda",
+                         device="cpu")
+    flow.SERVER_KNOBS.set("device_fault_injection", 0.05)
+    flow.SERVER_KNOBS.set("device_fault_retries", 0)
+    flow.SERVER_KNOBS.set("conflict_checkpoint_versions", 200_000)
+    flow.SERVER_KNOBS.set("shadow_resolve_sample", 2)
+    try:
+        db = cluster.client("fo")
+
+        async def main():
+            for i in range(25):
+                async def body(tr, i=i):
+                    await tr.get(b"fo%02d" % (i % 7))
+                    tr.set(b"fo%02d" % (i % 7), b"v%d" % i)
+                await run_transaction(db, body, max_retries=200)
+            return True
+
+        with pytest.raises(DeviceFaultError, match="no CPU fallback"):
+            cluster.run(main(), timeout_time=600)
+    finally:
+        flow.SERVER_KNOBS.set("device_fault_injection", 0.0)
+        flow.SERVER_KNOBS.set("shadow_resolve_sample", 0)
+        cluster.shutdown()
 
 
 # -- the resilient factory ----------------------------------------------

@@ -15,7 +15,14 @@ nonzero naming NoCudaDeviceError, its monitor restarts it into the same
 failure, and `serve` lets a device fault past the retries end it; with
 `--device cpu` it commits. The monitor spawns the port's server, and
 the port's server, monitor and CLI children serve, restart and answer
-with a `foundationdb_tpu` first on their path whose import raises."""
+with a `foundationdb_tpu` first on their path whose import raises. A
+role host (`tools.rolehost`) recruited on `cuda` without a card exits
+nonzero naming NoCudaDeviceError, `RoleProcs.check_ready` raises with
+it, and its respawn fails the same way; the soak on `cuda` without a
+card fails with it; `smoke --faults` recovers every fault on the device
+(no failover) and at the reference's seed fails with DeviceFaultError;
+the port's tools spawn the port's role hosts and workers, which serve
+with the unimportable `foundationdb_tpu` first on their path."""
 
 import ast
 import os
@@ -78,7 +85,11 @@ def test_port_sources_import_no_jax():
                                   "pubsub", "queue")),
                       ("tools", ("__init__", "_tlsargs", "networktest",
                                  "server", "monitor", "profiler",
-                                 "backup_tool", "cli"))):
+                                 "backup_tool", "cli", "rolehost",
+                                 "clusterbench", "exporter", "tracemerge",
+                                 "incident", "simprof", "soak", "smoke")),
+                      ("bindings", ("__init__", "c_client",
+                                    "multiversion"))):
         for mod in mods:
             assert os.path.join(PKG, sub, f"{mod}.py") in sources
     assert os.path.join(PKG, "parallel", "sharded_resolver.py") in sources
@@ -130,6 +141,17 @@ def test_port_import_loads_no_jax():
             "import foundationdb_tpu_torch.tools.backup_tool\n"
             "import foundationdb_tpu_torch.tools.profiler\n"
             "import foundationdb_tpu_torch.tools.networktest\n"
+            "import foundationdb_tpu_torch.tools.rolehost\n"
+            "import foundationdb_tpu_torch.tools.clusterbench\n"
+            "import foundationdb_tpu_torch.tools.exporter\n"
+            "import foundationdb_tpu_torch.tools.tracemerge\n"
+            "import foundationdb_tpu_torch.tools.incident\n"
+            "import foundationdb_tpu_torch.tools.simprof\n"
+            "import foundationdb_tpu_torch.tools.soak\n"
+            "import foundationdb_tpu_torch.tools.smoke\n"
+            "import foundationdb_tpu_torch.bindings\n"
+            "import foundationdb_tpu_torch.bindings.c_client\n"
+            "import foundationdb_tpu_torch.bindings.multiversion\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}"
             f" & set({sorted(FORBIDDEN)!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -615,3 +637,139 @@ def test_children_run_with_the_reference_unimportable(tmp_path):
     finally:
         _stop(mon)
     assert "must not be imported" not in mon.stderr.read()
+
+
+# -- role hosts, the soak, the smoke, and the tools' children --------------
+
+def _wall(body, timeout=180.0):
+    """Run `body()` on a wall-clock scheduler (the role tests' harness)."""
+    from foundationdb_tpu_torch import flow
+    flow.set_seed(0)
+    s = flow.Scheduler(virtual=False)
+    flow.set_scheduler(s)
+    try:
+        return s.run(until=s.spawn(body()), timeout_time=timeout)
+    finally:
+        flow.set_scheduler(None)
+
+
+def _failed_ready(roles, ext=None, recruit=False, timeout=120.0):
+    """Poll the resolver host until `check_ready` raises (recruiting it
+    on `cuda` first when asked); returns the error's text."""
+    from foundationdb_tpu_torch import flow
+
+    async def body():
+        if recruit:
+            flow.spawn(ext.recruit_resolver(0, "nocard-r0", 0, "cuda"))
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                roles.check_ready("resolver", 0)
+            except RuntimeError as e:
+                return str(e)
+            await flow.delay(0.05)
+        raise AssertionError("the role host neither failed nor exited")
+
+    return _wall(body, timeout + 30)
+
+
+def test_role_host_on_cuda_without_card_exits(tmp_path):
+    """A resolver role host at the default device, recruited on `cuda`
+    on a host without a card, exits nonzero with NoCudaDeviceError in
+    its log, and `RoleProcs.check_ready` raises naming it; its respawn
+    (which finds the init record and recovers onto `cuda`) fails the
+    same way, before it is ready. It never serves a verdict."""
+    from foundationdb_tpu_torch.tools.clusterbench import RoleProcs
+    roles = RoleProcs(n_resolvers=1, run_dir=str(tmp_path),
+                      state_root=str(tmp_path / "state"), seed=61)
+    ext = None
+    try:
+        roles.spawn_all().wait_ready(timeout=120)
+        ext = roles.external_roles()
+        first = _failed_ready(roles, ext, recruit=True)
+        assert "NoCudaDeviceError" in first and "rc=1" in first, first
+        assert roles.log_path("resolver", 0) in first, first
+        roles.respawn("resolver", 0)
+        again = _failed_ready(roles)
+        assert "NoCudaDeviceError" in again and "rc=1" in again, again
+        with pytest.raises(RuntimeError, match="NoCudaDeviceError"):
+            roles.wait_ready(timeout=5)
+    finally:
+        if ext is not None:
+            ext.close()
+        roles.terminate_all()
+    log = open(roles.log_path("resolver", 0)).read()
+    assert log.count("NoCudaDeviceError: ") >= 2, log[-3000:]
+
+
+def test_soak_on_cuda_without_card_fails(tmp_path):
+    """The soak on a `cuda` cluster at the default device asks for the
+    card before it spawns anything, and fails with NoCudaDeviceError."""
+    from foundationdb_tpu_torch import device, flow
+    from foundationdb_tpu_torch.tools.soak import run_soak
+    with pytest.raises(device.NoCudaDeviceError):
+        run_soak(processes=1, duration=2.0, kills=0, trace=False,
+                 run_dir=str(tmp_path), backend="cuda", out=lambda *a: None)
+    assert flow.get_scheduler() is None
+
+
+def test_fault_smoke_recovers_on_the_device(monkeypatch):
+    """`smoke --faults` at device="cpu", at the reference's seed and
+    rate: every injected fault is recovered on a fresh device backend
+    and none fails over. At a rate where every rebuild faults too, the
+    smoke fails with DeviceFaultError instead of serving CPU
+    verdicts."""
+    from foundationdb_tpu_torch.ops.fault_injection import DeviceFaultError
+    from foundationdb_tpu_torch.tools import smoke
+    assert smoke.FAULTS_SEED == 4646
+    lines = []
+    assert smoke.run_smoke_faults(out=lines.append, device="cpu") == 0
+    assert " 0 failovers" in lines[-1], lines
+    assert " 0 recoveries" not in lines[-1], lines
+    monkeypatch.setenv("DEVICE_FAULT_INJECTION", "1.0")
+    with pytest.raises(DeviceFaultError, match="no CPU fallback"):
+        smoke.run_smoke_faults(out=lines.append, device="cpu")
+
+
+def test_tools_children_run_with_the_reference_unimportable(
+        tmp_path, monkeypatch):
+    """The port's clusterbench spawns the port's role hosts (a resolver
+    and a tlog) and proxy workers, and they commit every arrival with a
+    `foundationdb_tpu` whose import raises first on their path; the
+    soak's workers do the same."""
+    from foundationdb_tpu_torch.tools import clusterbench, soak
+    poison = tmp_path / "poison"
+    (poison / "foundationdb_tpu").mkdir(parents=True)
+    (poison / "foundationdb_tpu" / "__init__.py").write_text(
+        "raise ImportError('the reference must not be imported')\n")
+    monkeypatch.setenv("PYTHONPATH", str(poison) + os.pathsep + ROOT)
+    monkeypatch.chdir(poison)
+    spawned = []
+    real_popen = subprocess.Popen
+
+    def popen(args, *a, **kw):
+        spawned.append(list(args))
+        return real_popen(args, *a, **kw)
+
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    cell = clusterbench.run_tcp_cell(
+        1, 1, seed=5, duration=1.5, rate=40.0,
+        run_dir=str(tmp_path / "cell"), role_processes=True)
+    assert cell["committed"] > 0 and cell["divergent_verdicts"] == 0, cell
+    doc = soak.run_soak(processes=1, duration=3.0, rate=40.0, kills=0,
+                        trace=False, run_dir=str(tmp_path / "soak"),
+                        out=lambda *a: None)
+    assert doc["totals"]["committed"] > 0, doc["totals"]
+    assert doc["totals"]["divergent_verdicts"] == 0, doc["totals"]
+    mods = {a[a.index("-m") + 1] for a in spawned if "-m" in a}
+    assert mods == {"foundationdb_tpu_torch.tools.rolehost",
+                    "foundationdb_tpu_torch.tools.clusterbench",
+                    "foundationdb_tpu_torch.tools.soak"}, mods
+    for d in ("cell", "soak"):
+        for dirpath, _dirs, files in os.walk(tmp_path / d):
+            for f in files:
+                if f.endswith((".log", ".stderr")):
+                    text = open(os.path.join(dirpath, f),
+                                errors="replace").read()
+                    assert "must not be imported" not in text, (f, text)
+

@@ -1,10 +1,12 @@
 """The reference's knob cases (tests/test_knobs.py) on the port's knob
-table: its size and BUGGIFY-distortion surface, and the distortion
-machinery producing distorted values under a buggified seed (and none
-with BUGGIFY off). The reference's dead-knob scan waits for the
-decision on trimming the port's table to the knobs it reads."""
+table: every registered knob is read by the port's code (the dead-knob
+scan over foundationdb_tpu_torch/, the port's bench.py among it), its
+size and BUGGIFY-distortion surface, and the distortion machinery
+producing distorted values under a buggified seed (and none with
+BUGGIFY off)."""
 
 import importlib
+import subprocess
 import pathlib
 import re
 
@@ -35,6 +37,20 @@ def default_buggify_rates():
 
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_every_knob_is_consumed():
+    k = make_server_knobs()
+    unconsumed = []
+    for name in k._defaults:
+        r = subprocess.run(
+            ["grep", "-rl", name.lower(), "foundationdb_tpu_torch/",
+             "--include=*.py"], capture_output=True, text=True, cwd=REPO)
+        files = [f for f in r.stdout.split()
+                 if not f.endswith("flow/knobs.py")]
+        if not files:
+            unconsumed.append(name)
+    assert not unconsumed, f"dead knobs (registered, never read): {unconsumed}"
 
 
 def test_knob_surface_size():

@@ -2,9 +2,8 @@
 port's `server.timekeeper`, `server.slo`, `server.systemkeys` and
 SimCluster: the codecs, the time map's lookups, the SLO rules, the off
 posture, and the history read back through `layers.metrics` with its
-janitor. The incident-bundle and trace-merge cases stay out: they need
-`tools/incident.py` and `tools/tracemerge.py`, which the port does not
-have yet.
+janitor, the incident bundle (`tools/incident.py`), and the trace roll
+read back by `tools/tracemerge.py`.
 
 Longitudinal observability pins: (1) the TimeKeeper/metric-history
 key+value codecs round-trip (including '/'-bearing signal names and
@@ -18,11 +17,15 @@ recorded rows, the SLO verdict and the time map are held against the
 reference in tests/test_torch_workload_parity.py.
 """
 
+import json
+import os
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from foundationdb_tpu_torch import flow  # noqa: E402
+from foundationdb_tpu_torch.flow import trace as trace_mod  # noqa: E402
 from foundationdb_tpu_torch.client import run_transaction  # noqa: E402
 from foundationdb_tpu_torch.layers import metrics as metrics_layer  # noqa: E402
 from foundationdb_tpu_torch.server import SimCluster  # noqa: E402
@@ -30,6 +33,7 @@ from foundationdb_tpu_torch.server import slo as slo_mod  # noqa: E402
 from foundationdb_tpu_torch.server import systemkeys as sk  # noqa: E402
 from foundationdb_tpu_torch.server import timekeeper as tk  # noqa: E402
 from foundationdb_tpu_torch.server.chaos import database_digest  # noqa: E402
+from foundationdb_tpu_torch.tools import tracemerge  # noqa: E402
 
 
 # -- codecs (pure) ---------------------------------------------------------
@@ -210,8 +214,105 @@ def test_off_posture_adds_nothing(sim_seed):
 
 # -- incident bundles ------------------------------------------------------
 
+def test_incident_bundle_contents(sim_seed, tmp_path):
+    from foundationdb_tpu_torch.tools import incident
+    seed = sim_seed(1706)
+    out_dir = str(tmp_path / "bundle")
+    c = SimCluster(seed=seed, metric_history=True)
+    try:
+        async def capture(db):
+            t1 = flow.now()
+            status = await db.get_status()
+            verdict = {"state": "breach", "breached": ["commit_p99"]}
+            return await incident.capture_bundle(
+                db, out_dir, (t1 - 6.0, t1 - 1.0), status_doc=status,
+                verdict=verdict, reason="test")
+
+        _db, main = _armed_workload(c, capture=capture)
+        manifest = c.run(main(), timeout_time=600)
+    finally:
+        c.shutdown()
+
+    assert manifest["reason"] == "test"
+    w = manifest["window"]
+    assert w["version_at_t0"] is not None \
+        and w["version_at_t0"] <= w["version_at_t1"]
+    assert manifest["samples"] > 0 and manifest["signals"]
+    assert manifest["timekeeper_rows"] > 0
+    for name in ("manifest.json", "series.json", "timekeeper.json",
+                 "status.json", "chaos.json"):
+        assert name in manifest["contents"], manifest["contents"]
+        assert os.path.exists(os.path.join(out_dir, name))
+    series = json.load(open(os.path.join(out_dir, "series.json")))
+    t0_ms, t1_ms = int(w["t0"] * 1000), int(w["t1"] * 1000)
+    for sig, samples in series.items():
+        for ts, _v in samples:
+            assert t0_ms <= ts <= t1_ms + 1, (sig, ts, w)
+    verdict = json.load(open(os.path.join(
+        out_dir, "manifest.json")))["verdict"]
+    assert verdict["breached"] == ["commit_p99"]
+
+
 
 # -- trace rolling + grouped merge -----------------------------------------
+
+def test_roll_restamps_identity_and_merge_reads_segments(tmp_path):
+    path = str(tmp_path / "trace.roller.7.jsonl")
+    trace_mod.set_process_identity("roller", pid=7)
+    col = trace_mod.TraceCollector(path, roll_size=400)
+    try:
+        for i in range(30):
+            col.emit({"Severity": 10, "Time": float(i), "Type": "Span",
+                      "Process": "roller:7", "SpanID": i + 1,
+                      "ParentID": None, "ID": f"d{i}",
+                      "Location": "RolledWork", "Begin": float(i),
+                      "End": i + 0.5})
+        col.flush()
+        assert col.rolled_files, "roll never triggered"
+        # every rolled-fresh segment re-stamps the identity header so
+        # each file is self-describing
+        with open(path) as fh:
+            first = json.loads(fh.readline())
+        assert first["Type"] == "ProcessIdentity"
+        assert first["ID"] == "roller:7"
+    finally:
+        col.close()
+        trace_mod.clear_process_identity()
+
+    # the whole segment family merges under ONE process, nothing falls
+    # back to the local-process bucket
+    merged = tracemerge.merge(str(tmp_path))
+    assert merged["processes"] == ["roller:7"]
+    assert len(merged["chains"]) == 30
+
+
+def test_tracemerge_segment_numeric_order(tmp_path):
+    """.10 sorts AFTER .2 (numeric, not lexicographic), the bare file
+    is the newest segment, and an identity header in the OLDEST
+    segment covers the whole group."""
+    base = "trace.m.1.jsonl"
+    names = [f"{base}.{i}" for i in (1, 2, 10)] + [base]
+    for n, name in enumerate(names):
+        rows = []
+        if name.endswith(".1"):
+            rows.append({"Type": "ProcessIdentity", "ID": "m:1"})
+        rows.append({"Type": "Span", "Process": "m:1",
+                     "SpanID": n + 1, "ParentID": None,
+                     "ID": f"d{n}", "Location": f"Seg{n}",
+                     "Begin": 10.0 + n, "End": 10.5 + n})
+        with open(tmp_path / name, "w") as fh:
+            for r in rows:
+                fh.write(json.dumps(r) + "\n")
+
+    groups = tracemerge.trace_file_groups(str(tmp_path))
+    assert len(groups) == 1
+    assert [os.path.basename(p) for p in groups[0]] == \
+        [f"{base}.1", f"{base}.2", f"{base}.10", base]
+    merged = tracemerge.merge(str(tmp_path))
+    assert merged["processes"] == ["m:1"]
+    assert tracemerge.LOCAL_PROCESS not in merged["processes"]
+    assert len(merged["chains"]) == 4
+
 
 
 # -- the history read back, and its janitor ---------------------------------

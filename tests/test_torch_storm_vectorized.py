@@ -1,6 +1,6 @@
 """The reference's cases of tests/test_storm_vectorized.py on the port's
-SimCluster, without the slow million-client cell and the simprof cases
-(they need `tools/simprof.py`, which the port does not have yet).
+SimCluster and `tools/simprof.py` (the million-client cell keeps the
+reference's `slow` mark).
 
 Simulator hot-path overhaul: vectorized storm schedules,
 pooled client actors, the coalesced-timer helper, the lean timer path,
@@ -530,4 +530,28 @@ def test_grv_batch_weight_rejects_bad_values():
 
 # -- the 10^6-client acceptance cell (scaled nightly proof runs in CI) ----
 
+@pytest.mark.slow
+def test_million_client_storm_cell():
+    """The acceptance configuration end to end via the same
+    entry point CI uses: 10^6 distinct clients, 10x horizon, zero
+    NoneType message rows, inside the nightly budget."""
+    from foundationdb_tpu_torch.tools.simprof import run_storm
+    rep = run_storm("overload_million")
+    stats = rep["stats"]
+    assert stats["distinct_clients"] == 1_000_000, stats
+    assert stats["completed"] > 0
+    types = [r["type"] for r in rep["message_stats"]["types"]]
+    assert types and not any("NoneType" in t for t in types), types
+    assert rep["sim_perf"]["sim_seconds"] >= 29.0   # 10x horizon
 
+
+def test_simprof_overrides_reach_the_storm():
+    """--clients/--horizon/--multiplex plumb through run_storm so any
+    population/horizon cell is reproducible from the CLI."""
+    from foundationdb_tpu_torch.tools.simprof import run_storm
+    rep = run_storm("overload", duration=1.0, clients=2000,
+                    horizon=2.0, multiplex=10)
+    stats = rep["stats"]
+    assert stats["n_clients"] == 2000
+    assert stats["clients_per_arrival"] == 10
+    assert rep["sim_perf"]["sim_seconds"] >= 2.0    # 1.0s x 2.0 horizon

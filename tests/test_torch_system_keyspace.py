@@ -1,6 +1,6 @@
 """The reference's system-keyspace cases (tests/test_system_keyspace.py)
-on the port's SimCluster, without its bindings case (fdb.api_version):
-the bindings are not ported yet. \xff system keyspace.
+on the port's SimCluster and bindings (fdb.api_version). \xff system
+keyspace.
 
 Ref: fdbclient/SystemData.cpp (keyServers/, conf/, excluded/ prefixes),
 system-key write protection (key_outside_legal_range without
@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import foundationdb_tpu_torch.bindings as fdb  # noqa: E402
 from foundationdb_tpu_torch import flow  # noqa: E402
 from foundationdb_tpu_torch.client import run_transaction  # noqa: E402
 from foundationdb_tpu_torch.server import SimCluster  # noqa: E402
@@ -103,6 +104,17 @@ def test_system_keyspace_reads_and_write_protection():
         assert c.run(main(), timeout_time=120)
     finally:
         c.shutdown()
+
+
+def test_api_version_selection():
+    fdb._selected_api_version = None
+    with pytest.raises(RuntimeError):
+        fdb.api_version(200)     # out of range
+    fdb.api_version(710)
+    fdb.api_version(710)         # idempotent re-selection is fine
+    with pytest.raises(RuntimeError):
+        fdb.api_version(630)     # conflicting re-selection is not
+    fdb._selected_api_version = None
 
 
 def test_clear_range_cannot_reach_system_space():

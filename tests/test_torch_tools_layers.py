@@ -1,6 +1,5 @@
-"""The reference's cases of tests/test_tools_layers.py on the port's CLI
-and backup layer, without test_fdb_binding_surface: it drives bindings/,
-which the port does not have yet.
+"""The reference's cases of tests/test_tools_layers.py on the port's CLI,
+backup layer and bindings (test_fdb_binding_surface).
 
 Tools + surfaces: the fdbcli analogue, backup/restore, and the
 fdb-style binding (ref: fdbcli/fdbcli.actor.cpp,
@@ -10,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import foundationdb_tpu_torch.bindings as fdb
 from foundationdb_tpu_torch.client import run_transaction
 from foundationdb_tpu_torch.layers import backup as bk
 from foundationdb_tpu_torch.server import SimCluster
@@ -95,6 +95,39 @@ def test_backup_rejects_garbage(tmp_path):
     p.write_bytes(b"not a backup")
     with pytest.raises(ValueError):
         bk.read_backup(str(p))
+
+
+def test_fdb_binding_surface():
+    c = SimCluster(seed=805)
+    try:
+        db = fdb.open(c)
+        users = fdb.Subspace(("users",))
+
+        @fdb.transactional
+        async def add_user(tr, uid, name):
+            tr.set(users.pack((uid,)), name)
+
+        @fdb.transactional
+        async def get_user(tr, uid):
+            return await tr.get(users.pack((uid,)))
+
+        @fdb.transactional
+        async def composed(tr, uid):
+            # a transactional called with a Transaction composes without
+            # a nested retry loop
+            await add_user(tr, uid, b"inner")
+            return await get_user(tr, uid)
+
+        async def main():
+            await add_user(db, 1, b"alice")
+            assert await get_user(db, 1) == b"alice"
+            assert await composed(db, 2) == b"inner"
+            assert fdb.tuple.unpack(users.pack((1,)))[-1] == 1
+            return True
+
+        assert c.run(main(), timeout_time=120)
+    finally:
+        c.shutdown()
 
 
 def test_cli_operator_commands():

@@ -1,7 +1,6 @@
-"""The reference's cases of tests/test_txn_profiling.py on the port. Its
-exporter case keeps the status half
-(test_status_surfaces_sampler_counters): the Prometheus half needs
-tools/exporter.py, which the port does not have yet.
+"""The reference's cases of tests/test_txn_profiling.py on the port, its
+exporter case among them (test_status_surfaces_sampler_counters, its
+status half alone, stays beside it).
 
 Sampled transaction profiling: the client sampler, the chunked
 \\xff\\x02/fdbClientInfo/client_latency/ keyspace, the analyzer, and
@@ -455,6 +454,32 @@ def test_cli_profile_commands():
     finally:
         flow.SERVER_KNOBS.set("profile_sample_rate", 0.0)
         c.shutdown()
+
+
+def test_status_and_exporter_surface_sampler_counters():
+    from foundationdb_tpu_torch.tools.exporter import (parse_prometheus,
+                                                       render_prometheus)
+    c = _sampled_cluster(seed=510)
+    try:
+        db = c.client("prof")
+
+        async def main():
+            async def w(tr):
+                tr.set(b"a", b"b")
+            await run_transaction(db, w)
+            await flow.delay(1.0)
+            return await db.get_status()
+
+        status = c.run(main(), timeout_time=120)
+        prof = status["cluster"]["client_profile"]
+        assert prof["transactions_sampled"] >= 1, prof
+        assert prof["records_written"] >= 1, prof
+        samples = parse_prometheus(render_prometheus(status))
+        got = {l["counter"]: v for n, l, v in samples
+               if n == "fdbtpu_client_profile"}
+        assert got.get("transactions_sampled", 0) >= 1, got
+    finally:
+        _teardown(c)
 
 
 def test_status_surfaces_sampler_counters():

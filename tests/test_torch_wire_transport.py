@@ -6,7 +6,10 @@ serialize-everything delivery; and its TCP and TLS cases over the
 port's `rpc/tcp.py`: a dying connection fails pending requests and a
 later one reconnects, a localhost counter service, and mutual TLS with
 a rogue certificate refused at the handshake (its 240 s bound kept:
-loaded machines starve TLS handshakes)."""
+loaded machines starve TLS handshakes); and a TLS connection on
+descriptors above FD_SETSIZE."""
+
+import os
 
 import pytest
 
@@ -262,3 +265,51 @@ def test_tcp_tls_mutual_auth(tmp_path):
         client.close()
         rogue.close()
         fl.set_scheduler(None)
+
+
+def test_tcp_tls_on_a_high_fd(tmp_path):
+    """A TLS connection whose sockets lie above FD_SETSIZE (1024) on
+    both ends carries requests both ways: the TLS reader and writer
+    wait with poll, which takes any descriptor."""
+    from foundationdb_tpu_torch.rpc.tcp import (TcpRequestStream,
+                                                TcpTransport, TlsConfig)
+
+    cert, key = _make_cert(tmp_path, "cluster")
+    tls = TlsConfig(cert, key, cert)
+    filler = []
+    while not filler or filler[-1] < 1100:
+        filler.append(os.open(os.devnull, os.O_RDONLY))
+    fl.set_seed(19)
+    s = fl.Scheduler(virtual=False)
+    fl.set_scheduler(s)
+    server = TcpTransport(tls=tls)
+    client = TcpTransport(tls=tls)
+    try:
+        stream = TcpRequestStream(server)
+        server.start()
+        client.start()
+        assert server._srv.fileno() >= 1024
+
+        async def serve():
+            while True:
+                req, reply = await stream.pop()
+                reply.send(req + b"!")
+
+        async def main():
+            fl.spawn(serve())
+            ref = client.ref("127.0.0.1", server.port, stream.token)
+            for i in range(20):
+                payload = bytes([i]) * (1 << 16)   # spans TLS records
+                assert await ref.get_reply(payload) == payload + b"!"
+            conns = list(client._conns.values())
+            assert conns and all(c.sock.fileno() >= 1024 for c in conns)
+            return True
+
+        t = s.spawn(main())
+        assert s.run(until=t, timeout_time=240)
+    finally:
+        server.close()
+        client.close()
+        fl.set_scheduler(None)
+        for fd in filler:
+            os.close(fd)
