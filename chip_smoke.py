@@ -32,6 +32,13 @@ resolver re-bases its int32 version window mid-run.
     of that prefix, and its history stitched across the shards (the
     stitch `checkpoint()` decodes) the interval history mid-stream and
     at the end.
+  - The unpacked feed: the interval and sharded paths again over all
+    their batches with INTERVAL_PACKED_FEED=0 (the step's 12 inputs,
+    each its own copy: K3's and K8's unpacked entries) and =1, in
+    turns. Every batch's verdicts must equal the path's packed
+    run; at least 10 counted transfers a batch unpacked, exactly 1
+    packed; no device fault. It prints each feed's ms a batch, busy
+    share and launches a batch.
   - The failover wrapper, `create_resilient_conflict_set` around the
     three CUDA backends: no fault and no failover on a clean run, and
     with a device fault injected at each seam, recovery onto a fresh
@@ -139,8 +146,10 @@ resolver re-bases its int32 version window mid-run.
     second, commit latency and each role host's own launches.
   - The bench entry, `python -m foundationdb_tpu_torch.bench` in `all`
     mode as a subprocess: one JSON line carrying the card's name, every
-    cross-check of its modes met, its chains' count equal to this
-    script's.
+    cross-check of its modes met (`cuda-packed`, the streamed interval
+    row under each feed, among them), its chains' count equal to this
+    script's; then `--dry`, the packed/unpacked parity gate, on the
+    card.
 
 Each path's timed window runs four times on a fresh resolver; in two of
 those runs CUDA events bracket each batch's device work, which gives
@@ -213,6 +222,10 @@ SHARDED_CPU_BATCHES = WARMUP  # the sharded path's CPU comparison (~10-30
                               # s); its re-base at batch 8 is held to the
                               # interval path's, itself held to the CPU
                               # past it, by the stitched history
+FEED_BATCHES = WARMUP + TIMED  # the feed runs (INTERVAL_PACKED_FEED=1
+                               # and =0): every batch, the re-base at 8
+                               # and the window's GC from 20 inside
+BUDGET_S = 720                # the script's time budget, 60% of 1,200 s
 SPANS = (False, True, True, False)   # per timed window: CUDA-event spans
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 # int32 operations outside the tensor cores: 132 SMs x 64 INT32 lanes at
@@ -1641,6 +1654,100 @@ def run_pipelined(cs, batches, spans=False):
 def final_state(cs):
     cs._sync_count()
     return cs._hk.cpu(), cs._hv.cpu(), cs._count_hint
+
+
+def entry_calls(prefix) -> int:
+    """Calls of the resolve entries whose profile names start with
+    `prefix` (`resolve[`, `resolve_packed[`, `sharded[`,
+    `sharded_packed[`): which entry, packed or unpacked, a run took."""
+    from foundationdb_tpu_torch.ops.conflict_kernel import g_kernel_counters
+    return sum(v for k, v in g_kernel_counters.snapshot().items()
+               if k.startswith(prefix) and k.endswith(".calls"))
+
+
+def feed_phase(tag, batches, paths) -> dict:
+    """Each streamed interval path again over FEED_BATCHES batches
+    under both feeds, INTERVAL_PACKED_FEED=1 and =0, in turns
+    (packed, unpacked, unpacked, packed; CUDA-event spans in the second
+    of each), each on a fresh resolver with the launch counts set to 0
+    just before and read just after. Every batch's verdicts must equal
+    the path's packed run over all its batches; the unpacked runs must
+    take the unpacked entry with at least 10 counted transfers a batch,
+    the packed ones the packed entry with exactly 1; no device fault
+    (the resolvers run unwrapped: a fault fails the script). `paths`:
+    (label, make, packed verdicts, kernels, entry name). Returns
+    {label: {knob: [(seconds, device ms or None, counts, h2d)]}}."""
+    from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.ops.fault_injection import g_device_faults
+    n = FEED_BATCHES
+    faults = dict(g_device_faults.injected)
+    saved = int(SERVER_KNOBS.interval_packed_feed)
+    out = {}
+    try:
+        for label, make, want, kernels, entry in paths:
+            res = out[label] = {1: [], 0: []}
+            for knob, spans in ((1, False), (0, False), (0, True),
+                                (1, True)):
+                SERVER_KNOBS.set("INTERVAL_PACKED_FEED", knob)
+                name = f"{label} {'packed' if knob else 'unpacked'}"
+                cs = make(None)
+                zero_counts()
+                calls = (entry_calls(f"{entry}["),
+                         entry_calls(f"{entry}_packed["))
+                got, secs, dev_ms, _snap, _host = run_streamed(
+                    cs, batches[:n], spans=spans)
+                c = launch_counts()
+                calls = (entry_calls(f"{entry}[") - calls[0],
+                         entry_calls(f"{entry}_packed[") - calls[1])
+                for i, g in enumerate(got):
+                    if not np.array_equal(g, want[i]):
+                        raise AssertionError(
+                            f"{name}: verdicts of batch {i} differ from "
+                            "the packed run's")
+                idle = [k for k in kernels if c[k] <= 0]
+                if idle:
+                    raise AssertionError(f"{name} never launched {idle}")
+                h2d = cs.kernel_stats()["h2d"]
+                if (knob and (h2d["per_batch"] != 1.0 or calls != (0, n))) \
+                        or (not knob and (h2d["per_batch"] < 10
+                                          or calls != (n, 0))):
+                    raise AssertionError(f"{name}: h2d {h2d}, unpacked and "
+                                         f"packed entry calls {calls}")
+                res[knob].append((secs, dev_ms, c, h2d))
+                del cs
+    finally:
+        SERVER_KNOBS.set("INTERVAL_PACKED_FEED", saved)
+    if g_device_faults.injected != faults:
+        raise AssertionError(f"device faults in the feed runs: "
+                             f"{g_device_faults.injected}")
+    timed = n - WARMUP
+    rec = {"card": tag, "batches": n, "timed": timed}
+    for label, _make, _want, kernels, _entry in paths:
+        ms, line = {}, []
+        for knob in (1, 0):
+            (secs, _, c, h2d), (secs_s, dev_ms, _, _) = out[label][knob]
+            ms[knob] = secs / timed * 1e3
+            rec[f"{label} {'packed' if knob else 'unpacked'}"] = {
+                "ms_per_batch": ms[knob],
+                "ms_per_batch_spans_on": secs_s / timed * 1e3,
+                "busy": dev_ms / (secs_s * 1e3), "h2d": h2d,
+                "launches_per_batch": {k: c[k] / n for k in kernels}}
+            line.append(
+                f"{'packed' if knob else 'unpacked'} {ms[knob]:.3f} ms/batch "
+                f"(spans on {secs_s / timed * 1e3:.3f}), busy "
+                f"{100 * dev_ms / (secs_s * 1e3):.1f}% "
+                f"({dev_ms / timed:.3f} ms/batch in spans), h2d "
+                f"{h2d['per_batch']} a batch ({h2d['bytes'] / n:.0f} bytes), "
+                "launches/batch "
+                + ", ".join(f"{k} {c[k] / n:.3f}" for k in kernels))
+        print(f"[{tag}] {label} feeds over {n} batches ({timed} timed), "
+              f"verdicts equal to the packed run's in all {n}: "
+              + "; ".join(line)
+              + f"; unpacked / packed {ms[0] / ms[1]:.3f}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "feeds.json"), "w") as f:
+        f.write(json.dumps(rec) + "\n")
+    return out
 
 
 def failover_phase(tag) -> None:
@@ -3261,8 +3368,11 @@ def entry_phase(tag, chain_total) -> dict:
     """`python -m foundationdb_tpu_torch.bench` in `all` mode at
     ENTRY_BATCHES batches: exit 0, one JSON line naming this card, every
     cross-check of its modes met (the entry refuses to publish when one
-    fails; they are read here again), and its chains' count equal to the
-    chain phase's. The record goes to chiprun_out/bench_entry.json."""
+    fails; they are read here again), `cuda-packed`'s feeds at 1 and at
+    least 10 transfers a batch, and its chains' count equal to the chain
+    phase's; then `--dry`, the parity gate (packed against unpacked,
+    python and brute force), exit 0. The records go to
+    chiprun_out/bench_entry.json and bench_dry.json."""
     import torch
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("FDBTPU_BENCH_")}
@@ -3292,18 +3402,38 @@ def entry_phase(tag, chain_total) -> dict:
     if set(checks["chains_equal"].values()) != {chain_total}:
         raise AssertionError(f"bench entry chains {checks['chains_equal']} "
                              f"vs the chain phase's {chain_total}")
+    packed = sub["cuda-packed"]
+    if packed["h2d_packed"]["per_batch"] != 1.0 \
+            or packed["h2d_unpacked"]["per_batch"] < 10:
+        raise AssertionError(f"bench entry's cuda-packed h2d: {packed}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "bench_entry.json"),
               "w") as f:
         f.write(lines[0] + "\n")
+    # the parity gate: packed against unpacked, python and brute force
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "foundationdb_tpu_torch.bench",
+                        "--dry"], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    dry_secs = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"bench --dry exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    dry = json.loads(r.stdout.strip().splitlines()[-1])
+    if not dry["ok"] or dry["device"]["name"] != card["name"]:
+        raise AssertionError(f"bench --dry record {dry}")
+    with open(os.path.join(ROOT, "chiprun_out", "bench_dry.json"),
+              "w") as f:
+        f.write(json.dumps(dry) + "\n")
     t = sub["transport"]
     print(f"[{tag}] bench entry (all, {ENTRY_BATCHES} batches, "
           f"{secs:.1f} s): value {rec['value']} txn/s "
           f"({rec['config']['backend']}), card {card}; "
           + "; ".join(f"{m} {sub[m]['txn_per_s']}"
                       for m in ("cuda-point", "cuda", "cuda-streamed",
-                                "cuda-streamed-interval", "cuda-pipelined",
-                                "native", "native-streamed", "python"))
+                                "cuda-streamed-interval", "cuda-packed",
+                                "cuda-pipelined", "native",
+                                "native-streamed", "python"))
           + f" txn/s; pipelined by depth {sub['cuda-pipelined']['txn_per_s_by_depth']}; "
           f"chains ms/batch {sub['cuda-point']['ms_per_batch']} / "
           f"{sub['cuda']['ms_per_batch']}, enqueue ms/step "
@@ -3311,6 +3441,14 @@ def entry_phase(tag, chain_total) -> dict:
           f"{sub['cuda']['enqueue_ms_per_step']}; transport "
           f"{t['dispatch_roundtrip_ms']} ms round trip, {t['h2d_mb_s']} "
           f"MB/s H2D; cross-checks {checks}", flush=True)
+    print(f"[{tag}] bench entry cuda-packed: packed {packed['txn_per_s']} / "
+          f"unpacked {packed['unpacked_txn_per_s']} txn/s, "
+          f"speedup_vs_unpacked {packed['speedup_vs_unpacked']}, h2d a "
+          f"batch {packed['h2d_packed']['per_batch']} / "
+          f"{packed['h2d_unpacked']['per_batch']} ({packed['h2d_packed']} / "
+          f"{packed['h2d_unpacked']}); --dry ({dry_secs:.1f} s): ok, "
+          f"{dry['batches']} batches, {dry['txns']} txns, {dry['conflicts']} "
+          f"conflicts, packed = unpacked = python = brute force", flush=True)
     return rec
 
 
@@ -3650,6 +3788,12 @@ def main() -> int:
           f"and {rows[1]} steps); final rows per shard max {state_s[2]}",
           flush=True)
 
+    # the unpacked feed (INTERVAL_PACKED_FEED=0) on both streamed
+    # interval paths, held batch by batch to their packed runs
+    feeds = feed_phase(tag, batches, (
+        ("interval", backend, got_a, INTERVAL_KERNELS, "resolve"),
+        ("sharded", sharded_backend, _got_s, SHARDED_KERNELS, "sharded")))
+
     role_counts, role_kept = role_phase(tag)
     commit_counts = commit_leg_phase(tag)
     cluster_counts, cluster_batches = cluster_phase(tag)
@@ -3758,6 +3902,8 @@ def main() -> int:
         by_path["tester"] = tester_counts[name]
         by_path["server"] = server_counts_[name]
         by_path["role host"] = host_counts[name]
+        for p in feeds:
+            by_path[f"{p} unpacked"] = feeds[p][0][0][2][name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
                 else "chain" if name in ("chain_gen", "chain_tally")
@@ -3805,7 +3951,9 @@ def main() -> int:
               f"cluster batch, {by_path['tester'] / tester_batches:.3f} "
               f"tester batch, {by_path['server'] / server_batches:.3f} "
               f"server batch, {by_path['role host'] / host_batches:.3f} "
-              "role host batch", flush=True)
+              "role host batch, "
+              + ", ".join(f"{by_path[f'{p} unpacked'] / FEED_BATCHES:.3f} "
+                          f"{p} unpacked" for p in feeds), flush=True)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches,
                      "launches_by_path": by_path,
@@ -3837,7 +3985,8 @@ def main() -> int:
               f"against a bound of {bound:.6f} ms (K9 + {step} + K10; the "
               f"step's bound on the {kind} path's mid-stream state); CPU "
               f"{r['cpu_ms_per_step']:.1f} ms/step over the prefix", flush=True)
-    print(f"[{tag}] total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[{tag}] total {time.perf_counter() - t_start:.1f} s (budget "
+          f"{BUDGET_S} s)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,9 @@ Modes (FDBTPU_BENCH_BACKEND, default `all`):
   cuda-streamed           create_conflict_set("cuda-point"), resolve_arrays
                           over host batches from default_rng(20260729)
   cuda-streamed-interval  the same through create_conflict_set("cuda")
+  cuda-packed             cuda-streamed-interval with INTERVAL_PACKED_FEED=1
+                          (one H2D copy a batch) and then 0 (the unpacked
+                          feed, 12 copies a batch) on the same batches
   cuda-pipelined          submit_arrays / drain_arrays at depth
                           FDBTPU_BENCH_PIPELINE_DEPTH
   python, native          the CPU baselines through the object API
@@ -33,8 +36,10 @@ FDBTPU_BENCH_BATCHES (timed batches, 100), FDBTPU_BENCH_KEYS (keyspace,
 
 `all` refuses to publish (raises, no JSON line) when the native
 object-API and streamed rows count different conflicts, when the
-pipelined depths do, when the two streamed backends do, or when the
-point and interval chains do: each pair resolves the same batches.
+pipelined depths do, when the two streamed backends do, when the packed
+mode and the streamed interval row do, or when the point and interval
+chains do: each pair resolves the same batches. `cuda-packed` itself
+refuses when its two feeds count different conflicts.
 
 `--cpu` runs every mode on the kernels' plain PyTorch versions (the
 tests use it). Without it the device modes need a CUDA card: with none,
@@ -69,7 +74,7 @@ WINDOW_BATCHES = MWTLV // VERSION_STEP
 STREAM_SEED = 20260729
 DRY_SEED = 20260804
 DEVICE_MODES = ("cuda-point", "cuda", "cuda-streamed",
-                "cuda-streamed-interval", "cuda-pipelined")
+                "cuda-streamed-interval", "cuda-packed", "cuda-pipelined")
 MODES = DEVICE_MODES + ("python", "native", "native-streamed", "all")
 
 
@@ -153,6 +158,35 @@ def bench_streamed(n_txns, n_batches, keyspace, device, backend="point"):
     elapsed = time.perf_counter() - t0
     return (n_batches * n_txns / elapsed, n_conflicts,
             cs.kernel_stats()["h2d"])
+
+
+def bench_packed(n_txns, n_batches, keyspace, device):
+    """The packed interval feed against the unpacked one (`bench.py:326
+    bench_tpu_packed`): the same seeded streamed interval batches through
+    `resolve_arrays` with INTERVAL_PACKED_FEED=1 (one H2D copy a batch)
+    and =0 (12 copies a batch); the knob is restored after. The two
+    feeds give the same verdicts by construction, so diverging conflict
+    counts refuse to publish. Returns (packed txn/s, conflicts,
+    detail)."""
+    from .flow.knobs import SERVER_KNOBS
+    saved = int(SERVER_KNOBS.interval_packed_feed)
+    try:
+        SERVER_KNOBS.set("INTERVAL_PACKED_FEED", 1)
+        tps_p, nc_p, h2d_p = bench_streamed(n_txns, n_batches, keyspace,
+                                            device, "interval")
+        SERVER_KNOBS.set("INTERVAL_PACKED_FEED", 0)
+        tps_u, nc_u, h2d_u = bench_streamed(n_txns, n_batches, keyspace,
+                                            device, "interval")
+    finally:
+        SERVER_KNOBS.set("INTERVAL_PACKED_FEED", saved)
+    if nc_p != nc_u:
+        raise RuntimeError(f"packed/unpacked interval conflict counts "
+                           f"diverged: {nc_p} vs {nc_u} - refusing to "
+                           f"publish")
+    return tps_p, nc_p, {
+        "unpacked_txn_per_s": round(tps_u, 1),
+        "speedup_vs_unpacked": round(tps_p / tps_u, 2) if tps_u else None,
+        "h2d_packed": h2d_p, "h2d_unpacked": h2d_u}
 
 
 def bench_pipelined(n_txns, n_batches, keyspace, depth, device):
@@ -359,12 +393,14 @@ def run_dry(device) -> int:
     """The parity gate (`bench.py --dry`): seeded random interval
     batches (mixed widths, empty ranges, tooOld snapshots, growth from
     a 1024-row history) resolved with attribution through
-    `CudaConflictSet`'s packed feed; verdicts and attribution must equal
-    `PyConflictSet`'s, verdicts `BruteForceConflictSet`'s. The port's
-    resolver has only the packed feed, so the reference's unpacked leg
-    has no counterpart here. No timing is published."""
+    `CudaConflictSet` under INTERVAL_PACKED_FEED=1 and =0 (the knob is
+    restored after), and through `PyConflictSet`; the packed run's
+    verdicts and attribution must equal the unpacked run's and
+    python's, its verdicts `BruteForceConflictSet`'s. No timing is
+    published."""
     import random
 
+    from .flow.knobs import SERVER_KNOBS
     from .models import (BruteForceConflictSet, PyConflictSet,
                          ResolverTransaction)
     from .models.cuda_resolver import CudaConflictSet
@@ -391,25 +427,38 @@ def run_dry(device) -> int:
             for _ in range(rng.randrange(1, 24))]
         batches.append((version, max(0, version - MWTLV), batch))
 
-    cs = CudaConflictSet(capacity=1 << 10, device=device)  # forces growth
-    packed = [cs.resolve_with_attribution(b, v, o) for v, o, b in batches]
+    runs = {}
+    saved = int(SERVER_KNOBS.interval_packed_feed)
+    try:
+        for label, knob in (("packed", 1), ("unpacked", 0)):
+            SERVER_KNOBS.set("INTERVAL_PACKED_FEED", knob)
+            cs = CudaConflictSet(capacity=1 << 10, device=device)  # growth
+            runs[label] = [cs.resolve_with_attribution(b, v, o)
+                           for v, o, b in batches]
+    finally:
+        SERVER_KNOBS.set("INTERVAL_PACKED_FEED", saved)
     py = PyConflictSet()
-    python = [py.resolve_with_attribution(b, v, o) for v, o, b in batches]
+    runs["python"] = [py.resolve_with_attribution(b, v, o)
+                      for v, o, b in batches]
     bf = BruteForceConflictSet()
     bf_verdicts = [bf.resolve(b, v, o) for v, o, b in batches]
 
     detail = ""
-    for i, (a, b) in enumerate(zip(packed, python)):
-        if a != b:
-            detail = f"packed vs python diverged at batch {i}: {a} != {b}"
+    for label in ("unpacked", "python"):
+        for i, (a, b) in enumerate(zip(runs["packed"], runs[label])):
+            if a != b:
+                detail = (f"packed vs {label} diverged at batch {i}: "
+                          f"{a} != {b}")
+                break
+        if detail:
             break
     if not detail:
-        for i, (a, v) in enumerate(zip(packed, bf_verdicts)):
+        for i, (a, v) in enumerate(zip(runs["packed"], bf_verdicts)):
             if a[0] != v:
                 detail = (f"packed vs brute-force verdicts diverged at "
                           f"batch {i}: {a[0]} != {v}")
                 break
-    n_conf = sum(sum(1 for x in v if x == 0) for v, _a in packed)
+    n_conf = sum(sum(1 for x in v if x == 0) for v, _a in runs["packed"])
     print(json.dumps({
         "metric": "packed_interval_parity", "dry": True, "ok": not detail,
         "batches": n_batches,
@@ -467,6 +516,15 @@ def _run_all(n_txns, n_batches, keyspace, device) -> dict:
     if len(set(streamed.values())) != 1:
         raise RuntimeError(f"per-mode conflict counts diverged: {streamed} "
                            f"- refusing to publish")
+    # the packed mode resolves the streamed interval row's batches again
+    # under each feed: it must count that row's conflicts
+    tps, nc, detail = bench_packed(n_txns, n_batches, keyspace, device)
+    packed = {"cuda-packed": nc,
+              "cuda-streamed-interval": streamed["cuda-streamed-interval"]}
+    if len(set(packed.values())) != 1:
+        raise RuntimeError(f"per-mode conflict counts diverged: {packed} "
+                           f"- refusing to publish")
+    sub["cuda-packed"] = {**_rate(tps), "conflicts": nc, **detail}
     pdepth = _pipeline_depth()
     by_depth, conflicts_by_depth, pipe_by_depth = {}, {}, {}
     for k in sorted({1, 2, 4, 8} | {pdepth}):
@@ -490,6 +548,7 @@ def _run_all(n_txns, n_batches, keyspace, device) -> dict:
     sub.update(cpu_sub_metrics(n_txns, n_batches, keyspace))
     sub["cross_checks"] = {
         "chains_equal": chains, "streamed_equal": streamed,
+        "packed_equal": packed,
         "pipelined_equal_across_depths": conflicts_by_depth,
         "native_rows_equal": {
             "native": sub["native"]["conflicts"],
@@ -543,6 +602,9 @@ def main() -> int:
             n_txns, n_batches, keyspace, device,
             "point" if backend == "cuda-streamed" else "interval")
         sub[backend] = {"h2d": h2d}
+    elif backend == "cuda-packed":
+        txn_per_s, n_conflicts, sub[backend] = bench_packed(
+            n_txns, n_batches, keyspace, device)
     elif backend == "cuda-pipelined":
         pdepth = _pipeline_depth()
         txn_per_s, n_conflicts, pstats = bench_pipelined(

@@ -13,7 +13,11 @@ is, and only the runtime glue differs:
     CUDA event that says when it has landed;
   - the packed feed is staged in a rotating pool of pinned host
     buffers (pipeline depth + 2 entries); an entry is reused only after
-    the event recorded behind its last host->device copy has fired.
+    the event recorded behind its last host->device copy has fired;
+  - with INTERVAL_PACKED_FEED=0 (read on every batch) the batch goes
+    instead as the unpacked step's 12 inputs, each its own copy from a
+    fresh pageable host array: the packed feed's parity baseline and
+    rollback, as in the reference.
 
 Host responsibilities (everything the kernel cannot do with static
 shapes): marshal batches into flat padded arrays, bucketing counts to
@@ -732,13 +736,33 @@ class CudaConflictSet(ConflictSetBase):
                                     self._n_words, attribute=attribute)
         return self._run_step(fn, dev_buf)
 
+    def _call_kernel(self, npad, nrp, nwp, args, attribute: bool):
+        """Run one unpacked batch (its 12 device inputs) through the
+        single-shard step (the sharded resolver overrides this)."""
+        from ..ops.conflict_kernel import make_resolve_fn
+        fn = make_resolve_fn(self._cap, npad, nrp, nwp, self._n_words,
+                             attribute=attribute)
+        return self._run_step(fn, *args)
+
+    def _h2d(self, a: np.ndarray) -> torch.Tensor:
+        """Unpacked-feed transfer: one device tensor per input, copied
+        from the fresh host array `a` (pageable, so the copy has read it
+        before this returns), counted as one transfer and its bytes."""
+        t = torch.from_numpy(np.require(a, requirements="CW"))
+        p = self.profile
+        p.counter("h2d_transfers").add(1)
+        p.counter("h2d_bytes").add(int(t.nbytes))
+        return t.to(self._device)
+
     def _dispatch(self, n, snapshots, too_old, rb, re, rt, wb, we, wt,
                   offsets, attribute: bool = False):
-        """Pad one batch to its shape bucket, build the packed feed
-        buffer IN PLACE over reused staging, and launch. rb/re/wb/we are
-        either flat lists of raw key bytes (encoded straight into the
-        buffer) or pre-encoded [n, W+1] arrays (memcpy'd)."""
+        """Pad one batch to its shape bucket and launch it, through the
+        packed feed (INTERVAL_PACKED_FEED=1: the buffer built IN PLACE
+        over reused staging, one transfer) or the unpacked one (=0).
+        rb/re/wb/we are either flat lists of raw key bytes or
+        pre-encoded [n, W+1] arrays."""
         commit_off, oldest_off, fixup = offsets
+        from ..flow.knobs import SERVER_KNOBS
         from ..ops.conflict_kernel import SNAP_CLAMP
 
         nr, nw = len(rt), len(wt)
@@ -748,12 +772,19 @@ class CudaConflictSet(ConflictSetBase):
         self._audit_capacity(2 * nw)
         self._note_occupancy(n, npad, nr, nrp, nw, nwp)
 
+        snap_off = np.clip(snapshots - self._base, 0,
+                           SNAP_CLAMP).astype(np.int32)
+        if not int(SERVER_KNOBS.interval_packed_feed):
+            count, conflict, read_hit = self._dispatch_unpacked(
+                n, npad, nrp, nwp, snap_off, too_old, rb, re, rt, wb, we,
+                wt, commit_off, oldest_off, fixup, attribute)
+            self._note_count(count, 2 * nw)
+            return conflict, read_hit
         ent = self._staging_views(npad, nrp, nwp)
         v = ent.views
         v.hdr[0] = commit_off
         v.hdr[1] = oldest_off
-        v.snap[:n] = np.clip(snapshots - self._base, 0,
-                             SNAP_CLAMP).astype(np.int32)
+        v.snap[:n] = snap_off
         v.snap[n:] = 0
         v.too_old[:n] = too_old
         v.too_old[n:] = 0
@@ -779,6 +810,52 @@ class CudaConflictSet(ConflictSetBase):
         self._span_end(span)
         self._note_count(count, 2 * nw)
         return conflict, read_hit
+
+    def _dispatch_unpacked(self, n, npad, nrp, nwp, snap_off, too_old,
+                           rb, re, rt, wb, we, wt, commit_off, oldest_off,
+                           fixup, attribute: bool):
+        """The multi-transfer feed (INTERVAL_PACKED_FEED=0): the step's
+        12 inputs padded as the reference pads them, each its own
+        counted transfer, then the unpacked step."""
+        nr, nw = len(rt), len(wt)
+        if not isinstance(rb, np.ndarray):
+            keys = encode_keys(list(rb) + list(re) + list(wb) + list(we),
+                               self._key_bytes)
+            rb, re = keys[:nr], keys[nr:2 * nr]
+            wb, we = keys[2 * nr:2 * nr + nw], keys[2 * nr + nw:]
+        snap_p = np.zeros(npad, np.int32)
+        snap_p[:n] = snap_off
+        tooold_p = np.zeros(npad, bool)
+        tooold_p[:n] = too_old
+        rvalid = np.zeros(nrp, bool)
+        rvalid[:nr] = True
+        wvalid = np.zeros(nwp, bool)
+        wvalid[:nw] = True
+        span = self._span_start()
+        h2d = self._h2d
+        args = (h2d(snap_p), h2d(tooold_p),
+                h2d(self._pad_keys(rb, nrp)), h2d(self._pad_keys(re, nrp)),
+                h2d(self._pad_idx(rt, nrp, npad)), h2d(rvalid),
+                h2d(self._pad_keys(wb, nwp)), h2d(self._pad_keys(we, nwp)),
+                h2d(self._pad_idx(wt, nwp, npad)), h2d(wvalid),
+                h2d(np.int32(commit_off)), h2d(np.int32(oldest_off)))
+        self._span_end(span)
+        span = self._span_start()
+        out = self._call_kernel(npad, nrp, nwp, args, attribute)
+        self._apply_fixup(fixup)
+        self._span_end(span)
+        return out
+
+    def _pad_keys(self, a: np.ndarray, size: int) -> np.ndarray:
+        out = np.zeros((size, self._n_words + 1), np.uint32)
+        out[:a.shape[0]] = a
+        return out
+
+    @staticmethod
+    def _pad_idx(a: np.ndarray, size: int, fill: int) -> np.ndarray:
+        out = np.full((size,), fill, np.int32)
+        out[:a.shape[0]] = a
+        return out
 
     # -- device time of the stream (off unless asked for) ---------------
     def time_device(self, on: bool = True) -> None:

@@ -795,6 +795,24 @@ def resolve_step_sharded_packed(hk, hv, buf, lows, highs, n_txns: int,
 
 
 @functools.lru_cache(maxsize=None)
+def make_resolve_sharded_fn(n_shards: int, cap: int, n_txns: int,
+                            n_reads: int, n_writes: int, n_words: int,
+                            attribute: bool = True):
+    """Profiled, fault-seamed unpacked sharded entry for one shape
+    bucket: fn(HK, HV, *12 inputs, lows, highs, out=None) -> (HK'[S],
+    HV'[S], count[S], conflict, read_hit)."""
+    def fn(hk, hv, *args, out=None):
+        return resolve_step_sharded(hk, hv, *args, attribute=attribute,
+                                    out=out)
+
+    tag = "" if attribute else "/noattr"
+    fn = profile_kernel(
+        fn, f"sharded[{n_shards}s/{cap}c/{n_txns}t/{n_reads}r/"
+            f"{n_writes}w{tag}]")
+    return _fault_seamed(fn, f"sharded[{cap}c]")
+
+
+@functools.lru_cache(maxsize=None)
 def make_resolve_sharded_packed_fn(n_shards: int, cap: int, n_txns: int,
                                    n_reads: int, n_writes: int, n_words: int,
                                    attribute: bool = True):
@@ -811,6 +829,21 @@ def make_resolve_sharded_packed_fn(n_shards: int, cap: int, n_txns: int,
         fn, f"sharded_packed[{n_shards}s/{cap}c/{n_txns}t/{n_reads}r/"
             f"{n_writes}w{tag}]")
     return _fault_seamed(fn, f"sharded_packed[{cap}c]")
+
+
+@functools.lru_cache(maxsize=None)
+def make_resolve_fn(cap: int, n_txns: int, n_reads: int, n_writes: int,
+                    n_words: int, attribute: bool = True):
+    """Profiled, fault-seamed unpacked entry for one shape bucket:
+    fn(HK, HV, *12 inputs, out=None) -> (HK', HV', count, conflict,
+    read_hit)."""
+    def fn(hk, hv, *args, out=None):
+        return resolve_step(hk, hv, *args, attribute=attribute, out=out)
+
+    tag = "" if attribute else "/noattr"
+    fn = profile_kernel(
+        fn, f"resolve[{cap}c/{n_txns}t/{n_reads}r/{n_writes}w{tag}]")
+    return _fault_seamed(fn, f"resolve[{cap}c]")
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,7 +12,8 @@ own partition.
 Where the reference puts one shard on each device and combines the
 external verdicts and every intra-batch fixpoint round with a psum over
 the mesh, here the S shards run in lockstep on ONE card inside one
-resolve step (K8, ops/conflict_kernel.py resolve_step_sharded_packed):
+resolve step (K8, ops/conflict_kernel.py resolve_step_sharded_packed,
+or resolve_step_sharded with INTERVAL_PACKED_FEED=0):
 the external verdicts are ORed over the shards, and the fixpoint runs
 once on the OR of the shards' overlap matrices, which K8 builds as one
 matrix over the unclipped non-empty ranges. That is the same combine
@@ -153,6 +154,15 @@ class ShardedCudaConflictSet(CudaConflictSet):
                                             nrp, nwp, self._n_words,
                                             attribute=attribute)
         return self._run_step(fn, dev_buf, self._lows, self._highs)
+
+    def _call_kernel(self, npad, nrp, nwp, args, attribute: bool):
+        """One unpacked batch (INTERVAL_PACKED_FEED=0: its 12 inputs,
+        each its own counted transfer) through every shard, as the
+        packed one: K8's unpacked entry."""
+        from ..ops.conflict_kernel import make_resolve_sharded_fn
+        fn = make_resolve_sharded_fn(self._n_shards, self._cap, npad, nrp,
+                                     nwp, self._n_words, attribute=attribute)
+        return self._run_step(fn, *args, self._lows, self._highs)
 
 
 def load_reference_sharded_state(hk, hv, *, base: int, oldest: int,

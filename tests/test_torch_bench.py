@@ -1,7 +1,8 @@
 """The port's bench entry (`python -m foundationdb_tpu_torch.bench`) and
 its native C++ baseline: the entry prints one JSON line with every
 `all` cross-check met on the plain versions (`--cpu`), its parity gate
-passes (`--dry --cpu`), it exits 2 without a card and never falls back
+passes (`--dry --cpu`) and fails, as the packed mode refuses to publish,
+when the unpacked feed diverges; it exits 2 without a card and never falls back
 to the CPU; the port's NativeConflictSet gives the reference's
 NativeConflictSet and PyConflictSet verdicts and attribution; the
 chains' capacity audit raises on a cap that is too small; the entry
@@ -72,8 +73,8 @@ def test_entry_all_prints_one_line_with_every_cross_check():
                                                                     3000)
     sub = rec["sub_metrics"]
     for mode in ("cuda-point", "cuda", "cuda-streamed",
-                 "cuda-streamed-interval", "cuda-pipelined", "native",
-                 "python", "native-streamed", "transport"):
+                 "cuda-streamed-interval", "cuda-packed", "cuda-pipelined",
+                 "native", "python", "native-streamed", "transport"):
         assert mode in sub
     checks = sub["cross_checks"]
     chains = set(checks["chains_equal"].values())
@@ -81,6 +82,7 @@ def test_entry_all_prints_one_line_with_every_cross_check():
     assert len(chains) == 1 and len(streamed) == 1
     assert len(set(checks["pipelined_equal_across_depths"].values())) == 1
     assert len(set(checks["native_rows_equal"].values())) == 1
+    assert set(checks["packed_equal"].values()) == streamed
     # the streamed rows, the pipelined sweep and the native rows resolve
     # the same seeded batches (the CPU rows over a capped prefix)
     assert streamed == set(checks["pipelined_equal_across_depths"].values())
@@ -89,9 +91,14 @@ def test_entry_all_prints_one_line_with_every_cross_check():
     assert sub["cuda-pipelined"]["txn_per_s_by_depth"].keys() == {"1", "2",
                                                                  "4", "8"}
     assert sub["cuda-streamed"]["h2d"]["per_batch"] == 1.0
+    packed = sub["cuda-packed"]
+    assert packed["h2d_packed"]["per_batch"] == 1.0
+    assert packed["h2d_unpacked"]["per_batch"] == 12.0
+    assert packed["unpacked_txn_per_s"] > 0 and packed["speedup_vs_unpacked"]
 
 
-@pytest.mark.parametrize("mode", ("cuda-point", "cuda", "native-streamed"))
+@pytest.mark.parametrize("mode", ("cuda-point", "cuda", "cuda-packed",
+                                  "native-streamed"))
 def test_entry_single_modes(mode):
     r = run_entry("--cpu", env={**SMALL, "FDBTPU_BENCH_BACKEND": mode})
     assert r.returncode == 0, r.stderr
@@ -110,6 +117,38 @@ def test_entry_dry_parity_gate():
     assert r.returncode == 0, r.stderr
     rec = json.loads(r.stdout.strip())
     assert rec["ok"] is True and rec["dry"] is True and rec["conflicts"] > 0
+
+
+def flip_unpacked_verdicts(monkeypatch):
+    """Break the unpacked step (every conflict flag inverted), as a
+    diverging unpacked feed would."""
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    real = ck.resolve_step
+
+    def flipped(*a, **k):
+        hk, hv, count, conflict, read_hit = real(*a, **k)
+        return hk, hv, count, ~conflict, read_hit
+
+    monkeypatch.setattr(ck, "resolve_step", flipped)
+
+
+def test_dry_gate_fails_when_the_unpacked_feed_diverges(monkeypatch,
+                                                        capsys):
+    from foundationdb_tpu_torch import bench
+    flip_unpacked_verdicts(monkeypatch)
+    monkeypatch.setenv("FDBTPU_BENCH_DRY_BATCHES", "6")
+    assert bench.run_dry(torch.device("cpu")) == 1
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert rec["ok"] is False and "packed vs unpacked" in rec["error"]
+
+
+def test_packed_mode_refuses_diverging_counts(monkeypatch):
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS
+    flip_unpacked_verdicts(monkeypatch)
+    with pytest.raises(RuntimeError, match="refusing to publish"):
+        bench.bench_packed(64, 3, 3000, torch.device("cpu"))
+    assert int(SERVER_KNOBS.interval_packed_feed) == 1
 
 
 @pytest.mark.parametrize("args", ((), ("--dry",)))

@@ -1,6 +1,7 @@
 """Port parity for models/failover.py, on the port's backends built with
 device="cpu" (the kernels' plain versions behind the same fault seams):
-checkpoints restore across every backend with identical verdicts after;
+checkpoints restore across every backend with identical verdicts after
+(the native backend's and python's into each other too);
 scheduled device faults at each seam with batches in flight fail over
 with a verdict stream identical to the fault-free run and to the
 reference's CPU baseline; a device fault that outlasts the retries
@@ -28,7 +29,9 @@ from foundationdb_tpu_torch.models import (  # noqa: E402
     PyConflictSet,
     ResolverTransaction,
     ShadowResolveMismatch,
+    create_conflict_set,
     create_resilient_conflict_set,
+    native_available,
 )
 from foundationdb_tpu_torch.models.cuda_resolver import (  # noqa: E402
     CudaConflictSet,
@@ -81,6 +84,8 @@ BACKEND_KW = {"sharded-cuda": {"n_shards": 4}}
 def mk(name, **kw):
     if name == "python":
         return PyConflictSet(**kw)
+    if name == "native":
+        return create_conflict_set("native", **kw)
     if name == "cuda":
         return CudaConflictSet(device="cpu", **kw)
     if name == "sharded-cuda":
@@ -131,6 +136,29 @@ def test_checkpoint_restore_cross_backend_parity(producer, restorer):
     assert r.oldest_version == a.oldest_version
     for b, v, o in batches[20:]:
         assert r.resolve(b, v, o) == a.resolve(b, v, o)
+
+
+def test_checkpoint_restore_native_parity():
+    """The native backend against python, and each one's checkpoint
+    restored into the other: verdicts equal before and after, and equal
+    to the reference's CPU baseline."""
+    if not native_available():
+        pytest.skip("native backend unavailable")
+    batches = rand_batches(5, 30)
+    a = mk("native")
+    ref = mk("python")
+    for b, v, o in batches[:20]:
+        assert a.resolve(b, v, o) == ref.resolve(b, v, o)
+    r_py = mk("python")
+    r_py.restore(a.checkpoint())
+    r_nat = mk("native")
+    r_nat.restore(ref.checkpoint())
+    want = ref_verdicts(5, 30)
+    for i, (b, v, o) in enumerate(batches[20:], 20):
+        got = a.resolve(b, v, o)
+        assert got == want[i]
+        assert r_py.resolve(b, v, o) == got
+        assert r_nat.resolve(b, v, o) == got
 
 
 def test_point_checkpoint_roundtrip_and_cross_restore():
