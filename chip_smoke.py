@@ -32,6 +32,18 @@ resolver re-bases its int32 version window mid-run.
     of that prefix, and its history stitched across the shards (the
     stitch `checkpoint()` decodes) the interval history mid-stream and
     at the end.
+  - The key-range sharded resolver with one shard a device,
+    `create_conflict_set("sharded-cuda", devices=...)`: the same 4
+    shards on four distinct cards where the host has them (round robin
+    over two or three), else on four logical devices of cuda:0, through
+    K8e, the all-gather of the external read flags and K8f. K8e and K8f
+    first held to their plain versions on every batch kind at the
+    cell's shape; then every batch's verdicts must equal the lockstep
+    sharded run's, the state after the CPU prefix its CPU run's, the
+    per-shard state after batches 195 and 386 the lockstep state (and
+    its stitch the interval history); K1, K2, K7, K8e and K8f each
+    launched 4 times a batch, 4 counted transfers a batch, no device
+    fault; then the port's `dryrun_multichip(4)` on those devices.
   - The unpacked feed: the interval and sharded paths again over all
     their batches with INTERVAL_PACKED_FEED=0 (the step's 12 inputs,
     each its own copy: K3's and K8's unpacked entries) and =1, in
@@ -244,13 +256,14 @@ WINDOW_SHAPES = (("interval", (CAPACITY,)), ("point", (POINT_CAPACITY,)),
                  ("sharded", (N_SHARDS, SHARD_CAPACITY)))
 L2_FLUSH_BYTES = 128 << 20
 ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
-ROLE_BATCHES = 32      # the role traffic's ResolveRequests (the leg's)
+ROLE_BATCHES = 32      # the role traffic's ResolveRequests (the leg's first)
 ROLE_CUT_BATCHES = 16  # each backend's role run (cut for the time)
 ROLE_HOST_BATCHES = 16  # the role-host phase's requests (the role's first)
 ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
 ROLE_DUP_AT = 12       # batch whose successor's two copies wait on it
 ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
-COMMIT_READ_AT = 30    # the commit leg's older point reads: batch 30's
+COMMIT_BATCHES = 24    # the commit leg's batches, the role traffic's first
+COMMIT_READ_AT = 22    # the commit leg's older point reads: batch 22's
 COMMIT_SAMPLE = 4096   # version, inside the storage's MVCC window
 COMMIT_CPU_BATCHES = 4   # the leg's prefix held to the CPU leg
 CLUSTER_CLIENTS = 64     # the cluster phase: concurrent clients, each
@@ -1050,6 +1063,211 @@ def check_sharded_edges(dev):
             raise AssertionError("an empty range conflicted in the plain K8")
 
 
+def mid_feed(dev, mid, batch, version):
+    """The packed feed of `batch` at `version` (commit, new oldest) on
+    the version base of a mid-stream state `mid` (HK, HV, base, oldest),
+    on the card, and its 12 inputs as views of it."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    _hk, _hv, base, oldest = mid
+    T = R = Wr = N_TXNS
+    snapshots, _has_reads, rb, re, rt, wb, we, wt = batch
+    v, o = version
+    snap_off = np.clip(snapshots - base, 0, ck.SNAP_CLAMP).astype(np.int32)
+    buf = torch.from_numpy(ck.pack_interval_batch(
+        snap_off, snapshots < oldest, rb, re, rt, np.ones(R, bool), wb, we,
+        wt, np.ones(Wr, bool), v - base, max(oldest, o) - base)).to(dev)
+    return buf, ck.interval_unpack(buf, T, R, Wr, N_WORDS)
+
+
+def device_list():
+    """The per-device phase's devices: four shards, one a card on a host
+    with four or more cards, round robin over the cards on one with two
+    or three, four logical devices of cuda:0 on one with one card."""
+    import torch
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(N_SHARDS)]
+
+
+def split_steps_on_card(state, lows, highs, feed, attribute, packed):
+    """K8e on every shard of `state` (HK[S], HV[S] on the card, one shard
+    a logical device of it, each with its own scratch), the flags
+    stacked as the all-gather leaves them, then K8f on every shard:
+    (ext_all, [(HK', HV', count, conflict, read_hit)] a shard)."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    hk, hv = state
+    n = hk.shape[0]
+    T = R = Wr = N_TXNS
+    scr = [ck.shard_scratch(hk[i], T, R, Wr) for i in range(n)]
+    ext_all = torch.empty((n, R), dtype=torch.bool, device=hk.device)
+    for i in range(n):
+        if packed:
+            ck.resolve_shard_ext_packed(hk[i], hv[i], feed, lows[i],
+                                        highs[i], T, R, Wr, out=ext_all[i],
+                                        scratch=scr[i])
+        else:
+            ck.resolve_shard_ext(hk[i], hv[i], *feed, lows[i], highs[i],
+                                 out=ext_all[i], scratch=scr[i])
+    outs = []
+    for i in range(n):
+        if packed:
+            outs.append(ck.resolve_shard_finish_packed(
+                hk[i], hv[i], feed, lows[i], highs[i], ext_all, T, R, Wr,
+                attribute=attribute, scratch=scr[i]))
+        else:
+            outs.append(ck.resolve_shard_finish(
+                hk[i], hv[i], *feed, lows[i], highs[i], ext_all,
+                attribute=attribute, scratch=scr[i]))
+    return ext_all, outs
+
+
+def split_steps_plain(state, lows, highs, unpacked, attribute):
+    """K8e's and K8f's plain versions on the same inputs."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    hk, hv = state
+    n = hk.shape[0]
+    ext_all = torch.stack([ck.resolve_shard_ext_plain(
+        hk[i], hv[i], *unpacked, lows[i], highs[i]) for i in range(n)])
+    return ext_all, [ck.resolve_shard_finish_plain(
+        hk[i], hv[i], *unpacked, lows[i], highs[i], ext_all, attribute)
+        for i in range(n)]
+
+
+def check_device_kinds(dev, tag):
+    """K8e and K8f against their plain versions on the card, on every
+    adversarial batch kind at the sharded cell's shape (4 shards of 2^18
+    rows split at key ids 1M, 2M and 3M, 16,384 transactions, reads and
+    writes, 16-byte keys), one shard a logical device of the card: from
+    the fresh sharded state packed with attribution on, then one step
+    later unpacked with it off; every output equal."""
+    import torch
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    t0 = time.perf_counter()
+    T = N_TXNS
+    lows, highs = (torch.from_numpy(b).to(dev)
+                   for b in tg.shard_bounds(SPLIT_IDS, N_WORDS))
+    conflicts = []
+    for i, kind in enumerate(tg.KINDS):
+        hk, hv, arrays = tg.adversarial_batch(
+            np.random.default_rng(SEED + 200 + i), kind, SHARD_CAPACITY, T,
+            T, T, N_WORDS, splits=SPLIT_IDS)
+        hk, hv = tg.shard_history(hk, hv, *tg.shard_bounds(SPLIT_IDS,
+                                                           N_WORDS))
+        state = (torch.from_numpy(hk).to(dev), torch.from_numpy(hv).to(dev))
+        for step, commit in enumerate((tg.COMMIT, tg.COMMIT + 20)):
+            attribute = packed = step == 0
+            buf = torch.from_numpy(ck.pack_interval_batch(
+                *arrays, commit, tg.OLDEST)).to(dev)
+            unpacked = ck.interval_unpack(buf, T, T, T, N_WORDS)
+            want_ext, want = split_steps_plain(state, lows, highs, unpacked,
+                                               attribute)
+            ext_all, got = split_steps_on_card(
+                state, lows, highs, buf if packed else unpacked, attribute,
+                packed)
+            name = (f"K8e/K8f edge {kind} step {step} "
+                    f"{'packed' if packed else 'unpacked'}")
+            expect_exact(f"{name} K8e", [ext_all], [want_ext])
+            for k, (g, w) in enumerate(zip(got, want)):
+                expect_exact(f"{name} K8f shard {k}", g, w)
+            state = (torch.stack([w[0] for w in want]),
+                     torch.stack([w[1] for w in want]))
+            conflicts.append(int(want[0][3].sum()))
+    print(f"[{tag}] K8e/K8f edge batches at {N_SHARDS} x {SHARD_CAPACITY} "
+          f"rows x {T} txns, one shard a logical device "
+          f"({', '.join(tg.KINDS)}): bit-exact against plain, fresh packed "
+          f"with attribution, one step on unpacked without; conflicts "
+          f"{conflicts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def measure_device_kernels(dev, mid, batch, version, bounds, tag):
+    """K8e and K8f against their plain versions on the card at the
+    per-device path's shapes: the sharded path's mid-stream state, one
+    shard a logical device of the card, the batch it resolved next,
+    packed, attribution off (as the streamed path runs them); a call's
+    device time (the S calls' over S) and its bound; and the flag
+    all-gather's S x (S - 1) copies of R bytes."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    hk, hv, _base, _oldest = mid
+    n, cap, width = hk.shape
+    T = R = Wr = N_TXNS
+    buf, unpacked = mid_feed(dev, mid, batch, version)
+    lows, highs = bounds
+    state = (hk, hv)
+    want_ext, want = split_steps_plain(state, lows, highs, unpacked, False)
+    ext_all, got = split_steps_on_card(state, lows, highs, buf, False, True)
+    err_e = expect_exact("K8e", [ext_all], [want_ext])
+    err_f = max(expect_exact(f"K8f shard {k}", g, w)
+                for k, (g, w) in enumerate(zip(got, want)))
+    scr = [ck.shard_scratch(hk[i], T, R, Wr) for i in range(n)]
+    outs = [(torch.empty_like(hk[i]), torch.empty_like(hv[i]))
+            for i in range(n)]
+
+    def ext_calls():
+        for i in range(n):
+            ck.resolve_shard_ext_packed(hk[i], hv[i], buf, lows[i], highs[i],
+                                        T, R, Wr, out=ext_all[i],
+                                        scratch=scr[i])
+
+    def finish_calls():
+        for i in range(n):
+            ck.resolve_shard_finish_packed(
+                hk[i], hv[i], buf, lows[i], highs[i], ext_all, T, R, Wr,
+                attribute=False, out=outs[i], scratch=scr[i])
+
+    ext_calls()      # the scratch's segment starts for finish_calls
+    live = (hk[:, :, -1] != 0xFFFFFFFF).to(torch.int64).sum(1).tolist()
+    row_bytes = width * 4 + 4
+    read_part = 2 * T * 4 + R * (2 * width * 4 + 8)
+    # bounds, a call on average over the shards: K8e reads the shard's
+    # live rows and the feed's reads once and writes R flags; K8f reads
+    # the live rows, the feed and the S x R gathered flags once and
+    # writes the [cap] state, the verdicts and the count once
+    e_bytes = sum(c * row_bytes for c in live) / n + read_part + R
+    f_bytes = (sum((c + cap) * row_bytes for c in live) / n
+               + buf.numel() * 4 + n * R + T + 4)
+    out = {
+        "resolve_shard_ext": dict(
+            max_abs_err=err_e, ms=time_ms(ext_calls, 20) / n,
+            traced_ms=(lambda t: None if t is None else t / n)(
+                traced_ms(ext_calls, kernels=n)),
+            plain_ms=time_ms(lambda: ck.resolve_shard_ext_plain(
+                hk[0], hv[0], *unpacked, lows[0], highs[0]), 3, warm=1),
+            library_ms=None, bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3,
+            state_rows=int(sum(live))),
+        "resolve_shard_finish": dict(
+            max_abs_err=err_f, ms=time_ms(finish_calls, 20) / n,
+            traced_ms=(lambda t: None if t is None else t / n)(
+                traced_ms(finish_calls, kernels=n)),
+            plain_ms=time_ms(lambda: ck.resolve_shard_finish_plain(
+                hk[0], hv[0], *unpacked, lows[0], highs[0], ext_all, False),
+                3, warm=1),
+            library_ms=None, bound_ms=f_bytes / HBM_BYTES_PER_S * 1e3,
+            state_rows=int(sum(live)))}
+    gathered = [torch.zeros((n, R), dtype=torch.bool, device=dev)
+                for _ in range(n)]
+
+    def gather():
+        for i in range(n):
+            for j in range(n):
+                if i != j:
+                    gathered[i][j].copy_(gathered[j][j], non_blocking=True)
+
+    g_bytes = 2 * n * (n - 1) * R    # each copy's R bytes read and written
+    g = dict(ms=time_ms(gather, 50), traced_ms=traced_ms(gather,
+                                                         kernels=n * (n - 1)),
+             bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3, copies=n * (n - 1))
+    print(f"[{tag}] flag all-gather over {n} logical devices of one card: "
+          f"{g['copies']} copies of {R} bytes, {g['ms']:.4f} ms (traced "
+          f"{fmt_ms(g['traced_ms'])}), bound {g['bound_ms']:.6f} ms "
+          f"(device to device; across cards it would cross NVLink, not "
+          f"measured)", flush=True)
+    return out, g
+
+
 def measure_sharded_kernels(dev, mid, batch, version, bounds):
     """K2 over the shards, K7 and K8 against their plain versions on the
     card at the sharded path's shapes, with device times. `mid` is a
@@ -1063,13 +1281,7 @@ def measure_sharded_kernels(dev, mid, batch, version, bounds):
     hk, hv, base, oldest = mid
     n_shards, cap, width = hk.shape
     T = R = Wr = N_TXNS
-    snapshots, _has_reads, rb, re, rt, wb, we, wt = batch
-    v, o = version
-    snap_off = np.clip(snapshots - base, 0, ck.SNAP_CLAMP).astype(np.int32)
-    buf = torch.from_numpy(ck.pack_interval_batch(
-        snap_off, snapshots < oldest, rb, re, rt, np.ones(R, bool), wb, we,
-        wt, np.ones(Wr, bool), v - base, max(oldest, o) - base)).to(dev)
-    unpacked = ck.interval_unpack(buf, T, R, Wr, N_WORDS)
+    buf, unpacked = mid_feed(dev, mid, batch, version)
     cpu_bounds = [b.cpu() for b in bounds]
 
     # K7: the standalone clip of the batch's reads (K8 runs the same
@@ -1562,6 +1774,9 @@ POINT_KERNELS = ("searchsorted_i32", "window_upkeep", "point_resolve",
                  "searchsorted_rows")
 SHARDED_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
                    "shard_clip", "resolve_sharded")
+# one shard a device: K1, K2, K7 (fused) in K8e, K8f, K4 on each device
+DEVICE_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
+                  "shard_clip", "resolve_shard_ext", "resolve_shard_finish")
 # the chains: K9, K5 (with K1 and K6) or K3 (with K1 and K2), K10
 CHAIN_KERNELS = ("chain_gen", "point_resolve", "searchsorted_i32",
                  "searchsorted_rows", "resolve", "range_max", "chain_tally")
@@ -1580,6 +1795,8 @@ def launch_counts() -> dict:
             "searchsorted_rows": keys.launches["searchsorted_rows"],
             "shard_clip": keys.launches["shard_clip"],
             "resolve_sharded": ck.launches["resolve_sharded"],
+            "resolve_shard_ext": ck.launches["resolve_shard_ext"],
+            "resolve_shard_finish": ck.launches["resolve_shard_finish"],
             "chain_gen": bc.launches["chain_gen"],
             "chain_tally": bc.launches["chain_tally"]}
 
@@ -1617,13 +1834,13 @@ def run_streamed(cs, batches, snapshot_at=(), spans=False):
             marks.append(time.perf_counter())
         results.append(conflict)
         if i in snapshot_at:
-            snap[i] = (cs._hk.clone(), cs._hv.clone(), cs._base, cs._oldest)
+            snap[i] = state_of(cs) + (cs._base, cs._oldest)
         if i + 1 == WARMUP:
             np.asarray(conflict)          # the device is idle from here
             cs.time_device(spans)
             t0 = time.perf_counter()
     out = [np.asarray(c)[:N_TXNS].copy() for c in results]
-    if cs._hk.device.type == "cuda":
+    if cs._device.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return (out, secs, cs.device_ms() if spans else None, snap,
@@ -1651,9 +1868,19 @@ def run_pipelined(cs, batches, spans=False):
             np.diff([t0] + marks))
 
 
+def state_of(cs):
+    """A resolver's (HK, HV) as tensors: clones on the device, or, with
+    one shard a device, the shards stacked on the host."""
+    import torch
+    if isinstance(cs._hk, list):
+        return tuple(torch.from_numpy(a) for a in cs._host_state())
+    return cs._hk.clone(), cs._hv.clone()
+
+
 def final_state(cs):
     cs._sync_count()
-    return cs._hk.cpu(), cs._hv.cpu(), cs._count_hint
+    hk, hv = state_of(cs)
+    return hk.cpu(), hv.cpu(), cs._count_hint
 
 
 def entry_calls(prefix) -> int:
@@ -2324,7 +2551,8 @@ def commit_leg_phase(tag) -> dict:
     rng = np.random.default_rng(SEED + 2)     # role_requests' draws
     ids = np.stack([rng.integers(0, KEYSPACE, size=2 * N_TXNS,
                                  dtype=np.int64) for _ in range(ROLE_BATCHES)])
-    vers = [v for v, _o in versions()][:ROLE_BATCHES]
+    ids = ids[:COMMIT_BATCHES]   # the draws of role_requests, cut to the leg
+    vers = [v for v, _o in versions()][:COMMIT_BATCHES]
     for got, want in zip(tg.leg_requests(P, ids, vers, VERSION_STEP,
                                          tg.LEG_KEY_BYTES),
                          role_requests(KEY_BYTES)):
@@ -3594,6 +3822,8 @@ def main() -> int:
     from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.models import create_conflict_set
     from foundationdb_tpu_torch.ops import _build
+    from foundationdb_tpu_torch.ops.fault_injection import g_device_faults
+    from foundationdb_tpu_torch.parallel import dryrun_multichip
 
     t_start = time.perf_counter()
     tag = card_tag()
@@ -3705,15 +3935,16 @@ def main() -> int:
 
         return check_run
 
-    def drive(make, check_run, kernels, snapshot_at):
-        """Each path's timed window, once per entry of SPANS, each time on
-        a fresh resolver, with the launch counts set to 0 just before and
-        read just after; returns ({path: [(seconds, device ms)]}, the
+    def drive(make, check_run, kernels, snapshot_at, h2d=1.0, spans_by=SPANS):
+        """Each path's timed window, once per entry of `spans_by`, each
+        time on a fresh resolver, with the launch counts set to 0 just
+        before and read just after; the first streamed run must count
+        `h2d` transfers a batch. Returns ({path: [(seconds, device ms)]}, the
         first run's counts per path, the first streamed run's verdicts,
         snapshots and final state)."""
         runs = {"streamed": [], "pipelined": []}
         counts, first = {}, None
-        for rep, spans in enumerate(SPANS):
+        for rep, spans in enumerate(spans_by):
             for path in runs:
                 cs = make(None)
                 zero_counts()
@@ -3740,7 +3971,7 @@ def main() -> int:
                         first = (got, snap, state)
                         stats = cs.kernel_stats()
                         if (stats["platform"] != "gpu"
-                                or stats["h2d"]["per_batch"] != 1.0):
+                                or stats["h2d"]["per_batch"] != h2d):
                             raise AssertionError(
                                 f"unexpected kernel_stats: {stats}")
                 del cs
@@ -3788,6 +4019,63 @@ def main() -> int:
           f"and {rows[1]} steps); final rows per shard max {state_s[2]}",
           flush=True)
 
+    # one shard a device: the sharded cell again through K8e, the flag
+    # all-gather and K8f, held batch by batch to the lockstep run
+    devices = device_list()
+    n_cards = len({d.index for d in devices})
+    print(f"[{tag}] per-device phase: {N_SHARDS} shards on "
+          + (f"{n_cards} distinct cards" if n_cards > 1 else
+             f"{N_SHARDS} logical devices of cuda:0")
+          + f" (torch.cuda.device_count() {torch.cuda.device_count()})",
+          flush=True)
+    check_device_kinds(dev, tag)
+
+    def device_backend(device):
+        return create_conflict_set("sharded-cuda", devices=devices,
+                                   key_bytes=KEY_BYTES,
+                                   capacity=SHARD_CAPACITY,
+                                   split_keys=SHARD_SPLITS)
+
+    faults = dict(g_device_faults.injected)
+    dev_runs, dev_counts, (_got_d, snaps_d, state_d) = drive(
+        device_backend, checker("devices", cpu_got, cpu_snap, n_conf,
+                                _got_s), DEVICE_KERNELS,
+        (SHARDED_CPU_BATCHES - 1, mid_at, LAST), h2d=float(N_SHARDS),
+        spans_by=(False, True))
+    counts_d = dev_counts["streamed"]
+    n_batches = WARMUP + TIMED
+    want = {k: N_SHARDS * n_batches for k in (
+        "searchsorted_i32", "range_max", "shard_clip", "resolve_shard_ext",
+        "resolve_shard_finish")}
+    want.update(resolve=0, resolve_sharded=0)
+    if any(counts_d[k] != v for k, v in want.items()) \
+            or g_device_faults.injected != faults:
+        raise AssertionError(f"per-device launches {counts_d} (want "
+                             f"{want}), device faults "
+                             f"{g_device_faults.injected}")
+    for i in (mid_at, LAST):
+        if not (torch.equal(snaps_d[i][0].cpu(), snaps_s[i][0].cpu())
+                and torch.equal(snaps_d[i][1].cpu(), snaps_s[i][1].cpu())
+                and snaps_d[i][2:] == snaps_s[i][2:]):
+            raise AssertionError(f"per-device state after batch {i} "
+                                 "differs from the lockstep run's")
+    rows_d = [compare_steps(i, snaps_a[i], snaps_d[i]) for i in (mid_at,
+                                                                 LAST)]
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(N_SHARDS, devices=devices)
+    print(f"[{tag}] per-device: verdicts equal to the lockstep sharded "
+          f"run's in all {n_batches} batches, state equal to its CPU run "
+          f"after {SHARDED_CPU_BATCHES} batches and to the lockstep state "
+          f"after batches {mid_at} and {LAST} (stitched: {rows_d[0]} and "
+          f"{rows_d[1]} steps, equal to the interval history); launches a "
+          f"batch "
+          + ", ".join(f"{k} {counts_d[k] / n_batches:.3f}"
+                      for k in DEVICE_KERNELS)
+          + f"; h2d {N_SHARDS}.0 a batch; no device fault; final rows per "
+          f"shard max {state_d[2]}; dryrun_multichip({N_SHARDS}) "
+          f"{dry} txns equal to the baseline "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # the unpacked feed (INTERVAL_PACKED_FEED=0) on both streamed
     # interval paths, held batch by batch to their packed runs
     feeds = feed_phase(tag, batches, (
@@ -3820,6 +4108,10 @@ def main() -> int:
     kern.update(measure_sharded_kernels(
         dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
         (shards._lows, shards._highs)))
+    dev_kern, gather = measure_device_kernels(
+        dev, snaps_s[mid_at], batches[nxt], list(versions())[nxt],
+        (shards._lows, shards._highs), tag)
+    kern.update(dev_kern)
     kern.update(measure_chain_kernels(dev, chain_ctl))
     window = measure_window(dev, tag)
     kern["window_upkeep"]["modes"] = window
@@ -3847,18 +4139,25 @@ def main() -> int:
                        "foundationdb_tpu/ops/keys.py:101"),
         "resolve_sharded": ("foundationdb_tpu_torch/csrc/resolve.cu",
                             "foundationdb_tpu/parallel/sharded_resolver.py:36"),
+        "resolve_shard_ext": (
+            "foundationdb_tpu_torch/csrc/resolve.cu",
+            "foundationdb_tpu/parallel/sharded_resolver.py:36"),
+        "resolve_shard_finish": (
+            "foundationdb_tpu_torch/csrc/resolve.cu",
+            "foundationdb_tpu/ops/conflict_kernel.py:182"),
         "chain_gen": ("foundationdb_tpu_torch/csrc/bench_chain.cu",
                       "bench.py:164"),
         "chain_tally": ("foundationdb_tpu_torch/csrc/bench_chain.cu",
                         "bench.py:173"),
     }
-    n_batches = WARMUP + TIMED
     for label, rs in (("streamed", runs["streamed"]),
                       ("pipelined", runs["pipelined"]),
                       ("point streamed", point_runs["streamed"]),
                       ("point pipelined", point_runs["pipelined"]),
                       ("sharded streamed", sharded_runs["streamed"]),
-                      ("sharded pipelined", sharded_runs["pipelined"])):
+                      ("sharded pipelined", sharded_runs["pipelined"]),
+                      ("per-device streamed", dev_runs["streamed"]),
+                      ("per-device pipelined", dev_runs["pipelined"])):
         per = [secs / TIMED * 1e3 for secs, _, _ in rs]
         med = statistics.median(per)
         print(f"[{tag}] {label}: {N_TXNS / (med / 1e3):.1f} txn/s, "
@@ -3894,7 +4193,8 @@ def main() -> int:
     for name, m in kern.items():
         src, rep = sources[name]
         by_path = {"interval": counts_a[name], "point": counts_p[name],
-                   "sharded": counts_s[name], "chain": counts_c[name]}
+                   "sharded": counts_s[name], "devices": counts_d[name],
+                   "chain": counts_c[name]}
         by_path.update({f"role {b}": c[name]
                         for b, c in role_counts.items()})
         by_path["commit leg"] = commit_counts[name]
@@ -3906,6 +4206,8 @@ def main() -> int:
             by_path[f"{p} unpacked"] = feeds[p][0][0][2][name]
         main = ("point" if name in ("point_resolve", "searchsorted_rows")
                 else "sharded" if name in ("shard_clip", "resolve_sharded")
+                else "devices" if name in ("resolve_shard_ext",
+                                           "resolve_shard_finish")
                 else "chain" if name in ("chain_gen", "chain_tally")
                 else "interval")
         launches = by_path[main]
@@ -3943,10 +4245,11 @@ def main() -> int:
               f"{by_path['interval'] / n_batches:.3f} interval, "
               f"{by_path['point'] / n_batches:.3f} point, "
               f"{by_path['sharded'] / n_batches:.3f} sharded, "
+              f"{by_path['devices'] / n_batches:.3f} per-device, "
               f"{by_path['chain'] / chain_steps:.3f} chain step, "
               + ", ".join(f"{by_path[f'role {b}'] / n:.3f} role {b}"
                           for b, _k, n in ROLE_BACKENDS)
-              + f", {by_path['commit leg'] / ROLE_BATCHES:.3f} commit leg, "
+              + f", {by_path['commit leg'] / COMMIT_BATCHES:.3f} commit leg, "
               f"{by_path['cluster'] / cluster_batches:.3f} "
               f"cluster batch, {by_path['tester'] / tester_batches:.3f} "
               f"tester batch, {by_path['server'] / server_batches:.3f} "
@@ -3971,6 +4274,10 @@ def main() -> int:
             rows[-1]["modes"] = m["modes"]
         if name == "chain_gen":
             rows[-1]["in_chain"] = probe
+        if name == "resolve_shard_finish":
+            # the copies between K8e and K8f (PyTorch's copy_, not a
+            # kernel of the port): S x (S - 1) rows of R bytes a batch
+            rows[-1]["gather"] = gather
         if name == "shard_clip":
             # the standalone clip is timed above; on the sharded path K7
             # runs fused into the step's bounds search

@@ -95,6 +95,26 @@
 // inverted range valid. Bound: bytes, as K3's, over the S shards' rows:
 // each shard's live rows read once, the whole [S, cap] state written
 // once and the feed read once.
+//
+// K8e and K8f: K8 split at its cross-shard combine, one shard a device
+// (fdb_resolve_shard_ext[_packed], fdb_resolve_shard_finish[_packed]).
+//
+// Replace the same TPU program as K8 where the reference runs it: one
+// shard on each device of a mesh, combined by psum. K8e is K8's phase 1
+// for ONE shard (K1's segment starts, the bounds search with the read
+// clipped to the shard in registers, K2 over the shard's HV, the
+// flags) into the shard's [R] external read flags. The caller gathers
+// every device's flags into a [D, R] buffer on each device; K8f is the
+// rest of K8 on it: the base verdicts OR the D rows, then the endpoint
+// sort, the one matrix and the cooperative fixpoint, whose attribution
+// ORs the D rows too, then the partition and merge of the device's own
+// shard (S = 1). The matrix does not depend on the shard (see above), so
+// every device builds the same one from the same feed and reaches the
+// same verdicts with no exchange but the flags: one all-gather of R
+// bytes a device a batch, where the reference needs a psum each round.
+// K8f reads the segment starts K8e left in the scratch they share.
+// Bound: bytes, a device's shard as K8's for one shard plus the D x R
+// gathered flags.
 
 #include <cooperative_groups.h>
 
@@ -981,53 +1001,60 @@ int merge_gc(const In& in, const Scratch& s, int S, uint32_t* hk_out,
   return 0;
 }
 
-// K3 (lows == nullptr, S = 1) and K8 (S shards of [cap] rows each, the
-// ranges clipped to [lows[k], highs[k]) for shard k). launches: [0] K1,
-// [1] K2, [2] K7 (K8 only: the bounds search its clip is fused into).
-int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
-                 int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
-                 int32_t* count_out, uint8_t* conflict_out,
-                 uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
-                 cudaStream_t st, long long* launches) {
-  const int cap = in.cap, T = in.T, R = in.R, Wr = in.Wr, width = in.width;
-  const bool clip = lows != nullptr;
-  if (cap < fdb::RMQ_BLOCK || (cap & (cap - 1)) || T < 1 || R < 1 ||
-      (R & (R - 1)) || Wr < 1 || width < 1 || S < 1 || (clip && !highs) ||
-      !rec_nv(width) || !hk_out || !hv_out || !count_out || !conflict_out ||
-      (attribute && !read_hit_out))
-    return fdb::ERR_BAD_ARGS;
-  long long unused[3] = {0, 0, 0};
-  if (!launches) launches = unused;
-  Scratch s;
-  if (carve(s, nullptr, cap, T, R, Wr, width, S) > scratch_bytes)
-    return fdb::ERR_SCRATCH;
-  carve(s, static_cast<char*>(scratch), cap, T, R, Wr, width, S);
-  const int n_lanes = (Wr + 31) / 32;
+// the checks every entry makes on its shapes
+bool bad_shape(const In& in, int S) {
+  return in.cap < fdb::RMQ_BLOCK || (in.cap & (in.cap - 1)) || in.T < 1 ||
+         in.R < 1 || (in.R & (in.R - 1)) || in.Wr < 1 || in.width < 1 ||
+         S < 1 || !rec_nv(in.width);
+}
 
-  // 1. external check: K1 segment starts; every shard's bounds (K8: each
-  // read clipped to the shard first, K7 fused), K2 range max over every
-  // shard's HV in one call, every shard's flags
-  FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, T + 2, 0, s.rs, st));
+// 1. external check: K1 segment starts into s.rs; every shard's bounds
+// (K8: each read clipped to the shard first, K7 fused), K2 range max
+// over every shard's HV in one call, every shard's flags into ext_r
+// ([S, R]). launches: [0] K1, [1] K2, [2] K7 (clipped only).
+int ext_phase(const In& in, const uint32_t* lows, const uint32_t* highs,
+              int S, const Scratch& s, uint8_t* ext_r, cudaStream_t st,
+              long long* launches) {
+  const int R = in.R;
+  const bool clip = lows != nullptr;
+  FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, in.T + 2, 0, s.rs,
+                                  st));
   launches[0] += 1;
   (clip ? ext_bounds_kernel<true> : ext_bounds_kernel<false>)
       <<<dim3(fdb::blocks_for(R, BOUNDS_THREADS), S), BOUNDS_THREADS, 0,
          st>>>(in, lows, highs, s.lo, s.hi, s.rok);
   FDB_LAUNCHED();
   if (clip) launches[2] += 1;
-  FDB_TRY(fdb_range_max_launch(in.hv, S, cap, s.lo, s.hi, R, s.vmax, s.rmq,
-                               st));
+  FDB_TRY(fdb_range_max_launch(in.hv, S, in.cap, s.lo, s.hi, R, s.vmax,
+                               s.rmq, st));
   launches[1] += 1;
   ext_flags_kernel<<<dim3(fdb::blocks_for(R, 256), S), 256, 0, st>>>(
-      in, s.rok, s.vmax, s.ext_r);
+      in, s.rok, s.vmax, ext_r);
   FDB_LAUNCHED();
-  (clip ? base_kernel<true> : base_kernel<false>)
-      <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, s.ext_r,
-                                                     s.base, s.ca, s.cb, S);
-  FDB_LAUNCHED();
+  return 0;
+}
 
-  // 2. the endpoint sort of the (unclipped) ranges, the overlap matrix
-  // from its positions (K8's one matrix is the OR of the shards' clipped
-  // ones, see the note above), then the fixpoint (+ attribution)
+// 2. - 4. from the external flags of S_ext shards (ext_r [S_ext, R], s.rs
+// as ext_phase left it): the base verdicts, the endpoint sort of the
+// (unclipped) ranges, the overlap matrix from its positions (a clipped
+// step's one matrix is the OR of the shards' clipped ones, see the note
+// above), the fixpoint (+ attribution), then the survivors of S shards
+// out of the one sort, merge, GC and compaction, each phase one launch
+// over the shards. K3 passes lows == nullptr and S_ext = S = 1; K8 its
+// S shards for both; K8f the gathered flags of every device (S_ext = D)
+// and its own shard (S = 1).
+int finish_phase(const In& in, const Scratch& s, const uint8_t* ext_r,
+                 int S_ext, const uint32_t* lows, const uint32_t* highs,
+                 int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
+                 int32_t* count_out, uint8_t* conflict_out,
+                 uint8_t* read_hit_out, cudaStream_t st) {
+  const int T = in.T, R = in.R, Wr = in.Wr;
+  const bool clip = lows != nullptr;
+  const int n_lanes = (Wr + 31) / 32;
+  (clip ? base_kernel<true> : base_kernel<false>)
+      <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, ext_r, s.base,
+                                                     s.ca, s.cb, S_ext);
+  FDB_LAUNCHED();
   const uint4* sorted = nullptr;
   int e = endpoint_sort(in, s, &sorted, st);
   if (e) return e;
@@ -1043,8 +1070,8 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   FDB_LAUNCHED();
   FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
   Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
-        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
-        conflict_out, read_hit_out, S};
+        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, ext_r,
+        conflict_out, read_hit_out, S_ext};
   int needed = max(fdb::blocks_for((long long)R * 32, FIX_THREADS),
                    fdb::blocks_for(T + 1, FIX_THREADS));
   void* args[] = {&f};
@@ -1056,11 +1083,75 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   FDB_TRY(cudaLaunchCooperativeKernel(fix, dim3(grid), dim3(FIX_THREADS),
                                       args, 0, st));
   FDB_LAUNCHED();
-
-  // 3. + 4. every shard's survivors out of the one sort, then merge, GC
-  // and compaction, each phase one launch over the shards
   e = partition(in, s, sorted, lows, highs, S, st);
   if (!e) e = merge_gc(in, s, S, hk_out, hv_out, count_out, st);
+  return e;
+}
+
+int carve_checked(Scratch& s, const In& in, int S, void* scratch,
+                  size_t scratch_bytes) {
+  if (carve(s, nullptr, in.cap, in.T, in.R, in.Wr, in.width, S) >
+      scratch_bytes)
+    return fdb::ERR_SCRATCH;
+  carve(s, static_cast<char*>(scratch), in.cap, in.T, in.R, in.Wr, in.width,
+        S);
+  return 0;
+}
+
+// K3 (lows == nullptr, S = 1) and K8 (S shards of [cap] rows each, the
+// ranges clipped to [lows[k], highs[k]) for shard k). launches: [0] K1,
+// [1] K2, [2] K7 (K8 only: the bounds search its clip is fused into).
+int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
+                 int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
+                 int32_t* count_out, uint8_t* conflict_out,
+                 uint8_t* read_hit_out, void* scratch, size_t scratch_bytes,
+                 cudaStream_t st, long long* launches) {
+  if (bad_shape(in, S) || (lows && !highs) || !hk_out || !hv_out ||
+      !count_out || !conflict_out || (attribute && !read_hit_out))
+    return fdb::ERR_BAD_ARGS;
+  long long unused[3] = {0, 0, 0};
+  if (!launches) launches = unused;
+  Scratch s;
+  int e = carve_checked(s, in, S, scratch, scratch_bytes);
+  if (!e) e = ext_phase(in, lows, highs, S, s, s.ext_r, st, launches);
+  if (!e)
+    e = finish_phase(in, s, s.ext_r, S, lows, highs, S, attribute, hk_out,
+                     hv_out, count_out, conflict_out, read_hit_out, st);
+  return e;
+}
+
+// K8e: phase 1 of K8 for ONE shard, history [cap] and bounds one row
+// each, into ext_out [R]; the scratch (the K3 layout) keeps the segment
+// starts for K8f. launches as K8's.
+int shard_ext_impl(const In& in, const uint32_t* low, const uint32_t* high,
+                   uint8_t* ext_out, void* scratch, size_t scratch_bytes,
+                   cudaStream_t st, long long* launches) {
+  if (bad_shape(in, 1) || !low || !high || !ext_out) return fdb::ERR_BAD_ARGS;
+  long long unused[3] = {0, 0, 0};
+  if (!launches) launches = unused;
+  Scratch s;
+  int e = carve_checked(s, in, 1, scratch, scratch_bytes);
+  if (!e) e = ext_phase(in, low, high, 1, s, ext_out, st, launches);
+  return e;
+}
+
+// K8f: phase 2 on of K8 for ONE shard, with the external flags of all D
+// shards gathered into ext_all [D, R]; the scratch K8e ran with on the
+// same feed holds the segment starts. Every shard computes the same
+// verdicts and attribution; the merge writes its own [cap] state.
+int shard_finish_impl(const In& in, const uint32_t* low, const uint32_t* high,
+                      const uint8_t* ext_all, int D, int attribute,
+                      uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
+                      uint8_t* conflict_out, uint8_t* read_hit_out,
+                      void* scratch, size_t scratch_bytes, cudaStream_t st) {
+  if (bad_shape(in, D) || !low || !high || !ext_all || !hk_out || !hv_out ||
+      !count_out || !conflict_out || (attribute && !read_hit_out))
+    return fdb::ERR_BAD_ARGS;
+  Scratch s;
+  int e = carve_checked(s, in, 1, scratch, scratch_bytes);
+  if (!e)
+    e = finish_phase(in, s, ext_all, D, low, high, 1, attribute, hk_out,
+                     hv_out, count_out, conflict_out, read_hit_out, st);
   return e;
 }
 
@@ -1174,4 +1265,67 @@ FDB_API int fdb_resolve_sharded_packed(
                       highs, S, attribute, hk_out, hv_out, count_out,
                       conflict_out, read_hit_out, scratch, scratch_bytes,
                       static_cast<cudaStream_t>(stream), launches);
+}
+
+// K8e and K8f (one shard a device): hk [cap, width], hv [cap], low/high
+// one [width] row each; ext_out [R] and ext_all [D, R] uint8. The
+// scratch is sized by fdb_resolve_scratch_bytes (the K3 layout) and must
+// be the same buffer for a feed's K8e and K8f.
+FDB_API int fdb_resolve_shard_ext(
+    const uint32_t* hk, const int32_t* hv, const int32_t* snap,
+    const void* too_old, const uint32_t* rb, const uint32_t* re,
+    const int32_t* rtxn, const void* rvalid, const uint32_t* wb,
+    const uint32_t* we, const int32_t* wtxn, const void* wvalid,
+    const int32_t* commit, const int32_t* oldest, const uint32_t* low,
+    const uint32_t* high, int flag_bytes, int cap, int T, int R, int Wr,
+    int width, uint8_t* ext_out, void* scratch, size_t scratch_bytes,
+    void* stream, long long* launches) {
+  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
+  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
+        commit, oldest, flag_bytes, cap, T, R, Wr, width};
+  return shard_ext_impl(in, low, high, ext_out, scratch, scratch_bytes,
+                        static_cast<cudaStream_t>(stream), launches);
+}
+
+FDB_API int fdb_resolve_shard_ext_packed(
+    const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
+    const uint32_t* low, const uint32_t* high, int cap, int T, int R, int Wr,
+    int width, uint8_t* ext_out, void* scratch, size_t scratch_bytes,
+    void* stream, long long* launches) {
+  return shard_ext_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width), low,
+                        high, ext_out, scratch, scratch_bytes,
+                        static_cast<cudaStream_t>(stream), launches);
+}
+
+FDB_API int fdb_resolve_shard_finish(
+    const uint32_t* hk, const int32_t* hv, const int32_t* snap,
+    const void* too_old, const uint32_t* rb, const uint32_t* re,
+    const int32_t* rtxn, const void* rvalid, const uint32_t* wb,
+    const uint32_t* we, const int32_t* wtxn, const void* wvalid,
+    const int32_t* commit, const int32_t* oldest, const uint32_t* low,
+    const uint32_t* high, const uint8_t* ext_all, int flag_bytes, int D,
+    int cap, int T, int R, int Wr, int width, int attribute,
+    uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
+    uint8_t* conflict_out, uint8_t* read_hit_out, void* scratch,
+    size_t scratch_bytes, void* stream) {
+  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
+  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
+        commit, oldest, flag_bytes, cap, T, R, Wr, width};
+  return shard_finish_impl(in, low, high, ext_all, D, attribute, hk_out,
+                           hv_out, count_out, conflict_out, read_hit_out,
+                           scratch, scratch_bytes,
+                           static_cast<cudaStream_t>(stream));
+}
+
+FDB_API int fdb_resolve_shard_finish_packed(
+    const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
+    const uint32_t* low, const uint32_t* high, const uint8_t* ext_all, int D,
+    int cap, int T, int R, int Wr, int width, int attribute,
+    uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
+    uint8_t* conflict_out, uint8_t* read_hit_out, void* scratch,
+    size_t scratch_bytes, void* stream) {
+  return shard_finish_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width),
+                           low, high, ext_all, D, attribute, hk_out, hv_out,
+                           count_out, conflict_out, read_hit_out, scratch,
+                           scratch_bytes, static_cast<cudaStream_t>(stream));
 }

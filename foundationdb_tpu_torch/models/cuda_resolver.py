@@ -84,20 +84,20 @@ class _HostCopy:
 
 class _Staging:
     """One pool entry of packed-feed staging: the host buffer (pinned on
-    the card's path), its named views, and the event behind the last
-    host->device copy that read it."""
+    the card's path), its named views, and the events behind the last
+    host->device copies that read it (one a card it went to)."""
 
-    __slots__ = ("buf", "views", "host", "event")
+    __slots__ = ("buf", "views", "host", "events")
 
     def __init__(self, buf, views, host):
         self.buf = buf
         self.views = views
         self.host = host
-        self.event = None
+        self.events = ()
 
     def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
+        for ev in self.events:
+            ev.synchronize()
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -196,14 +196,23 @@ class CudaConflictSet(ConflictSetBase):
         """Double the capacity (or more, to fit `needed`); a sharded
         history ([S, cap] rows) keeps one capacity for every shard."""
         new_cap = max(self._cap * 2, next_pow2(needed + 2))
-        lead = tuple(self._hv.shape[:-1])
+        old_k, old_v = self._host_state()
+        lead = old_v.shape[:-1]
         hk = np.full(lead + (new_cap, self._n_words + 1), 0xFFFFFFFF,
                      np.uint32)
         hv = np.full(lead + (new_cap,), -(1 << 30), np.int32)
-        hk[..., :self._cap, :] = _host(self._hk)
-        hv[..., :self._cap] = _host(self._hv)
+        hk[..., :self._cap, :], hv[..., :self._cap] = old_k, old_v
         self._cap = new_cap
         self._hk, self._hv = self._to_device(hk, hv)
+
+    def _host_state(self):
+        """The device history as host arrays (HK, HV)."""
+        return _host(self._hk), _host(self._hv)
+
+    def _upkeep(self, fn, *args) -> None:
+        """A window upkeep (K4: rebase, reset, a jump fixup) in place on
+        the device versions."""
+        fn(self._hv, *args, out=self._hv)
 
     def _prepare_versions(self, commit_version: int, new_oldest_version: int,
                           window_floor: int):
@@ -232,9 +241,9 @@ class CudaConflictSet(ConflictSetBase):
                 if delta > (1 << 31) - 1:
                     # shift exceeds int32 arithmetic; every stored version
                     # is below the new base, so clamp them all dead
-                    reset(self._hv, out=self._hv)
+                    self._upkeep(reset)
                 else:
-                    rebase(self._hv, delta, out=self._hv)
+                    self._upkeep(rebase, delta)
                 self._base = new_base
             elif commit_version - target < REBASE_THRESHOLD:
                 p = REBASE_THRESHOLD
@@ -256,11 +265,11 @@ class CudaConflictSet(ConflictSetBase):
         commit_version, new_base = fixup
         delta = new_base - self._base
         if delta > (1 << 31) - 1:
-            jump_fixup_large(self._hv, REBASE_THRESHOLD,
-                             commit_version - new_base, out=self._hv)
+            self._upkeep(jump_fixup_large, REBASE_THRESHOLD,
+                         commit_version - new_base)
         else:
-            jump_fixup(self._hv, REBASE_THRESHOLD,
-                       commit_version - new_base, delta, out=self._hv)
+            self._upkeep(jump_fixup, REBASE_THRESHOLD,
+                         commit_version - new_base, delta)
         self._base = new_base
 
     # -- checkpoint / restore -------------------------------------------
@@ -275,7 +284,7 @@ class CudaConflictSet(ConflictSetBase):
     def _checkpoint_state(self) -> ConflictSetCheckpoint:
         from ..ops.fault_injection import convert_device_errors
         with convert_device_errors("drain", f"{self.BACKEND}.checkpoint"):
-            hk, hv = _host(self._hk), _host(self._hv)
+            hk, hv = self._host_state()
         keys, vals = self._decode_step(hk, hv)
         return checkpoint_from_step(keys, vals, self._oldest,
                                     self._last_commit)
@@ -726,8 +735,9 @@ class CudaConflictSet(ConflictSetBase):
         dev = torch.empty(ent.host.shape, dtype=torch.uint32,
                           device=self._device)
         dev.copy_(ent.host, non_blocking=True)
-        ent.event = torch.cuda.Event()
-        ent.event.record(torch.cuda.current_stream(self._device))
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._device))
+        ent.events = (ev,)
         return dev
 
     def _call_kernel_packed(self, npad, nrp, nwp, dev_buf, attribute: bool):

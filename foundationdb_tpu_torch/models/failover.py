@@ -484,7 +484,7 @@ def create_resilient_conflict_set(backend: str, init_version: int = 0,
     in the failover controller (unless CONFLICT_FAILOVER=0); host
     backends run bare — they have no accelerator to lose, and the
     python baseline IS the shadow reference. `device` and `kwargs`
-    (`key_bytes`, `capacity`; `n_shards`, `split_keys` for
+    (`key_bytes`, `capacity`; `n_shards`, `split_keys`, `devices` for
     `sharded-cuda`) go to every primary the wrapper builds:
     `device=None` is the card, and raises on a host without one. The
     wrapper gets no CPU fallback: a device fault that outlasts

@@ -272,10 +272,11 @@ class NativeConflictSet(ConflictSetBase):
 def create_conflict_set(backend: str = "python", init_version: int = 0,
                         device=None, **kwargs) -> ConflictSetBase:
     """Backend factory. `device` (and `key_bytes` / `capacity` in
-    `kwargs`, and `n_shards` / `split_keys` for `sharded-cuda`)
-    configure the CUDA backends: `device=None` is the card, and a host
-    without one raises; `device="cpu"` runs the plain PyTorch versions
-    of the kernels."""
+    `kwargs`, and `n_shards` / `split_keys` / `devices` for
+    `sharded-cuda`) configure the CUDA backends: `device=None` is the
+    card, and a host without one raises; `device="cpu"` runs the plain
+    PyTorch versions of the kernels. `devices` puts one shard on each
+    entry of the list."""
     if backend == "python":
         from .conflict_set import PyConflictSet
         return PyConflictSet(init_version)

@@ -125,7 +125,15 @@ _SIGNATURES = {
                             + [_P, _SZ, _P, _P], _I),
     "fdb_resolve_sharded_packed": ([_P] * 5 + [_I] * 7 + [_P] * 5
                                    + [_P, _SZ, _P, _P], _I),
-    "fdb_lt_rows": ([_P, _I, _P, _I, _I, _I, _P, _P], _I),
+    "fdb_resolve_shard_ext": ([_P] * 16 + [_I] * 6 + [_P, _P, _SZ, _P, _P],
+                              _I),
+    "fdb_resolve_shard_ext_packed": ([_P] * 5 + [_I] * 5
+                                     + [_P, _P, _SZ, _P, _P], _I),
+    "fdb_resolve_shard_finish": ([_P] * 17 + [_I] * 8 + [_P] * 5
+                                 + [_P, _SZ, _P], _I),
+    "fdb_resolve_shard_finish_packed": ([_P] * 6 + [_I] * 7 + [_P] * 5
+                                        + [_P, _SZ, _P], _I),
+    "fdb_lt_rows":([_P, _I, _P, _I, _I, _I, _P, _P], _I),
     "fdb_clip_to_shards": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                             _P], _I),
     "fdb_window_upkeep": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),

@@ -70,7 +70,8 @@ REBASE_THRESHOLD = 1 << 30
 # first call (the kernel build included) and sampled execute time here.
 g_kernel_counters = CounterCollection("conflict_kernel")
 
-launches = {"resolve": 0, "resolve_sharded": 0, "window_upkeep": 0}
+launches = {"resolve": 0, "resolve_sharded": 0, "resolve_shard_ext": 0,
+            "resolve_shard_finish": 0, "window_upkeep": 0}
 
 
 def _args_device(args) -> torch.device:
@@ -420,45 +421,34 @@ def _merge_gc(hk, hv, wb, we, wvalid, wtxn, conflict_pad, commit, oldest):
     return out_k, out_v, count
 
 
-def _resolve_shards(hks, hvs, snap, too_old, rtxn, wtxn, shards, commit,
-                    oldest, attribute: bool):
-    """The plain step over S shards in lockstep, line by line after the
-    reference's step (S = 1 is the single-shard step). `shards` holds
-    each shard's (rb, re, rvalid, wb, we, wvalid), its ranges clipped to
-    it; the external verdicts, every fixpoint round and the attribution
-    are OR-combined over the shards (the reference's psum), so the
-    verdicts are the single-shard step's. Returns per-shard lists of
-    (HK', HV', count), then conflict and read_hit."""
+def _batch_ids(snap, too_old, rtxn, wtxn):
+    """The step's per-transaction inputs widened: (snap_pad [T+1] with
+    the pad entry SNAP_CLAMP, too_old bool, rtxn, wtxn int64, the read
+    segment starts [T+2])."""
     i64 = torch.int64
     dev = snap.device
     n = snap.shape[0]
-    n_writes = wtxn.shape[0]
-    pack_w = min(32, n_writes)
-    n_lanes = n_writes // pack_w
-    commit, oldest = int(commit), int(oldest)
     snap, rtxn, wtxn = (x.to(i64) for x in (snap, rtxn, wtxn))
-    too_old = too_old.to(torch.bool)
-    ones = torch.ones(1, dtype=torch.bool, device=dev)
     snap_pad = torch.cat([snap, torch.full((1,), SNAP_CLAMP, dtype=i64,
                                            device=dev)])
     r_starts = searchsorted_i32_plain(
         rtxn, torch.arange(n + 2, dtype=i64, device=dev)).to(i64)
-    shards = [(rb.to(i64), re.to(i64), rvalid.to(torch.bool), wb.to(i64),
-               we.to(i64), wvalid.to(torch.bool))
-              for rb, re, rvalid, wb, we, wvalid in shards]
+    return snap_pad, too_old.to(torch.bool), rtxn, wtxn, r_starts
 
-    # ---- 1. external check against each shard's history -----------------
-    ext_r = [_external_reads(hk.to(i64), hv.to(i64), snap_pad, rb, re, rtxn,
-                             rvalid)
-             for hk, hv, (rb, re, rvalid, _wb, _we, _wv)
-             in zip(hks, hvs, shards)]
-    ext = torch.zeros(n, dtype=torch.bool, device=dev)
-    for e in ext_r:
-        ext |= _seg_any(e, r_starts, n)
 
-    # ---- 2. intra-batch fixpoint, its rounds combined over the shards ----
-    ovps = [_overlap(rb, re, rtxn, rvalid, wb, we, wtxn, wvalid, pack_w)
-            for rb, re, rvalid, wb, we, wvalid in shards]
+def _fixpoint(ext, too_old, ovps, wtxn, r_starts, attribute: bool,
+              ext_r=()):
+    """2. + the attribution: the antitone fixpoint over the OR of the
+    overlap matrices `ovps`, from the base verdicts ext | too_old, its
+    rounds combined over the matrices (the reference's psum); read_hit
+    ORs the reads' external flags `ext_r` in. Returns (conflict_pad
+    [T+1], read_hit or None)."""
+    dev = too_old.device
+    n = too_old.shape[0]
+    n_writes = wtxn.shape[0]
+    pack_w = min(32, n_writes)
+    n_lanes = n_writes // pack_w
+    ones = torch.ones(1, dtype=torch.bool, device=dev)
     base_c = torch.cat([ext | too_old, ones])
 
     def s_map(c):
@@ -472,15 +462,51 @@ def _resolve_shards(hks, hvs, snap, too_old, rtxn, wtxn, shards, commit,
     prev, cur, i = base_c, s_map(base_c), 1
     while bool((prev != cur).any()) and i < n + 2:
         prev, cur, i = cur, s_map(cur), i + 1
-    conflict_pad = cur
-    conflict = conflict_pad[:n]
-
     read_hit = None
     if attribute:
-        alive_fp = _pack_bits((~conflict_pad[wtxn]).reshape(n_lanes, pack_w))
-        read_hit = torch.zeros(rtxn.shape[0], dtype=torch.bool, device=dev)
-        for e, ovp in zip(ext_r, ovps):
-            read_hit |= e | ((ovp & alive_fp[None, :]) != 0).any(dim=1)
+        alive_fp = _pack_bits((~cur[wtxn]).reshape(n_lanes, pack_w))
+        read_hit = torch.zeros(ovps[0].shape[0], dtype=torch.bool,
+                               device=dev)
+        for e in ext_r:
+            read_hit |= e
+        for ovp in ovps:
+            read_hit |= ((ovp & alive_fp[None, :]) != 0).any(dim=1)
+    return cur, read_hit
+
+
+def _resolve_shards(hks, hvs, snap, too_old, rtxn, wtxn, shards, commit,
+                    oldest, attribute: bool):
+    """The plain step over S shards in lockstep, line by line after the
+    reference's step (S = 1 is the single-shard step). `shards` holds
+    each shard's (rb, re, rvalid, wb, we, wvalid), its ranges clipped to
+    it; the external verdicts, every fixpoint round and the attribution
+    are OR-combined over the shards (the reference's psum), so the
+    verdicts are the single-shard step's. Returns per-shard lists of
+    (HK', HV', count), then conflict and read_hit."""
+    i64 = torch.int64
+    n = snap.shape[0]
+    pack_w = min(32, wtxn.shape[0])
+    commit, oldest = int(commit), int(oldest)
+    snap_pad, too_old, rtxn, wtxn, r_starts = _batch_ids(snap, too_old,
+                                                         rtxn, wtxn)
+    shards = [(rb.to(i64), re.to(i64), rvalid.to(torch.bool), wb.to(i64),
+               we.to(i64), wvalid.to(torch.bool))
+              for rb, re, rvalid, wb, we, wvalid in shards]
+
+    # ---- 1. external check against each shard's history -----------------
+    ext_r = [_external_reads(hk.to(i64), hv.to(i64), snap_pad, rb, re, rtxn,
+                             rvalid)
+             for hk, hv, (rb, re, rvalid, _wb, _we, _wv)
+             in zip(hks, hvs, shards)]
+    ext = torch.zeros(n, dtype=torch.bool, device=snap.device)
+    for e in ext_r:
+        ext |= _seg_any(e, r_starts, n)
+
+    # ---- 2. intra-batch fixpoint, its rounds combined over the shards ----
+    ovps = [_overlap(rb, re, rtxn, rvalid, wb, we, wtxn, wvalid, pack_w)
+            for rb, re, rvalid, wb, we, wvalid in shards]
+    conflict_pad, read_hit = _fixpoint(ext, too_old, ovps, wtxn, r_starts,
+                                       attribute, ext_r)
 
     # ---- 3. + 4. merge, GC and compaction, shard by shard ----------------
     outs = [_merge_gc(hk.to(i64), hv.to(i64), wb, we, wvalid, wtxn,
@@ -488,7 +514,7 @@ def _resolve_shards(hks, hvs, snap, too_old, rtxn, wtxn, shards, commit,
             for hk, hv, (_rb, _re, _rv, wb, we, wvalid)
             in zip(hks, hvs, shards)]
     return ([o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs],
-            conflict, read_hit)
+            conflict_pad[:n], read_hit)
 
 
 def resolve_step_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
@@ -518,6 +544,64 @@ def resolve_step_sharded_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
          for k in range(hk.shape[0])], commit, oldest, attribute)
     return (torch.stack(ks), torch.stack(vs), torch.stack(counts), conflict,
             read_hit)
+
+
+def _shard_row(row, width):
+    """One shard bound as a [1, W+1] row (given as [W+1] or [1, W+1])."""
+    row = row.reshape(-1)
+    if row.shape[0] != width:
+        raise ValueError("a shard bound is one [W+1] row")
+    return row[None]
+
+
+def resolve_shard_ext_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                            wb, we, wtxn, wvalid, commit, oldest, low, high):
+    """K8e's plain version: one shard's external read flags [R] (bool).
+    HK [cap, W+1] and HV [cap] are the shard's history, `low`/`high`
+    its bounds; the reads are clipped to [low, high) by the plain clip,
+    then checked against the history as the sharded step's phase 1."""
+    i64 = torch.int64
+    width = hk.shape[-1]
+    crb, cre, crv = _keys.clip_to_shards_plain(
+        rb, re, rvalid, _shard_row(low, width), _shard_row(high, width))
+    snap_pad, _too_old, rtxn, _wtxn, _rs = _batch_ids(snap, too_old, rtxn,
+                                                      wtxn)
+    return _external_reads(hk.to(i64), hv.to(i64), snap_pad, crb[0].to(i64),
+                           cre[0].to(i64), rtxn, crv[0])
+
+
+def resolve_shard_finish_plain(hk, hv, snap, too_old, rb, re, rtxn, rvalid,
+                               wb, we, wtxn, wvalid, commit, oldest, low,
+                               high, ext_all, attribute: bool = True):
+    """K8f's plain version: the rest of the sharded step for one shard,
+    from the external read flags of every shard, `ext_all` [D, R]. The
+    verdicts OR the D rows; the overlap matrix is the one over the
+    unclipped ranges with an empty or inverted range counted invalid,
+    which is the OR of the shards' clipped matrices when the shards tile
+    the key space (csrc/resolve.cu, K8's note); the merge takes the
+    shard's surviving writes clipped to [low, high). Returns (HK', HV',
+    count, conflict, read_hit or None): the verdicts and attribution
+    are every shard's, the state this shard's."""
+    i64 = torch.int64
+    n = snap.shape[0]
+    width = hk.shape[-1]
+    snap_pad, too_old, rtxn, wtxn, r_starts = _batch_ids(snap, too_old,
+                                                         rtxn, wtxn)
+    ext_all = ext_all.to(torch.bool)
+    ext = _seg_any(ext_all.any(dim=0), r_starts, n)
+    rb, re, wb, we = (x.to(i64) for x in (rb, re, wb, we))
+    rv = rvalid.to(torch.bool) & _keys.lt_rows_plain(rb, re)
+    wv = wvalid.to(torch.bool) & _keys.lt_rows_plain(wb, we)
+    ovp = _overlap(rb, re, rtxn, rv, wb, we, wtxn, wv,
+                   min(32, wtxn.shape[0]))
+    conflict_pad, read_hit = _fixpoint(ext, too_old, [ovp], wtxn, r_starts,
+                                       attribute, list(ext_all))
+    cwb, cwe, cwv = _keys.clip_to_shards_plain(
+        wb, we, wvalid, _shard_row(low, width), _shard_row(high, width))
+    out_k, out_v, count = _merge_gc(hk.to(i64), hv.to(i64), cwb[0].to(i64),
+                                    cwe[0].to(i64), cwv[0], wtxn,
+                                    conflict_pad, int(commit), int(oldest))
+    return out_k, out_v, count, conflict_pad[:n], read_hit
 
 
 # ---------------------------------------------------------------------------
@@ -829,6 +913,221 @@ def make_resolve_sharded_packed_fn(n_shards: int, cap: int, n_txns: int,
         fn, f"sharded_packed[{n_shards}s/{cap}c/{n_txns}t/{n_reads}r/"
             f"{n_writes}w{tag}]")
     return _fault_seamed(fn, f"sharded_packed[{cap}c]")
+
+
+# ---------------------------------------------------------------------------
+# K8e and K8f: K8 split at its cross-shard combine, one shard a device
+# (csrc/resolve.cu fdb_resolve_shard_ext*, fdb_resolve_shard_finish*)
+# ---------------------------------------------------------------------------
+
+def shard_scratch(hk, n_txns: int, n_reads: int, n_writes: int):
+    """The scratch a device's K8e and K8f share for one feed (K3's
+    layout, sized for the shard's history `hk`); None on the CPU, whose
+    plain versions need none. The caller owns it: one a device, the
+    same for the K8e and the K8f of a batch."""
+    if not _device.is_cuda(hk):
+        return None
+    from ._build import lib
+    cap, width = hk.shape
+    n = lib().fdb_resolve_scratch_bytes(cap, n_txns, n_reads, n_writes,
+                                        width)
+    return torch.empty(n, dtype=torch.uint8, device=hk.device)
+
+
+def _shard_bounds_on(hk, low, high):
+    for t in (low, high):
+        if t.dtype != torch.uint32 or t.numel() != hk.shape[-1] \
+                or not t.is_contiguous() or t.device != hk.device:
+            raise ValueError("a shard's bounds must be contiguous [W+1] "
+                             "uint32 rows beside its history")
+
+
+def _check_scratch(scratch, dev):
+    if scratch is None or scratch.dtype != torch.uint8 \
+            or scratch.device != dev:
+        raise ValueError("K8e and K8f take the device's shard_scratch")
+
+
+def _ext_out(hk, n_reads, out):
+    if out is None:
+        return torch.empty(n_reads, dtype=torch.bool, device=hk.device)
+    if out.dtype != torch.bool or tuple(out.shape) != (n_reads,) \
+            or not out.is_contiguous() or out.device != hk.device:
+        raise ValueError("ext_out must be a contiguous bool [R] tensor on "
+                         "the history's device")
+    return out
+
+
+def _check_ext_all(hk, ext_all, n_reads):
+    if ext_all.dtype != torch.bool or ext_all.dim() != 2 \
+            or ext_all.shape[1] != n_reads or not ext_all.is_contiguous() \
+            or ext_all.device != hk.device:
+        raise ValueError("ext_all must be a contiguous bool [D, R] tensor "
+                         "on the history's device")
+
+
+def resolve_shard_ext(hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we,
+                      wtxn, wvalid, commit, oldest, low, high, out=None,
+                      scratch=None):
+    """The unpacked K8e: one shard's external read flags, bool [R], into
+    `out` when given. K8e on CUDA tensors (with the device's
+    `shard_scratch`), its plain version on CPU tensors."""
+    if not _device.is_cuda(hk):
+        ext = resolve_shard_ext_plain(hk, hv, snap, too_old, rb, re, rtxn,
+                                      rvalid, wb, we, wtxn, wvalid, commit,
+                                      oldest, low, high)
+        return ext if out is None else out.copy_(ext)
+    from ._build import check, lib
+    _check_history(hk, hv)
+    _shard_bounds_on(hk, low, high)
+    dev = hk.device
+    cap, width = hk.shape
+    ins, flag_bytes, n_txns, n_reads, n_writes = _unpacked_inputs(
+        dev, width, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+        wvalid, commit, oldest)
+    out = _ext_out(hk, n_reads, out)
+    _check_scratch(scratch, dev)
+    counts = (ctypes.c_longlong * 3)()
+    check(lib().fdb_resolve_shard_ext(
+        hk.data_ptr(), hv.data_ptr(), *[t.data_ptr() for t in ins],
+        low.data_ptr(), high.data_ptr(), flag_bytes, cap, n_txns, n_reads,
+        n_writes, width, out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        _device.stream_handle(dev), counts), "resolve_shard_ext")
+    _note_launches(counts, "resolve_shard_ext")
+    return out
+
+
+def resolve_shard_ext_packed(hk, hv, buf, low, high, n_txns: int,
+                             n_reads: int, n_writes: int, out=None,
+                             scratch=None):
+    """The packed K8e: the feed buffer read in place on the card; on
+    the CPU the plain version on views of the buffer."""
+    cap, width = hk.shape
+    _check_feed(buf, n_txns, n_reads, n_writes, width)
+    if not _device.is_cuda(hk):
+        return resolve_shard_ext(
+            hk, hv, *interval_unpack(buf, n_txns, n_reads, n_writes,
+                                     width - 1), low, high, out=out)
+    from ._build import check, lib
+    _check_history(hk, hv)
+    _shard_bounds_on(hk, low, high)
+    dev = hk.device
+    if buf.device != dev:
+        raise ValueError("feed buffer must lie on the history's device")
+    buf = buf.contiguous()
+    out = _ext_out(hk, n_reads, out)
+    _check_scratch(scratch, dev)
+    counts = (ctypes.c_longlong * 3)()
+    check(lib().fdb_resolve_shard_ext_packed(
+        hk.data_ptr(), hv.data_ptr(), buf.data_ptr(), low.data_ptr(),
+        high.data_ptr(), cap, n_txns, n_reads, n_writes, width,
+        out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        _device.stream_handle(dev), counts), "resolve_shard_ext_packed")
+    _note_launches(counts, "resolve_shard_ext")
+    return out
+
+
+def resolve_shard_finish(hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb,
+                         we, wtxn, wvalid, commit, oldest, low, high,
+                         ext_all, attribute: bool = True, out=None,
+                         scratch=None):
+    """The unpacked K8f: from every shard's external flags `ext_all`
+    [D, R] (bool), this shard's step: (HK', HV', count, conflict[T],
+    read_hit[R] or None). On the card `scratch` must be the one this
+    device's K8e ran with on the same batch."""
+    if not _device.is_cuda(hk):
+        return resolve_shard_finish_plain(
+            hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+            wvalid, commit, oldest, low, high, ext_all, attribute)
+    from ._build import check, lib
+    _check_history(hk, hv)
+    _shard_bounds_on(hk, low, high)
+    dev = hk.device
+    cap, width = hk.shape
+    ins, flag_bytes, n_txns, n_reads, n_writes = _unpacked_inputs(
+        dev, width, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
+        wvalid, commit, oldest)
+    _check_ext_all(hk, ext_all, n_reads)
+    _check_scratch(scratch, dev)
+    outs = _outputs(hk, n_txns, n_reads, attribute, out)
+    check(lib().fdb_resolve_shard_finish(
+        hk.data_ptr(), hv.data_ptr(), *[t.data_ptr() for t in ins],
+        low.data_ptr(), high.data_ptr(), ext_all.data_ptr(), flag_bytes,
+        ext_all.shape[0], cap, n_txns, n_reads, n_writes, width,
+        int(attribute), *_ptrs(outs), scratch.data_ptr(), scratch.numel(),
+        _device.stream_handle(dev)), "resolve_shard_finish")
+    launches["resolve_shard_finish"] += 1
+    return outs
+
+
+def resolve_shard_finish_packed(hk, hv, buf, low, high, ext_all,
+                                n_txns: int, n_reads: int, n_writes: int,
+                                attribute: bool = True, out=None,
+                                scratch=None):
+    """The packed K8f: the feed buffer read in place on the card; on
+    the CPU the plain version on views of the buffer."""
+    cap, width = hk.shape
+    _check_feed(buf, n_txns, n_reads, n_writes, width)
+    if not _device.is_cuda(hk):
+        return resolve_shard_finish_plain(
+            hk, hv, *interval_unpack(buf, n_txns, n_reads, n_writes,
+                                     width - 1), low, high, ext_all,
+            attribute)
+    from ._build import check, lib
+    _check_history(hk, hv)
+    _shard_bounds_on(hk, low, high)
+    dev = hk.device
+    if buf.device != dev:
+        raise ValueError("feed buffer must lie on the history's device")
+    buf = buf.contiguous()
+    _check_ext_all(hk, ext_all, n_reads)
+    _check_scratch(scratch, dev)
+    outs = _outputs(hk, n_txns, n_reads, attribute, out)
+    check(lib().fdb_resolve_shard_finish_packed(
+        hk.data_ptr(), hv.data_ptr(), buf.data_ptr(), low.data_ptr(),
+        high.data_ptr(), ext_all.data_ptr(), ext_all.shape[0], cap, n_txns,
+        n_reads, n_writes, width, int(attribute), *_ptrs(outs),
+        scratch.data_ptr(), scratch.numel(), _device.stream_handle(dev)),
+        "resolve_shard_finish_packed")
+    launches["resolve_shard_finish"] += 1
+    return outs
+
+
+@functools.lru_cache(maxsize=None)
+def make_resolve_shard_fns(n_devices: int, cap: int, n_txns: int,
+                           n_reads: int, n_writes: int, n_words: int,
+                           attribute: bool = True, packed: bool = True):
+    """Profiled, fault-seamed K8e and K8f for one shape bucket, packed
+    (`feed` = (buf,)) or unpacked (`feed` = the 12 inputs): (ext(HK, HV,
+    *feed, low, high, out=, scratch=) -> ext[R], finish(HK, HV, *feed,
+    low, high, ext_all, out=, scratch=) -> (HK', HV', count, conflict,
+    read_hit))."""
+    if packed:
+        def ext(hk, hv, buf, low, high, out=None, scratch=None):
+            return resolve_shard_ext_packed(hk, hv, buf, low, high, n_txns,
+                                            n_reads, n_writes, out=out,
+                                            scratch=scratch)
+
+        def finish(hk, hv, buf, low, high, ext_all, out=None, scratch=None):
+            return resolve_shard_finish_packed(
+                hk, hv, buf, low, high, ext_all, n_txns, n_reads, n_writes,
+                attribute=attribute, out=out, scratch=scratch)
+    else:
+        def ext(hk, hv, *args, out=None, scratch=None):
+            return resolve_shard_ext(hk, hv, *args, out=out, scratch=scratch)
+
+        def finish(hk, hv, *args, out=None, scratch=None):
+            return resolve_shard_finish(hk, hv, *args, attribute=attribute,
+                                        out=out, scratch=scratch)
+
+    p = "_packed" if packed else ""
+    shape = f"{cap}c/{n_txns}t/{n_reads}r/{n_writes}w"
+    tag = "" if attribute else "/noattr"
+    ext = profile_kernel(ext, f"shard_ext{p}[{shape}]")
+    finish = profile_kernel(finish,
+                            f"shard_finish{p}[{n_devices}d/{shape}{tag}]")
+    return (_fault_seamed(ext, f"shard_ext{p}[{cap}c]"),
+            _fault_seamed(finish, f"shard_finish{p}[{cap}c]"))
 
 
 @functools.lru_cache(maxsize=None)

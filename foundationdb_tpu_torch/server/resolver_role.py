@@ -110,7 +110,8 @@ class ConflictHotSpots:
 
 class Resolver:
     def __init__(self, process: SimProcess, backend: str = "python",
-                 recovery_version: int = 0, device=None, on_fatal=None):
+                 recovery_version: int = 0, device=None, on_fatal=None,
+                 backend_kwargs=None):
         self.process = process
         # called with a DeviceFaultError before it leaves an actor of
         # this role, so that the cluster hosting it stops instead of
@@ -122,9 +123,12 @@ class Resolver:
         # the card and raises NoCudaDeviceError on a host without one;
         # `device="cpu"` runs the kernels' plain versions. There is no
         # CPU failover: a device fault that outlasts the rebuilds
-        # raises DeviceFaultError out of the resolve actor
+        # raises DeviceFaultError out of the resolve actor.
+        # `backend_kwargs` go to the backend's factory (e.g. `devices`
+        # for sharded-cuda: one shard a device)
         self.conflict_set = create_resilient_conflict_set(
-            backend, recovery_version, device=device)
+            backend, recovery_version, device=device,
+            **(backend_kwargs or {}))
         # the MVCC window width (ref: Knobs.cpp:35; BUGGIFY shrinks it)
         self._mwtlv = SERVER_KNOBS.max_write_transaction_life_versions
         self.version = NotifiedVersion(recovery_version)
