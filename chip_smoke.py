@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--trace | --probe]
+    python3 chip_smoke.py [--trace | --probe | --devices]
 
 Run from the root of a checkout on a host with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from `foundationdb_tpu_torch/csrc`,
@@ -89,7 +89,7 @@ resolver re-bases its int32 version window mid-run.
   - The whole cluster (`foundationdb_tpu_torch.testing.cluster_run`):
     `SimCluster` at FDB 6.1's default role counts (3 proxies, 3 logs,
     1 resolver on the card, 4 storage teams of 2, durable, the memory
-    engine), 64 concurrent clients of 100 transactions, each a point
+    engine), 64 concurrent clients of 50 transactions, each a point
     read and a point write of 16-byte keys over 1,000,000 ids, retried
     until they commit; the worker that holds the resolver is killed at
     half and the next epoch recruits it anew on the card. Every
@@ -172,6 +172,11 @@ version array with L2 warm and cold, and a window over each chain's
 steps (each kernel's device time and the launches a step). `--probe`
 builds the kernels and runs only those two: copied into another
 checkout of the port, it measures that checkout's code the same way.
+`--devices` likewise runs only the per-device path's measurement: the
+lockstep and per-device streams over the sharded cell's first 196
+batches (their ms a batch and equal verdicts), and K8e and K8f at the
+state after batch 195 and K8f on the chain kind, each kernel traced;
+one JSON line.
 
 The last line of standard output is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`;
@@ -188,6 +193,7 @@ import json
 import os
 import pickle
 import queue
+import re
 import shutil
 import signal
 import socket
@@ -245,7 +251,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM (data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 77      # 20 rounds x (add, rotate, xor), 5 injections x 3, 2
 CHAIN_BATCHES = 100    # the reference bench's FDBTPU_BENCH_BATCHES
-CHAIN_PREFIX = 8       # the chains' CPU comparison
+CHAIN_PREFIX = 4       # the chains' CPU comparison (cut for the time)
 CHAIN_REPEATS = 3
 TALLY_EDGES = (1, 15, 17, 16_383, 16_385)   # K10's edge lengths
 CHAIN_PROBE_STEPS = 30   # the traced window over each chain's steps
@@ -259,7 +265,7 @@ ENTRY_BATCHES = 100    # the bench entry phase's FDBTPU_BENCH_BATCHES
 ROLE_BATCHES = 32      # the role traffic's ResolveRequests (the leg's first)
 ROLE_CUT_BATCHES = 16  # each backend's role run (cut for the time)
 ROLE_HOST_BATCHES = 16  # the role-host phase's requests (the role's first)
-ROLE_CPU_BATCHES = 4   # the first replies, held to the CPU role's
+ROLE_CPU_BATCHES = 2   # the first replies, held to the CPU role's
 ROLE_DUP_AT = 12       # batch whose successor's two copies wait on it
 ROLE_POINT_KEY_BYTES = 8   # the point backend's default key width
 COMMIT_BATCHES = 24    # the commit leg's batches, the role traffic's first
@@ -267,7 +273,7 @@ COMMIT_READ_AT = 22    # the commit leg's older point reads: batch 22's
 COMMIT_SAMPLE = 4096   # version, inside the storage's MVCC window
 COMMIT_CPU_BATCHES = 4   # the leg's prefix held to the CPU leg
 CLUSTER_CLIENTS = 64     # the cluster phase: concurrent clients, each
-CLUSTER_TXNS = 100       # with this many transactions (the kill at half)
+CLUSTER_TXNS = 50        # with this many transactions (the kill at half)
 CLUSTER_SHORT_TXNS = 10  # a client's transactions in the short runs
 CLUSTER_IDS = 1_000_000  # ids the keys are drawn from, uniform
 TESTER_DURATION = 4.0    # the contention cell's virtual seconds
@@ -1182,18 +1188,109 @@ def check_device_kinds(dev, tag):
           f"{conflicts} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def traced_per_call(fn, n, reps=50):
+    """`fn` makes n calls: (traced ms a call, CUDA launches a call,
+    {kernel: us a call}) from the profiler's kernel events; (None, None,
+    {}) if no window caught every call."""
+    calls = traced_calls(fn, reps=reps, kernels=n)
+    if calls is None:
+        return None, None, {}
+    per = {}
+    for k, (m, us) in calls.items():
+        name = next(iter(re.findall(r"(\w+)(?=[<(])", k)), k[:40])
+        per[name] = per.get(name, 0.0) + m * us / n
+    return (sum(m * us for m, us in calls.values()) / 1e3 / n,
+            sum(m for m, _us in calls.values()) / n, per)
+
+
+def chain_state(dev):
+    """The chain kind at the sharded cell's shape: transaction t reads
+    what t - 1 writes, so the fixpoint runs a round a link (512 links).
+    Returns (HK[S], HV[S], its packed feed) on the card."""
+    import torch
+    from foundationdb_tpu_torch import testing as tg
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    T = N_TXNS
+    hk, hv, arrays = tg.adversarial_batch(
+        np.random.default_rng(SEED + 300), "chain", SHARD_CAPACITY, T, T, T,
+        N_WORDS, splits=SPLIT_IDS)
+    hk, hv = tg.shard_history(hk, hv, *tg.shard_bounds(SPLIT_IDS, N_WORDS))
+    buf = ck.pack_interval_batch(*arrays, tg.COMMIT, tg.OLDEST)
+    return (torch.from_numpy(hk).to(dev), torch.from_numpy(hv).to(dev),
+            torch.from_numpy(buf).to(dev))
+
+
+def device_step_fns(state, feed, bounds, ext_all, outs, scratch):
+    """K8e and K8f as the streamed per-device path runs them (packed,
+    attribution off) over every shard of `state` (HK[S], HV[S]) in turn:
+    two closures, each the S calls of one kernel. K8e writes shard i's
+    flags into ext_all[i]; K8f reads them all and the segment starts
+    K8e left in the scratch."""
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    hk, hv = state
+    lows, highs = bounds
+    n = hk.shape[0]
+    T = R = Wr = N_TXNS
+
+    def ext():
+        for i in range(n):
+            ck.resolve_shard_ext_packed(hk[i], hv[i], feed, lows[i], highs[i],
+                                        T, R, Wr, out=ext_all[i],
+                                        scratch=scratch[i])
+
+    def finish():
+        for i in range(n):
+            ck.resolve_shard_finish_packed(
+                hk[i], hv[i], feed, lows[i], highs[i], ext_all, T, R, Wr,
+                attribute=False, out=outs[i], scratch=scratch[i])
+
+    return ext, finish
+
+
+def device_step_times(dev, state, feed, bounds):
+    """K8e and K8f a call (the S calls' time over S) on `state` and its
+    packed `feed`, and K8f on the chain kind (512 fixpoint rounds): for
+    each, ms by CUDA events, the traced ms and CUDA launches a call and
+    each kernel's traced us a call. Keys "K8e", "K8f", "chain_K8f"."""
+    import torch
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    hk, hv = state
+    n = hk.shape[0]
+    T = R = Wr = N_TXNS
+    scratch = [ck.shard_scratch(hk[i], T, R, Wr) for i in range(n)]
+    outs = [(torch.empty_like(hk[i]), torch.empty_like(hv[i]))
+            for i in range(n)]
+    ch_k, ch_v, ch_buf = chain_state(dev)
+    res = {}
+    for label, st, fd, reps, timed in (("", state, feed, 50, 20),
+                                       ("chain_", (ch_k, ch_v), ch_buf, 10,
+                                        5)):
+        ext_all = torch.empty((n, R), dtype=torch.bool, device=dev)
+        ext, finish = device_step_fns(st, fd, bounds, ext_all, outs, scratch)
+        ext()
+        for name, fn in (("K8e", ext), ("K8f", finish)):
+            if label and name == "K8e":
+                continue
+            traced, launches, kernels = traced_per_call(fn, n, reps)
+            res[label + name] = dict(
+                ms=time_ms(fn, timed) / n, traced_ms=traced,
+                cuda_launches=launches, kernels_us=kernels)
+    return res
+
+
 def measure_device_kernels(dev, mid, batch, version, bounds, tag):
     """K8e and K8f against their plain versions on the card at the
     per-device path's shapes: the sharded path's mid-stream state, one
     shard a logical device of the card, the batch it resolved next,
     packed, attribution off (as the streamed path runs them); a call's
-    device time (the S calls' over S) and its bound; and the flag
+    device time (the S calls' over S), its CUDA launches and its bound;
+    K8f's on the chain kind (512 fixpoint rounds); and the flag
     all-gather's S x (S - 1) copies of R bytes."""
     import torch
     from foundationdb_tpu_torch.ops import conflict_kernel as ck
     hk, hv, _base, _oldest = mid
     n, cap, width = hk.shape
-    T = R = Wr = N_TXNS
+    T = R = N_TXNS
     buf, unpacked = mid_feed(dev, mid, batch, version)
     lows, highs = bounds
     state = (hk, hv)
@@ -1202,23 +1299,6 @@ def measure_device_kernels(dev, mid, batch, version, bounds, tag):
     err_e = expect_exact("K8e", [ext_all], [want_ext])
     err_f = max(expect_exact(f"K8f shard {k}", g, w)
                 for k, (g, w) in enumerate(zip(got, want)))
-    scr = [ck.shard_scratch(hk[i], T, R, Wr) for i in range(n)]
-    outs = [(torch.empty_like(hk[i]), torch.empty_like(hv[i]))
-            for i in range(n)]
-
-    def ext_calls():
-        for i in range(n):
-            ck.resolve_shard_ext_packed(hk[i], hv[i], buf, lows[i], highs[i],
-                                        T, R, Wr, out=ext_all[i],
-                                        scratch=scr[i])
-
-    def finish_calls():
-        for i in range(n):
-            ck.resolve_shard_finish_packed(
-                hk[i], hv[i], buf, lows[i], highs[i], ext_all, T, R, Wr,
-                attribute=False, out=outs[i], scratch=scr[i])
-
-    ext_calls()      # the scratch's segment starts for finish_calls
     live = (hk[:, :, -1] != 0xFFFFFFFF).to(torch.int64).sum(1).tolist()
     row_bytes = width * 4 + 4
     read_part = 2 * T * 4 + R * (2 * width * 4 + 8)
@@ -1229,24 +1309,36 @@ def measure_device_kernels(dev, mid, batch, version, bounds, tag):
     e_bytes = sum(c * row_bytes for c in live) / n + read_part + R
     f_bytes = (sum((c + cap) * row_bytes for c in live) / n
                + buf.numel() * 4 + n * R + T + 4)
+    times = device_step_times(dev, state, buf, bounds)
+    e, f, c = times["K8e"], times["K8f"], times["chain_K8f"]
     out = {
         "resolve_shard_ext": dict(
-            max_abs_err=err_e, ms=time_ms(ext_calls, 20) / n,
-            traced_ms=(lambda t: None if t is None else t / n)(
-                traced_ms(ext_calls, kernels=n)),
+            max_abs_err=err_e, ms=e["ms"], traced_ms=e["traced_ms"],
+            cuda_launches=e["cuda_launches"],
             plain_ms=time_ms(lambda: ck.resolve_shard_ext_plain(
                 hk[0], hv[0], *unpacked, lows[0], highs[0]), 3, warm=1),
             library_ms=None, bound_ms=e_bytes / HBM_BYTES_PER_S * 1e3,
             state_rows=int(sum(live))),
         "resolve_shard_finish": dict(
-            max_abs_err=err_f, ms=time_ms(finish_calls, 20) / n,
-            traced_ms=(lambda t: None if t is None else t / n)(
-                traced_ms(finish_calls, kernels=n)),
+            max_abs_err=err_f, ms=f["ms"], traced_ms=f["traced_ms"],
+            cuda_launches=f["cuda_launches"],
             plain_ms=time_ms(lambda: ck.resolve_shard_finish_plain(
                 hk[0], hv[0], *unpacked, lows[0], highs[0], ext_all, False),
                 3, warm=1),
             library_ms=None, bound_ms=f_bytes / HBM_BYTES_PER_S * 1e3,
-            state_rows=int(sum(live)))}
+            state_rows=int(sum(live)), chain_ms=c["ms"],
+            chain_traced_ms=c["traced_ms"])}
+    for name, m in (("K8e", e), ("K8f", f)):
+        print(f"[{tag}] {name}: CUDA launches a call "
+              + ("not measured" if m["cuda_launches"] is None
+                 else f"{m['cuda_launches']:.2f}")
+              + " (traced us a call: "
+              + ", ".join(f"{k} {us:.1f}" for k, us in m["kernels_us"].items())
+              + ")", flush=True)
+    print(f"[{tag}] K8f on the chain kind: {c['ms']:.4f} ms a call, "
+          f"traced {fmt_ms(c['traced_ms'])}, CUDA launches a call "
+          + ("not measured" if c["cuda_launches"] is None
+             else f"{c['cuda_launches']:.2f}"), flush=True)
     gathered = [torch.zeros((n, R), dtype=torch.bool, device=dev)
                 for _ in range(n)]
 
@@ -1774,9 +1866,12 @@ POINT_KERNELS = ("searchsorted_i32", "window_upkeep", "point_resolve",
                  "searchsorted_rows")
 SHARDED_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
                    "shard_clip", "resolve_sharded")
-# one shard a device: K1, K2, K7 (fused) in K8e, K8f, K4 on each device
-DEVICE_KERNELS = ("searchsorted_i32", "range_max", "window_upkeep",
-                  "shard_clip", "resolve_shard_ext", "resolve_shard_finish")
+# one shard a device: K8e, K8f and K4 on each device (K1's, K2's and
+# K7's work runs inside K8e's one kernel, none of their kernels launches)
+DEVICE_KERNELS = ("window_upkeep", "resolve_shard_ext",
+                  "resolve_shard_finish")
+DEVICE_FUSED = ("searchsorted_i32", "range_max", "shard_clip")
+SHARD_EXT_KERNEL = "foundationdb_tpu_torch/csrc/shard_step.cu shard_ext_kernel"
 # the chains: K9, K5 (with K1 and K6) or K3 (with K1 and K2), K10
 CHAIN_KERNELS = ("chain_gen", "point_resolve", "searchsorted_i32",
                  "searchsorted_rows", "resolve", "range_max", "chain_tally")
@@ -3592,6 +3687,35 @@ def probe_main(tag, dev) -> int:
     return 0
 
 
+def devices_main(tag, dev) -> int:
+    """`--devices`: the per-device path alone, for comparing checkouts
+    in one call (this script copied into each); one JSON line."""
+    from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.models import create_conflict_set
+    SERVER_KNOBS.set("KERNEL_PROFILE_EVERY", 0)
+    mid_at = WARMUP + TIMED // 2
+    rng = np.random.default_rng(SEED)
+    vers = list(versions())[:mid_at + 2]
+    batches = [make_batch(rng, N_TXNS, KEYSPACE, v) for v, _o in vers]
+    kw = dict(key_bytes=KEY_BYTES, capacity=SHARD_CAPACITY,
+              split_keys=SHARD_SPLITS)
+    lock = create_conflict_set("sharded-cuda", n_shards=N_SHARDS, **kw)
+    got_l, secs_l, _d, snap, _h = run_streamed(lock, batches[:mid_at + 1],
+                                               snapshot_at=(mid_at,))
+    per = create_conflict_set("sharded-cuda", devices=device_list(), **kw)
+    got_d, secs_d, _d, _s, _h = run_streamed(per, batches[:mid_at + 1])
+    timed = mid_at + 1 - WARMUP
+    buf, _unpacked = mid_feed(dev, snap[mid_at], batches[mid_at + 1],
+                              vers[mid_at + 1])
+    res = {"lockstep_ms": secs_l / timed * 1e3,
+           "per_device_ms": secs_d / timed * 1e3,
+           "equal": all(np.array_equal(a, b) for a, b in zip(got_l, got_d))}
+    res.update(device_step_times(dev, snap[mid_at][:2], buf,
+                                 (lock._lows, lock._highs)))
+    print(f"[{tag}] per-device probe: {json.dumps(res)}", flush=True)
+    return 0
+
+
 def entry_phase(tag, chain_total) -> dict:
     """`python -m foundationdb_tpu_torch.bench` in `all` mode at
     ENTRY_BATCHES batches: exit 0, one JSON line naming this card, every
@@ -3833,7 +3957,8 @@ def main() -> int:
           flush=True)
 
     probe = "--probe" in sys.argv[1:]
-    tester_cpu = None if probe else TesterCpuRuns()   # beside the build
+    devices = "--devices" in sys.argv[1:]
+    tester_cpu = None if probe or devices else TesterCpuRuns()
     t0 = time.perf_counter()
     _build.lib()
     print(f"[{tag}] kernel build: {time.perf_counter() - t0:.3f} s "
@@ -3841,6 +3966,8 @@ def main() -> int:
           f"{_build.build_info.get('seconds', 0.0):.3f} s)", flush=True)
     if probe:
         return probe_main(tag, dev)
+    if devices:
+        return devices_main(tag, dev)
 
     check_edges(dev)
     print(f"[{tag}] edge shapes: K1-K4 bit-exact against plain", flush=True)
@@ -4044,10 +4171,10 @@ def main() -> int:
         spans_by=(False, True))
     counts_d = dev_counts["streamed"]
     n_batches = WARMUP + TIMED
-    want = {k: N_SHARDS * n_batches for k in (
-        "searchsorted_i32", "range_max", "shard_clip", "resolve_shard_ext",
-        "resolve_shard_finish")}
-    want.update(resolve=0, resolve_sharded=0)
+    want = {k: N_SHARDS * n_batches for k in ("resolve_shard_ext",
+                                              "resolve_shard_finish")}
+    want.update(resolve=0, resolve_sharded=0,
+                **{k: 0 for k in DEVICE_FUSED})
     if any(counts_d[k] != v for k, v in want.items()) \
             or g_device_faults.injected != faults:
         raise AssertionError(f"per-device launches {counts_d} (want "
@@ -4071,6 +4198,7 @@ def main() -> int:
           f"batch "
           + ", ".join(f"{k} {counts_d[k] / n_batches:.3f}"
                       for k in DEVICE_KERNELS)
+          + f" ({', '.join(DEVICE_FUSED)} 0: their work runs inside K8e)"
           + f"; h2d {N_SHARDS}.0 a batch; no device fault; final rows per "
           f"shard max {state_d[2]}; dryrun_multichip({N_SHARDS}) "
           f"{dry} txns equal to the baseline "
@@ -4140,10 +4268,10 @@ def main() -> int:
         "resolve_sharded": ("foundationdb_tpu_torch/csrc/resolve.cu",
                             "foundationdb_tpu/parallel/sharded_resolver.py:36"),
         "resolve_shard_ext": (
-            "foundationdb_tpu_torch/csrc/resolve.cu",
+            "foundationdb_tpu_torch/csrc/shard_step.cu",
             "foundationdb_tpu/parallel/sharded_resolver.py:36"),
         "resolve_shard_finish": (
-            "foundationdb_tpu_torch/csrc/resolve.cu",
+            "foundationdb_tpu_torch/csrc/shard_step.cu",
             "foundationdb_tpu/ops/conflict_kernel.py:182"),
         "chain_gen": ("foundationdb_tpu_torch/csrc/bench_chain.cu",
                       "bench.py:164"),
@@ -4267,7 +4395,8 @@ def main() -> int:
                      "traced_ms": m.get("traced_ms"),
                      "library_traced_ms": m.get("library_traced_ms")})
         for k in ("unpacked_traced_ms", "whole_traced_ms",
-                  "interval_traced_ms"):
+                  "interval_traced_ms", "cuda_launches", "chain_ms",
+                  "chain_traced_ms"):
             if k in m:
                 rows[-1][k] = m[k]
         if name == "window_upkeep":
@@ -4278,11 +4407,16 @@ def main() -> int:
             # the copies between K8e and K8f (PyTorch's copy_, not a
             # kernel of the port): S x (S - 1) rows of R bytes a batch
             rows[-1]["gather"] = gather
+        # where a kernel's work runs inside another path's kernel: the
+        # standalone kernel is timed above; on the sharded path K7 runs
+        # fused into K8's bounds search, and on the per-device path K1,
+        # K2 and K7 run inside K8e (their launches there are 0)
+        if name in DEVICE_FUSED:
+            rows[-1]["fused_into"] = {"devices": SHARD_EXT_KERNEL}
         if name == "shard_clip":
-            # the standalone clip is timed above; on the sharded path K7
-            # runs fused into the step's bounds search
-            rows[-1]["fused_into"] = ("foundationdb_tpu_torch/csrc/"
-                                      "resolve.cu ext_bounds_kernel<true>")
+            rows[-1]["fused_into"]["sharded"] = (
+                "foundationdb_tpu_torch/csrc/resolve.cu "
+                "ext_bounds_kernel<true>")
     for kind, step in (("point", "point_resolve"), ("interval", "resolve")):
         gen = kern["chain_gen"]
         bound = (kern[step]["bound_ms"] + kern["chain_tally"]["bound_ms"]

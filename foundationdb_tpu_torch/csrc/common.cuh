@@ -210,23 +210,44 @@ __global__ void scan_tiles_kernel(const int32_t* agg, int32_t* pre, int n,
   if (total && threadIdx.x == 0) *total = carry;
 }
 
-// blocks for a cooperative launch of `Kernel` at `Threads` per block:
-// `needed`, capped at what can be co-resident on the current device
-// (cached per device)
-template <auto Kernel, int Threads>
-int coop_grid(int needed) {
-  static int cached_dev = -1, cached_max = 0;
+// blocks for a cooperative launch of `kernel` at `threads` per block with
+// `smem` bytes of dynamic shared memory: `needed`, capped at what can be
+// co-resident on the current device (cached per kernel, device and
+// smem; set a kernel's shared-memory attribute before asking)
+inline int coop_blocks(const void* kernel, int threads, size_t smem,
+                       int needed) {
+  struct Seen {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int max;
+  };
+  constexpr int kSeen = 32;
+  static Seen seen[kSeen];
+  static int n_seen = 0;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev != cached_dev) {
+  int most = -1;
+  for (int i = 0; i < n_seen && i < kSeen; ++i)
+    if (seen[i].kernel == kernel && seen[i].dev == dev &&
+        seen[i].smem == smem)
+      most = seen[i].max;
+  if (most < 0) {
     int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, Threads,
-                                                  0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  smem);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cached_max = per_sm * sms;
-    cached_dev = dev;
+    most = per_sm * sms;
+    seen[n_seen++ % kSeen] = Seen{kernel, dev, smem, most};
   }
-  return max(1, min(cached_max, needed));
+  if (needed < 1) needed = 1;
+  return most < needed ? (most > 1 ? most : 1) : needed;
+}
+
+// coop_blocks for `Kernel` with no dynamic shared memory
+template <auto Kernel, int Threads>
+int coop_grid(int needed) {
+  return coop_blocks((const void*)Kernel, Threads, 0, needed);
 }
 
 }  // namespace

@@ -34,81 +34,24 @@
 //     (256 + 128 + n/8192) / 32 loads.
 // The prefix and suffix arrays and the one-block sparse table of the
 // reference's structure are gone: on point reads they were built over
-// all of HV (12 MB written at 2^20) and went unread.
+// all of HV (12 MB written at 2^20) and went unread. The two halves are
+// device functions in rmq.cuh, which K8e runs inside its own launch.
 
 #include "common.cuh"
+#include "rmq.cuh"
 
 namespace {
 
-constexpr int SUPER = 64;          // blocks of 128 values a super-block
-constexpr int SUM_WARPS = 8;       // SUPER / SUM_WARPS blocks a warp
-constexpr int RMQ_SHORT = 8;       // values a thread scans by itself
+constexpr int SUM_WARPS = 8;       // RMQ_SUPER / SUM_WARPS blocks a warp
 constexpr int Q_THREADS = 256;
 
 __global__ void __launch_bounds__(SUM_WARPS * 32)
     rmq_summary_kernel(const int32_t* __restrict__ vals, int n, int nb,
                        int nsb, int32_t* __restrict__ bmax,
                        int32_t* __restrict__ smax) {
-  __shared__ int32_t wmax[SUM_WARPS];
-  const int k = blockIdx.y, sb = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int32_t* v = vals + (size_t)k * n;
-  constexpr int PER = SUPER / SUM_WARPS;
-  int32_t x[PER][4];
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int blk = sb * SUPER + t * SUM_WARPS + warp;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      x[t][j] = blk < nb ? v[(size_t)blk * fdb::RMQ_BLOCK + j * 32 + lane]
-                         : fdb::VDEAD;
-  }
-  int32_t m = fdb::VDEAD;
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int blk = sb * SUPER + t * SUM_WARPS + warp;
-    int32_t b = __reduce_max_sync(fdb::FULL_MASK,
-                                  max(max(x[t][0], x[t][1]),
-                                      max(x[t][2], x[t][3])));
-    if (lane == 0 && blk < nb) bmax[(size_t)k * nb + blk] = b;
-    m = max(m, b);
-  }
-  if (lane == 0) wmax[warp] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int w = 1; w < SUM_WARPS; ++w) m = max(m, wmax[w]);
-    smax[(size_t)k * nsb + sb] = m;
-  }
-}
-
-// the max of v[a..b] (inclusive, a <= b, both in range) by the whole
-// warp, every lane calling with the same range; each lane gets it
-__device__ int32_t warp_range_max(const int32_t* __restrict__ v,
-                                  const int32_t* __restrict__ bm,
-                                  const int32_t* __restrict__ sm, int a,
-                                  int b, int lane) {
-  int32_t m = fdb::VDEAD;
-  const int ab = a / fdb::RMQ_BLOCK, bb = b / fdb::RMQ_BLOCK;
-  if (ab == bb) {
-    for (int j = a + lane; j <= b; j += 32) m = max(m, v[j]);
-  } else {
-    for (int j = a + lane; j < (ab + 1) * fdb::RMQ_BLOCK; j += 32)
-      m = max(m, v[j]);
-    for (int j = bb * fdb::RMQ_BLOCK + lane; j <= b; j += 32)
-      m = max(m, v[j]);
-    const int x = ab + 1, y = bb - 1;  // the whole blocks between
-    const int sx = x / SUPER, sy = y / SUPER;
-    if (x <= y && sy - sx <= 1) {
-      for (int j = x + lane; j <= y; j += 32) m = max(m, bm[j]);
-    } else if (x <= y) {
-      for (int j = x + lane; j < (sx + 1) * SUPER; j += 32)
-        m = max(m, bm[j]);
-      for (int j = sy * SUPER + lane; j <= y; j += 32) m = max(m, bm[j]);
-      for (int j = sx + 1 + lane; j < sy; j += 32) m = max(m, sm[j]);
-    }
-  }
-  return __reduce_max_sync(fdb::FULL_MASK, m);
+  const int k = blockIdx.y;
+  fdb::rmq_summarize<SUM_WARPS>(vals + (size_t)k * n, nb, blockIdx.x,
+                                bmax + (size_t)k * nb, smax + (size_t)k * nsb);
 }
 
 __global__ void __launch_bounds__(Q_THREADS)
@@ -126,7 +69,7 @@ __global__ void __launch_bounds__(Q_THREADS)
   const bool any = hi > lo;
   const int a = min(max(lo, 0), n - 1);
   const int b = min(max(hi - 1, 0), n - 1);
-  const bool is_long = any && b - a >= RMQ_SHORT;
+  const bool is_long = any && b - a >= fdb::RMQ_SHORT;
   const int32_t* v = vals + (size_t)k * n;
   int32_t m = fdb::VDEAD;
   if (any && !is_long)
@@ -138,14 +81,14 @@ __global__ void __launch_bounds__(Q_THREADS)
     const int lb = __shfl_sync(fdb::FULL_MASK, b, src);
     const int lk = __shfl_sync(fdb::FULL_MASK, k, src);
     const int32_t r =
-        warp_range_max(vals + (size_t)lk * n, bmax + (size_t)lk * nb,
-                       smax + (size_t)lk * nsb, la, lb, lane);
+        fdb::warp_range_max(vals + (size_t)lk * n, bmax + (size_t)lk * nb,
+                            smax + (size_t)lk * nsb, la, lb, lane);
     if (lane == src) m = r;
   }
   if (live) out[i] = m;
 }
 
-int supers_for(int nb) { return (nb + SUPER - 1) / SUPER; }
+int supers_for(int nb) { return (nb + fdb::RMQ_SUPER - 1) / fdb::RMQ_SUPER; }
 
 }  // namespace
 

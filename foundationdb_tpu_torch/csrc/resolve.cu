@@ -96,25 +96,8 @@
 // each shard's live rows read once, the whole [S, cap] state written
 // once and the feed read once.
 //
-// K8e and K8f: K8 split at its cross-shard combine, one shard a device
-// (fdb_resolve_shard_ext[_packed], fdb_resolve_shard_finish[_packed]).
-//
-// Replace the same TPU program as K8 where the reference runs it: one
-// shard on each device of a mesh, combined by psum. K8e is K8's phase 1
-// for ONE shard (K1's segment starts, the bounds search with the read
-// clipped to the shard in registers, K2 over the shard's HV, the
-// flags) into the shard's [R] external read flags. The caller gathers
-// every device's flags into a [D, R] buffer on each device; K8f is the
-// rest of K8 on it: the base verdicts OR the D rows, then the endpoint
-// sort, the one matrix and the cooperative fixpoint, whose attribution
-// ORs the D rows too, then the partition and merge of the device's own
-// shard (S = 1). The matrix does not depend on the shard (see above), so
-// every device builds the same one from the same feed and reaches the
-// same verdicts with no exchange but the flags: one all-gather of R
-// bytes a device a batch, where the reference needs a psum each round.
-// K8f reads the segment starts K8e left in the scratch they share.
-// Bound: bytes, a device's shard as K8's for one shard plus the D x R
-// gathered flags.
+// K8e and K8f, the same step with one shard a device, are in
+// shard_step.cu; what they share with K3 and K8 is in step.cuh.
 
 #include <cooperative_groups.h>
 
@@ -122,107 +105,32 @@
 
 #include "common.cuh"
 #include "sort.cuh"
+#include "step.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = 8;
-constexpr int TILE = SCAN_THREADS * SCAN_ITEMS;
 constexpr int FIX_THREADS = 256;
 // the bounds search's blocks: at R = 16,384 reads, 128 blocks, about
 // one an SM (blocks of 256 left half the SMs idle, and the search is
 // bound by each SM's scattered row loads)
 constexpr int BOUNDS_THREADS = 128;
-constexpr int SURV_ITEMS = 2;      // sorted endpoints per thread, partition
-constexpr int SURV_TILE = SCAN_THREADS * SURV_ITEMS;
-constexpr uint32_t BEGIN_BIT = 0x80000000u;
-
-struct In {
-  const uint32_t* hk;
-  const int32_t* hv;
-  const int32_t* snap;
-  const void* too_old;
-  const uint32_t* rb;
-  const uint32_t* re;
-  const int32_t* rtxn;
-  const void* rvalid;
-  const uint32_t* wb;
-  const uint32_t* we;
-  const int32_t* wtxn;
-  const void* wvalid;
-  const int32_t* commit;
-  const int32_t* oldest;
-  int flag_bytes;
-  int cap, T, R, Wr, width;
-};
-
-// the merged sequence: position p holds history row src[p] (< cap) or
-// sorted-boundary row src[p] - cap
-struct Merged {
-  const uint32_t* hk;
-  const int32_t* hv;
-  const uint32_t* ins_k;
-  const int32_t* ins_tie;
-  const int32_t* src;
-  int cap, width, mtot;
-  // shard k's slices of the [S, cap] history, the [S, mtot - cap]
-  // boundaries and the [S, mtot] sequence (K3 has the one shard 0)
-  __device__ Merged shard(int k) const {
-    const size_t n_s = mtot - cap;
-    return Merged{hk + (size_t)k * cap * width, hv + (size_t)k * cap,
-                  ins_k + (size_t)k * n_s * width, ins_tie + (size_t)k * n_s,
-                  src + (size_t)k * mtot, cap, width, mtot};
-  }
-  __device__ const uint32_t* key(int p) const {
-    int s = src[p];
-    return s < cap ? hk + (size_t)s * width
-                   : ins_k + (size_t)(s - cap) * width;
-  }
-  __device__ int tie(int p) const {
-    int s = src[p];
-    return s < cap ? 1 : ins_tie[s - cap];
-  }
-  __device__ int32_t vcol(int p) const {
-    int s = src[p];
-    return s < cap ? hv[s] : fdb::VDEAD;
-  }
-};
 
 // ---- 1. external check ----------------------------------------------------
-// Read i against shard k = blockIdx.y's history: lo = #(rows <= rb) - 1
-// and hi = #(rows < re), the range K2 takes the max over, and ok, the
-// read's validity. With kClip (K8) the read is first clipped to the
-// shard (K7's clip_range, in registers; the S threads of a read load
-// the same feed rows, out of L1/L2), and ok is the clipped flag; K3
-// (S = 1) searches the feed's rows as they are. Both searches run in
-// lockstep (common.cuh row_bounds), a probed row's first ROW_CW words
-// loaded together: the interval and the sharded step share this kernel.
+// Read i against shard k = blockIdx.y's history (step.cuh read_bounds):
+// the S threads of a read load the same feed rows, out of L1/L2; the
+// interval and the sharded step share this kernel.
 template <bool kClip>
 __global__ void ext_bounds_kernel(In in, const uint32_t* lows,
                                   const uint32_t* highs, int32_t* lo,
                                   int32_t* hi, uint8_t* rok) {
   const int k = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= in.R) return;
-  const int width = in.width;
-  fdb::Row q[2] = {fdb::load_row(in.rb + (size_t)i * width, width),
-                   fdb::load_row(in.re + (size_t)i * width, width)};
-  bool ok = fdb::flag_at(in.rvalid, i, in.flag_bytes);
-  if (kClip)
-    ok &= fdb::clip_range(q[0], q[1],
-                          fdb::load_row(lows + (size_t)k * width, width),
-                          fdb::load_row(highs + (size_t)k * width, width),
-                          width);
-  const bool upper[2] = {true, false};
-  int n[2];
-  fdb::row_bounds<2>(in.hk + (size_t)k * in.cap * width, in.cap, q, upper,
-                     width, n);
   const size_t o = (size_t)k * in.R + i;
-  lo[o] = n[0] - 1;
-  hi[o] = n[1];
-  rok[o] = ok;
+  read_bounds<kClip>(in, in.hk + (size_t)k * in.cap * in.width, lows, highs,
+                     k, i, lo[o], hi[o], rok[o]);
 }
 
 __global__ void ext_flags_kernel(In in, const uint8_t* rok,
@@ -259,61 +167,8 @@ __global__ void base_kernel(In in, const int32_t* rs, const uint8_t* ext_r,
 }
 
 // ---- 2. the endpoint sort ---------------------------------------------------
-// A record is NV uint4s: the key row (width words), the tag (BEGIN_BIT
-// for rb and wb, or'ed with the endpoint's index g: rb [0, R), wb
-// [R, R+Wr), we [R+Wr, R+2Wr), re [R+2Wr, N)), then zero words. Records
-// compare word by word, so the order is (key, end before begin, g): a
-// total order. sort.cuh's padding record (all ones) sorts after every
-// real one.
-template <int NV>
-__device__ fdb::Rec<NV> ep_record(const In& in, int g) {
-  fdb::Rec<NV> rec;
-  const int R = in.R, Wr = in.Wr, width = in.width;
-  const uint32_t* row;
-  bool inf = false;
-  uint32_t tag = (uint32_t)g;
-  if (g < R) {
-    row = in.rb + (size_t)g * width;
-    inf = !fdb::flag_at(in.rvalid, g, in.flag_bytes);
-    tag |= BEGIN_BIT;
-  } else if (g < R + Wr) {
-    row = in.wb + (size_t)(g - R) * width;
-    inf = !fdb::flag_at(in.wvalid, g - R, in.flag_bytes);
-    tag |= BEGIN_BIT;
-  } else if (g < R + 2 * Wr) {
-    row = in.we + (size_t)(g - R - Wr) * width;
-    inf = !fdb::flag_at(in.wvalid, g - R - Wr, in.flag_bytes);
-  } else {
-    row = in.re + (size_t)(g - R - 2 * Wr) * width;
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    uint32_t x[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int k = 4 * i + j;
-      x[j] = k < width ? (inf ? fdb::INF_WORD : row[k])
-                       : (k == width ? tag : 0u);
-    }
-    rec.v[i] = make_uint4(x[0], x[1], x[2], x[3]);
-  }
-  return rec;
-}
-
-// each endpoint's sorted position, by group
-struct Pos {
-  int32_t *r_lo, *r_hi, *w_lo, *w_hi;
-};
-
-template <int NV>
-struct EpLoad {
-  In in;
-  __device__ fdb::Rec<NV> operator()(int g) const {
-    return ep_record<NV>(in, g);
-  }
-};
-
-// the last pass: the record's endpoint learns its sorted position
+// The records are step.cuh's ep_record; the last pass: the record's
+// endpoint learns its sorted position
 template <int NV>
 struct EpPlace {
   In in;
@@ -571,62 +426,18 @@ __global__ void __launch_bounds__(FIX_THREADS) fixpoint_kernel(Fix f) {
 
 // ---- 3. merge ---------------------------------------------------------------
 // The survivors' boundaries, per shard, out of the one endpoint sort: a
-// stable partition in two passes (counts per tile, then placement).
-struct Part {
-  const uint32_t* rec;  // the sorted endpoints: records of `stride` words
-  int stride, n;
-  const uint8_t* cfinal;
-  const uint32_t* lows;  // K8: the shards' [lo, hi) bounds
-  const uint32_t* highs;
-};
-
-// the row sorted endpoint p puts into shard k's list, or null: a
-// surviving write's (a valid write whose transaction did not conflict)
-// begin or end; K8 (kClip) clips the write to [lows[k], highs[k]) and
-// keeps it only where the clip is non-empty, as the reference's clip
-// does (common.cuh clip_range, K7's clip); `is_b` says whether it is
-// the write's begin
-template <bool kClip>
-__device__ const uint32_t* part_row(const In& in, const Part& pt, int p,
-                                    int k, bool& is_b) {
-  const int width = in.width;
-  int w = (int)(pt.rec[(size_t)p * pt.stride + width] & ~BEGIN_BIT) - in.R;
-  if (w < 0 || w >= 2 * in.Wr) return nullptr;
-  is_b = w < in.Wr;
-  if (!is_b) w -= in.Wr;
-  const int t = min(max(in.wtxn[w], 0), in.T);
-  if (!fdb::flag_at(in.wvalid, w, in.flag_bytes) || pt.cfinal[t])
-    return nullptr;
-  if (!kClip) return (is_b ? in.wb : in.we) + (size_t)w * width;
-  fdb::Row b = fdb::load_row(in.wb + (size_t)w * width, width);
-  fdb::Row e = fdb::load_row(in.we + (size_t)w * width, width);
-  if (!fdb::clip_range(b, e,
-                       fdb::load_row(pt.lows + (size_t)k * width, width),
-                       fdb::load_row(pt.highs + (size_t)k * width, width),
-                       width))
-    return nullptr;
-  return is_b ? b.p : e.p;
-}
-
-// pass A: shard k = blockIdx.y's survivors per tile of sorted endpoints
+// stable partition in two passes (step.cuh part_count_tile, then
+// part_place_tile), tile blockIdx.x and shard blockIdx.y.
 template <bool kClip>
 __global__ void part_count_kernel(In in, Part pt, int32_t* agg) {
-  const int k = blockIdx.y, base = blockIdx.x * SURV_TILE + threadIdx.x;
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < SURV_ITEMS; ++i) {
-    int p = base + i * SCAN_THREADS;
-    bool is_b;
-    cnt += p < pt.n && part_row<kClip>(in, pt, p, k, is_b) != nullptr;
-  }
-  int tot;
-  fdb::block_excl_scan<false>(cnt, tot);
+  const int k = blockIdx.y;
+  const int tot = part_count_tile<kClip>(in, pt, blockIdx.x, k);
   if (threadIdx.x == 0) agg[k * gridDim.x + blockIdx.x] = tot;
 }
 
 // pass B: shard k's survivor rows in sorted order into its 2 * Wr slots
-// of ins_k (tie 6 for a begin, 4 for an end), then +inf rows with tie 1,
-// which only the never-kept +inf run sees
+// of ins_k, then +inf rows with tie 1, which only the never-kept +inf
+// run sees
 template <bool kClip>
 __global__ void part_place_kernel(In in, Part pt, const int32_t* agg,
                                   uint32_t* __restrict__ ins_k,
@@ -644,26 +455,7 @@ __global__ void part_place_kernel(In in, Part pt, const int32_t* agg,
   int pre, total;
   fdb::block_excl_scan<false>(before, pre);
   fdb::block_excl_scan<false>(all, total);
-  const int base = blockIdx.x * SURV_TILE + threadIdx.x;
-  const uint32_t* row[SURV_ITEMS];
-  bool bg[SURV_ITEMS];
-#pragma unroll
-  for (int i = 0; i < SURV_ITEMS; ++i) {
-    int p = base + i * SCAN_THREADS;
-    bg[i] = false;
-    row[i] = p < pt.n ? part_row<kClip>(in, pt, p, k, bg[i]) : nullptr;
-  }
-  // stripe by stripe, so the survivors keep their sorted order
-  int pos = pre;
-  for (int i = 0; i < SURV_ITEMS; ++i) {
-    int tot;
-    int at = pos + fdb::block_excl_scan<false>(row[i] != nullptr, tot);
-    pos += tot;
-    if (!row[i]) continue;
-    for (int w = 0; w < width; ++w)
-      ins_k[(size_t)at * width + w] = row[i][w];
-    ins_tie[at] = bg[i] ? 6 : 4;
-  }
+  part_place_tile<kClip>(in, pt, blockIdx.x, k, pre, ins_k, ins_tie);
   for (int j = total + blockIdx.x * blockDim.x + threadIdx.x; j < n_s;
        j += gridDim.x * blockDim.x) {
     for (int w = 0; w < width; ++w)
@@ -707,64 +499,26 @@ __global__ void merge_hist_kernel(int cap, int n_s, const int32_t* ub,
   src[i + lo] = i;
 }
 
-// pass A of the first scan: per tile, the last history-or-masked row
-// (max index) and the coverage delta sum
+// the covering version's two scans (step.cuh cover_tile_reduce, then
+// cover_tile_apply), tile blockIdx.x
 __global__ void cover_reduce_kernel(Merged m0, int32_t* agg_max,
                                     int32_t* agg_sum) {
-  const Merged m = m0.shard(blockIdx.y);
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
-  int tmax = 0, tsum = 0;
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k;
-    if (p >= m.mtot) break;
-    int tie = m.tie(p);
-    if (tie < 4) tmax = max(tmax, p); else tsum += tie - 5;
-  }
   int totm, tots;
-  fdb::block_excl_scan<true>(tmax, totm);
-  fdb::block_excl_scan<false>(tsum, tots);
+  cover_tile_reduce(m0.shard(blockIdx.y), blockIdx.x, totm, tots);
   if (threadIdx.x == 0) {
     agg_max[tile] = totm;
     agg_sum[tile] = tots;
   }
 }
 
-// pass B: covering version (carry-last over history rows) and coverage
-// (inclusive delta sum) per merged row; covered rows take the commit
 __global__ void cover_apply_kernel(Merged m0, const int32_t* pre_max,
                                    const int32_t* pre_sum,
                                    const int32_t* commit_p, int32_t* mv) {
-  const Merged m = m0.shard(blockIdx.y);
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  mv += (size_t)blockIdx.y * m.mtot;
-  int base = blockIdx.x * TILE + threadIdx.x * SCAN_ITEMS;
-  int cand[SCAN_ITEMS], d[SCAN_ITEMS];
-  int tmax = 0, tsum = 0;
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k;
-    cand[k] = 0;
-    d[k] = 0;
-    if (p < m.mtot) {
-      int tie = m.tie(p);
-      if (tie < 4) cand[k] = p; else d[k] = tie - 5;
-    }
-    tmax = max(tmax, cand[k]);
-    tsum += d[k];
-  }
-  int totm, tots;
-  int runm = max(pre_max[tile], fdb::block_excl_scan<true>(tmax, totm));
-  int runs = pre_sum[tile] + fdb::block_excl_scan<false>(tsum, tots);
-  const int32_t commit = *commit_p;
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k;
-    runm = max(runm, cand[k]);
-    runs += d[k];
-    if (p < m.mtot) {
-      int32_t v = m.vcol(runm);
-      mv[p] = runs > 0 ? max(v, commit) : v;
-    }
-  }
+  cover_tile_apply(m0.shard(blockIdx.y), blockIdx.x, pre_max[tile],
+                   pre_sum[tile], *commit_p,
+                   mv + (size_t)blockIdx.y * m0.mtot);
 }
 
 // ---- 4. GC + compaction -----------------------------------------------------
@@ -774,11 +528,11 @@ __device__ bool keep_row(const Merged& m, const int32_t* mv, int p,
   bool run_end = p == m.mtot - 1 ||
                  fdb::row_cmp(kp, m.key(p + 1), m.width) != 0;
   if (!run_end) return false;
-  if (p > 0 && fdb::row_cmp(m.key(p - 1), kp, m.width) != 0) {
-    int32_t v = mv[p], pv = mv[p - 1];
-    if (v == pv || (v < oldest2 && pv < oldest2)) return false;
-  }
-  return !fdb::row_is_inf(kp, m.width);
+  bool new_key_before =
+      p > 0 && fdb::row_cmp(m.key(p - 1), kp, m.width) != 0;
+  return keep_rule(true, new_key_before, mv[p],
+                   new_key_before ? mv[p - 1] : 0,
+                   fdb::row_is_inf(kp, m.width), oldest2);
 }
 
 // the keep flags and their count per tile; a tile's rows are taken
@@ -811,41 +565,15 @@ __global__ void keep_reduce_kernel(Merged m0, const int32_t* mv,
   if (threadIdx.x == 0) agg[blockIdx.y * gridDim.x + blockIdx.x] = tot;
 }
 
-// the kept rows of a tile, packed from pre[tile] on in merged order: one
-// block scan per stripe of SCAN_THREADS consecutive rows, so the kept
-// rows of a stripe are written side by side
 __global__ void compact_kernel(Merged m0, const int32_t* mv,
                                const uint8_t* keepf, const int32_t* pre,
                                uint32_t* __restrict__ hk_out,
                                int32_t* __restrict__ hv_out) {
-  const Merged m = m0.shard(blockIdx.y);
-  mv += (size_t)blockIdx.y * m.mtot;
-  keepf += (size_t)blockIdx.y * m.mtot;
-  hk_out += (size_t)blockIdx.y * m.cap * m.width;
-  hv_out += (size_t)blockIdx.y * m.cap;
-  const int base = blockIdx.x * TILE + threadIdx.x;
-  int f[SCAN_ITEMS], at[SCAN_ITEMS];
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k * SCAN_THREADS;
-    f[k] = p < m.mtot ? keepf[p] : 0;
-  }
-  int pos = pre[blockIdx.y * gridDim.x + blockIdx.x];
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int tot;
-    at[k] = pos + fdb::block_excl_scan<false>(f[k], tot);
-    pos += tot;
-  }
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    int p = base + k * SCAN_THREADS;
-    if (f[k] && at[k] < m.cap) {
-      const uint32_t* kp = m.key(p);
-      for (int w = 0; w < m.width; ++w)
-        hk_out[(size_t)at[k] * m.width + w] = kp[w];
-      hv_out[at[k]] = mv[p];
-    }
-  }
+  const size_t off = (size_t)blockIdx.y * m0.mtot;
+  compact_tile(m0.shard(blockIdx.y), mv + off, keepf + off, blockIdx.x,
+               pre[blockIdx.y * gridDim.x + blockIdx.x],
+               hk_out + (size_t)blockIdx.y * m0.cap * m0.width,
+               hv_out + (size_t)blockIdx.y * m0.cap);
 }
 
 // rows [count, cap) of the output become +inf / VDEAD, word by word
@@ -876,10 +604,6 @@ struct Scratch {
   Pos pos;
   int32_t *agg_surv, *lane_tab;
 };
-
-// uint4s per endpoint record (width + 1 words, rounded up), 0 when the
-// keys are too wide for the endpoint sort
-int rec_nv(int width) { return fdb::rec_uint4s(width + 1); }
 
 size_t carve(Scratch& s, char* base, int cap, int T, int R, int Wr,
              int width, int S) {
@@ -1013,8 +737,7 @@ bool bad_shape(const In& in, int S) {
 // over every shard's HV in one call, every shard's flags into ext_r
 // ([S, R]). launches: [0] K1, [1] K2, [2] K7 (clipped only).
 int ext_phase(const In& in, const uint32_t* lows, const uint32_t* highs,
-              int S, const Scratch& s, uint8_t* ext_r, cudaStream_t st,
-              long long* launches) {
+              int S, const Scratch& s, cudaStream_t st, long long* launches) {
   const int R = in.R;
   const bool clip = lows != nullptr;
   FDB_TRY(fdb_searchsorted_launch(in.rtxn, R, nullptr, in.T + 2, 0, s.rs,
@@ -1029,31 +752,29 @@ int ext_phase(const In& in, const uint32_t* lows, const uint32_t* highs,
                                s.rmq, st));
   launches[1] += 1;
   ext_flags_kernel<<<dim3(fdb::blocks_for(R, 256), S), 256, 0, st>>>(
-      in, s.rok, s.vmax, ext_r);
+      in, s.rok, s.vmax, s.ext_r);
   FDB_LAUNCHED();
   return 0;
 }
 
-// 2. - 4. from the external flags of S_ext shards (ext_r [S_ext, R], s.rs
-// as ext_phase left it): the base verdicts, the endpoint sort of the
+// 2. - 4. from the S shards' external flags (s.ext_r [S, R], s.rs as
+// ext_phase left them): the base verdicts, the endpoint sort of the
 // (unclipped) ranges, the overlap matrix from its positions (a clipped
 // step's one matrix is the OR of the shards' clipped ones, see the note
-// above), the fixpoint (+ attribution), then the survivors of S shards
-// out of the one sort, merge, GC and compaction, each phase one launch
-// over the shards. K3 passes lows == nullptr and S_ext = S = 1; K8 its
-// S shards for both; K8f the gathered flags of every device (S_ext = D)
-// and its own shard (S = 1).
-int finish_phase(const In& in, const Scratch& s, const uint8_t* ext_r,
-                 int S_ext, const uint32_t* lows, const uint32_t* highs,
-                 int S, int attribute, uint32_t* hk_out, int32_t* hv_out,
+// above), the fixpoint (+ attribution), then the survivors of every
+// shard out of the one sort, merge, GC and compaction, each phase one
+// launch over the shards. K3 passes lows == nullptr and S = 1.
+int finish_phase(const In& in, const Scratch& s, const uint32_t* lows,
+                 const uint32_t* highs, int S, int attribute,
+                 uint32_t* hk_out, int32_t* hv_out,
                  int32_t* count_out, uint8_t* conflict_out,
                  uint8_t* read_hit_out, cudaStream_t st) {
   const int T = in.T, R = in.R, Wr = in.Wr;
   const bool clip = lows != nullptr;
   const int n_lanes = (Wr + 31) / 32;
   (clip ? base_kernel<true> : base_kernel<false>)
-      <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, ext_r, s.base,
-                                                     s.ca, s.cb, S_ext);
+      <<<fdb::blocks_for(T + 1, 256), 256, 0, st>>>(in, s.rs, s.ext_r,
+                                                     s.base, s.ca, s.cb, S);
   FDB_LAUNCHED();
   const uint4* sorted = nullptr;
   int e = endpoint_sort(in, s, &sorted, st);
@@ -1070,8 +791,8 @@ int finish_phase(const In& in, const Scratch& s, const uint8_t* ext_r,
   FDB_LAUNCHED();
   FDB_TRY(cudaMemsetAsync(s.flags, 0, 4 * sizeof(int), st));
   Fix f{s.ovp, R, n_lanes, Wr, T, attribute, in.wtxn, s.rs, s.base,
-        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, ext_r,
-        conflict_out, read_hit_out, S_ext};
+        s.ca, s.cb, s.cfinal, s.flags, s.alive_p, s.hit_r, s.ext_r,
+        conflict_out, read_hit_out, S};
   int needed = max(fdb::blocks_for((long long)R * 32, FIX_THREADS),
                    fdb::blocks_for(T + 1, FIX_THREADS));
   void* args[] = {&f};
@@ -1113,72 +834,11 @@ int resolve_impl(const In& in, const uint32_t* lows, const uint32_t* highs,
   if (!launches) launches = unused;
   Scratch s;
   int e = carve_checked(s, in, S, scratch, scratch_bytes);
-  if (!e) e = ext_phase(in, lows, highs, S, s, s.ext_r, st, launches);
+  if (!e) e = ext_phase(in, lows, highs, S, s, st, launches);
   if (!e)
-    e = finish_phase(in, s, s.ext_r, S, lows, highs, S, attribute, hk_out,
-                     hv_out, count_out, conflict_out, read_hit_out, st);
+    e = finish_phase(in, s, lows, highs, S, attribute, hk_out, hv_out,
+                     count_out, conflict_out, read_hit_out, st);
   return e;
-}
-
-// K8e: phase 1 of K8 for ONE shard, history [cap] and bounds one row
-// each, into ext_out [R]; the scratch (the K3 layout) keeps the segment
-// starts for K8f. launches as K8's.
-int shard_ext_impl(const In& in, const uint32_t* low, const uint32_t* high,
-                   uint8_t* ext_out, void* scratch, size_t scratch_bytes,
-                   cudaStream_t st, long long* launches) {
-  if (bad_shape(in, 1) || !low || !high || !ext_out) return fdb::ERR_BAD_ARGS;
-  long long unused[3] = {0, 0, 0};
-  if (!launches) launches = unused;
-  Scratch s;
-  int e = carve_checked(s, in, 1, scratch, scratch_bytes);
-  if (!e) e = ext_phase(in, low, high, 1, s, ext_out, st, launches);
-  return e;
-}
-
-// K8f: phase 2 on of K8 for ONE shard, with the external flags of all D
-// shards gathered into ext_all [D, R]; the scratch K8e ran with on the
-// same feed holds the segment starts. Every shard computes the same
-// verdicts and attribution; the merge writes its own [cap] state.
-int shard_finish_impl(const In& in, const uint32_t* low, const uint32_t* high,
-                      const uint8_t* ext_all, int D, int attribute,
-                      uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
-                      uint8_t* conflict_out, uint8_t* read_hit_out,
-                      void* scratch, size_t scratch_bytes, cudaStream_t st) {
-  if (bad_shape(in, D) || !low || !high || !ext_all || !hk_out || !hv_out ||
-      !count_out || !conflict_out || (attribute && !read_hit_out))
-    return fdb::ERR_BAD_ARGS;
-  Scratch s;
-  int e = carve_checked(s, in, 1, scratch, scratch_bytes);
-  if (!e)
-    e = finish_phase(in, s, ext_all, D, low, high, 1, attribute, hk_out,
-                     hv_out, count_out, conflict_out, read_hit_out, st);
-  return e;
-}
-
-// the packed feed (ops/conflict_kernel.py:465-478): the 12 inputs are
-// offsets into the one buffer, read in place
-In unpack_feed(const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
-               int cap, int T, int R, int Wr, int width) {
-  size_t o = 2;
-  auto take = [&](size_t n) {
-    const uint32_t* p = buf + o;
-    o += n;
-    return p;
-  };
-  const int32_t* commit = reinterpret_cast<const int32_t*>(buf);
-  const int32_t* oldest = commit + 1;
-  const int32_t* snap = reinterpret_cast<const int32_t*>(take(T));
-  const uint32_t* too_old = take(T);
-  const uint32_t* rb = take((size_t)R * width);
-  const uint32_t* re = take((size_t)R * width);
-  const int32_t* rtxn = reinterpret_cast<const int32_t*>(take(R));
-  const uint32_t* rvalid = take(R);
-  const uint32_t* wb = take((size_t)Wr * width);
-  const uint32_t* we = take((size_t)Wr * width);
-  const int32_t* wtxn = reinterpret_cast<const int32_t*>(take(Wr));
-  const uint32_t* wvalid = take(Wr);
-  return In{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn,
-            wvalid, commit, oldest, 4, cap, T, R, Wr, width};
 }
 
 }  // namespace
@@ -1265,67 +925,4 @@ FDB_API int fdb_resolve_sharded_packed(
                       highs, S, attribute, hk_out, hv_out, count_out,
                       conflict_out, read_hit_out, scratch, scratch_bytes,
                       static_cast<cudaStream_t>(stream), launches);
-}
-
-// K8e and K8f (one shard a device): hk [cap, width], hv [cap], low/high
-// one [width] row each; ext_out [R] and ext_all [D, R] uint8. The
-// scratch is sized by fdb_resolve_scratch_bytes (the K3 layout) and must
-// be the same buffer for a feed's K8e and K8f.
-FDB_API int fdb_resolve_shard_ext(
-    const uint32_t* hk, const int32_t* hv, const int32_t* snap,
-    const void* too_old, const uint32_t* rb, const uint32_t* re,
-    const int32_t* rtxn, const void* rvalid, const uint32_t* wb,
-    const uint32_t* we, const int32_t* wtxn, const void* wvalid,
-    const int32_t* commit, const int32_t* oldest, const uint32_t* low,
-    const uint32_t* high, int flag_bytes, int cap, int T, int R, int Wr,
-    int width, uint8_t* ext_out, void* scratch, size_t scratch_bytes,
-    void* stream, long long* launches) {
-  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
-  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
-        commit, oldest, flag_bytes, cap, T, R, Wr, width};
-  return shard_ext_impl(in, low, high, ext_out, scratch, scratch_bytes,
-                        static_cast<cudaStream_t>(stream), launches);
-}
-
-FDB_API int fdb_resolve_shard_ext_packed(
-    const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
-    const uint32_t* low, const uint32_t* high, int cap, int T, int R, int Wr,
-    int width, uint8_t* ext_out, void* scratch, size_t scratch_bytes,
-    void* stream, long long* launches) {
-  return shard_ext_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width), low,
-                        high, ext_out, scratch, scratch_bytes,
-                        static_cast<cudaStream_t>(stream), launches);
-}
-
-FDB_API int fdb_resolve_shard_finish(
-    const uint32_t* hk, const int32_t* hv, const int32_t* snap,
-    const void* too_old, const uint32_t* rb, const uint32_t* re,
-    const int32_t* rtxn, const void* rvalid, const uint32_t* wb,
-    const uint32_t* we, const int32_t* wtxn, const void* wvalid,
-    const int32_t* commit, const int32_t* oldest, const uint32_t* low,
-    const uint32_t* high, const uint8_t* ext_all, int flag_bytes, int D,
-    int cap, int T, int R, int Wr, int width, int attribute,
-    uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
-    uint8_t* conflict_out, uint8_t* read_hit_out, void* scratch,
-    size_t scratch_bytes, void* stream) {
-  if (flag_bytes != 1 && flag_bytes != 4) return fdb::ERR_BAD_ARGS;
-  In in{hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we, wtxn, wvalid,
-        commit, oldest, flag_bytes, cap, T, R, Wr, width};
-  return shard_finish_impl(in, low, high, ext_all, D, attribute, hk_out,
-                           hv_out, count_out, conflict_out, read_hit_out,
-                           scratch, scratch_bytes,
-                           static_cast<cudaStream_t>(stream));
-}
-
-FDB_API int fdb_resolve_shard_finish_packed(
-    const uint32_t* hk, const int32_t* hv, const uint32_t* buf,
-    const uint32_t* low, const uint32_t* high, const uint8_t* ext_all, int D,
-    int cap, int T, int R, int Wr, int width, int attribute,
-    uint32_t* hk_out, int32_t* hv_out, int32_t* count_out,
-    uint8_t* conflict_out, uint8_t* read_hit_out, void* scratch,
-    size_t scratch_bytes, void* stream) {
-  return shard_finish_impl(unpack_feed(hk, hv, buf, cap, T, R, Wr, width),
-                           low, high, ext_all, D, attribute, hk_out, hv_out,
-                           count_out, conflict_out, read_hit_out, scratch,
-                           scratch_bytes, static_cast<cudaStream_t>(stream));
 }

@@ -21,6 +21,8 @@
 // hands each record and its sorted position to `place`.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -115,25 +117,23 @@ __device__ __forceinline__ Rec<NV>& tile_at(uint4* sm, int i) {
   return *reinterpret_cast<Rec<NV>*>(sm + i * NV + i / ITEMS);
 }
 
-// pass 1: one tile of THREADS * ITEMS records (load(i) for i < n, the
-// padding record after); `last` when the tile is the whole sort
+// pass 1: tile `bx` of THREADS * ITEMS records (load(i) for i < n, the
+// padding record after) sorted through the block's shared memory `sm`;
+// `last` when the tile is the whole sort
 template <int NV, int THREADS, int ITEMS, class Load, class Place>
-__global__ void __launch_bounds__(THREADS)
-    rec_block_sort_kernel(Load load, int n, Rec<NV>* out, int last,
-                          Place place) {
+__device__ void rec_sort_tile(Load load, int n, Rec<NV>* out, int last,
+                              Place place, int bx, uint4* sm) {
   constexpr int tile = THREADS * ITEMS;
-  extern __shared__ uint4 rec_sm[];
-  const int base = blockIdx.x * tile, tid = threadIdx.x;
+  const int base = bx * tile, tid = threadIdx.x;
   for (int k = 0; k < ITEMS; ++k) {
     int i = k * THREADS + tid;
-    tile_at<NV, ITEMS>(rec_sm, i) =
-        base + i < n ? load(base + i) : rec_max<NV>();
+    tile_at<NV, ITEMS>(sm, i) = base + i < n ? load(base + i) : rec_max<NV>();
   }
   __syncthreads();
   Rec<NV> r[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    r[k] = tile_at<NV, ITEMS>(rec_sm, tid * ITEMS + k);
+    r[k] = tile_at<NV, ITEMS>(sm, tid * ITEMS + k);
 #pragma unroll
   for (int p = 0; p < ITEMS; ++p)
 #pragma unroll
@@ -142,44 +142,53 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k)
-      tile_at<NV, ITEMS>(rec_sm, tid * ITEMS + k) = r[k];
+      tile_at<NV, ITEMS>(sm, tid * ITEMS + k) = r[k];
     __syncthreads();
     const int d0 = tid * ITEMS, pair = d0 / (2 * w) * (2 * w), d = d0 - pair;
     int lo = max(0, d - w), hi = min(d, w);
     while (lo < hi) {
       int mid = (lo + hi) >> 1;
-      if (rec_less(tile_at<NV, ITEMS>(rec_sm, pair + mid),
-                   tile_at<NV, ITEMS>(rec_sm, pair + w + d - 1 - mid)))
+      if (rec_less(tile_at<NV, ITEMS>(sm, pair + mid),
+                   tile_at<NV, ITEMS>(sm, pair + w + d - 1 - mid)))
         lo = mid + 1;
       else
         hi = mid;
     }
     int ai = lo, bi = d - lo;
-    Rec<NV> ha = tile_at<NV, ITEMS>(rec_sm, pair + min(ai, w - 1));
-    Rec<NV> hb = tile_at<NV, ITEMS>(rec_sm, pair + w + min(bi, w - 1));
+    Rec<NV> ha = tile_at<NV, ITEMS>(sm, pair + min(ai, w - 1));
+    Rec<NV> hb = tile_at<NV, ITEMS>(sm, pair + w + min(bi, w - 1));
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       if (bi >= w || (ai < w && rec_less(ha, hb))) {
         r[k] = ha;
-        if (++ai < w) ha = tile_at<NV, ITEMS>(rec_sm, pair + ai);
+        if (++ai < w) ha = tile_at<NV, ITEMS>(sm, pair + ai);
       } else {
         r[k] = hb;
-        if (++bi < w) hb = tile_at<NV, ITEMS>(rec_sm, pair + w + bi);
+        if (++bi < w) hb = tile_at<NV, ITEMS>(sm, pair + w + bi);
       }
     }
   }
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k)
-    tile_at<NV, ITEMS>(rec_sm, tid * ITEMS + k) = r[k];
+    tile_at<NV, ITEMS>(sm, tid * ITEMS + k) = r[k];
   __syncthreads();
   for (int k = 0; k < ITEMS; ++k) {
     int i = k * THREADS + tid;
     if (base + i >= n) break;
-    const Rec<NV>& rec = tile_at<NV, ITEMS>(rec_sm, i);
+    const Rec<NV>& rec = tile_at<NV, ITEMS>(sm, i);
     out[base + i] = rec;
     if (last) place(rec, base + i);
   }
+}
+
+template <int NV, int THREADS, int ITEMS, class Load, class Place>
+__global__ void __launch_bounds__(THREADS)
+    rec_block_sort_kernel(Load load, int n, Rec<NV>* out, int last,
+                          Place place) {
+  extern __shared__ uint4 rec_sm[];
+  rec_sort_tile<NV, THREADS, ITEMS>(load, n, out, last, place, blockIdx.x,
+                                    rec_sm);
 }
 
 // the first m in [lo, hi) where `pred` (true up to some m, false from
@@ -211,16 +220,15 @@ __device__ int merge_split(const Rec<NV>* A, int la, const Rec<NV>* B,
 
 // one merge round: sorted runs of `run` records pair up; a block writes
 // CHUNK outputs of one pair (CHUNK <= the first tile: no block straddles
-// two pairs), merged in shared memory
+// two pairs), chunk `bx`, merged in its shared memory `sm`
 template <int NV, int THREADS, int CHUNK, class Place>
-__global__ void __launch_bounds__(THREADS)
-    rec_merge_kernel(const Rec<NV>* src, Rec<NV>* out, int n, int run,
-                     int last, Place place) {
+__device__ void rec_merge_chunk(const Rec<NV>* src, Rec<NV>* out, int n,
+                                int run, int last, Place place, int bx,
+                                uint4* sm) {
   constexpr int ITEMS = CHUNK / THREADS;
-  extern __shared__ uint4 rec_sm[];
-  Rec<NV>* s = reinterpret_cast<Rec<NV>*>(rec_sm);
+  Rec<NV>* s = reinterpret_cast<Rec<NV>*>(sm);
   __shared__ int split[2];
-  const int o0 = blockIdx.x * CHUNK, o1 = min(o0 + CHUNK, n);
+  const int o0 = bx * CHUNK, o1 = min(o0 + CHUNK, n);
   const int p0 = o0 / (2 * run) * (2 * run);
   const int la = min(run, n - p0), lb = max(0, min(run, n - p0 - run));
   const Rec<NV>* A = src + p0;
@@ -252,6 +260,15 @@ __global__ void __launch_bounds__(THREADS)
     out[o0 + d + k] = r;
     if (last) place(r, o0 + d + k);
   }
+}
+
+template <int NV, int THREADS, int CHUNK, class Place>
+__global__ void __launch_bounds__(THREADS)
+    rec_merge_kernel(const Rec<NV>* src, Rec<NV>* out, int n, int run,
+                     int last, Place place) {
+  extern __shared__ uint4 rec_sm[];
+  rec_merge_chunk<NV, THREADS, CHUNK>(src, out, n, run, last, place,
+                                      blockIdx.x, rec_sm);
 }
 
 // Sort load(0 .. n-1) (n >= 1) through the buffers a and b (n records
@@ -290,6 +307,71 @@ cudaError_t rec_sort(Load load, Place place, int n, uint4* buf_a,
   }
   *sorted = reinterpret_cast<const uint4*>(a);
   return cudaSuccess;
+}
+
+// Every pass of the sort in ONE cooperative launch: the blocks stride
+// over the tiles, then over each round's merge chunks, with a grid-wide
+// barrier before each round, where rec_sort launches once a round (a
+// chain of launches, ~6 us of latency each on the H100). Blocks of 256
+// threads take both passes: tiles of 512 records and merge chunks of
+// 512 outputs (256 and 256 for records of 32 uint4s). K8f sorts with it;
+// K3, K8 and K5 keep rec_sort.
+template <int NV, int THREADS, int ITEMS, int CHUNK, class Load, class Place>
+__global__ void __launch_bounds__(THREADS)
+    rec_sort_coop_kernel(Load load, Place place, int n, Rec<NV>* a,
+                         Rec<NV>* b) {
+  extern __shared__ uint4 rec_sm[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  constexpr int tile = THREADS * ITEMS;
+  const int n_tiles = (n + tile - 1) / tile;
+  const int n_chunks = (n + CHUNK - 1) / CHUNK;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    rec_sort_tile<NV, THREADS, ITEMS>(load, n, a, n <= tile, place, t,
+                                      rec_sm);
+    __syncthreads();
+  }
+  for (int run = tile; run < n; run <<= 1) {
+    grid.sync();
+    for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+      rec_merge_chunk<NV, THREADS, CHUNK>(a, b, n, run, 2 * run >= n, place,
+                                          c, rec_sm);
+      __syncthreads();
+    }
+    Rec<NV>* t = a;
+    a = b;
+    b = t;
+  }
+}
+
+// rec_sort's function in one cooperative launch (above)
+template <int NV, class Load, class Place>
+cudaError_t rec_sort_coop(Load load, Place place, int n, uint4* buf_a,
+                          uint4* buf_b, const uint4** sorted,
+                          cudaStream_t st) {
+  constexpr int THREADS = 256;
+  constexpr int ITEMS = NV <= 16 ? 2 : 1, CHUNK = NV <= 16 ? 512 : 256;
+  constexpr int tile = THREADS * ITEMS;
+  static_assert(CHUNK <= tile && CHUNK % THREADS == 0,
+                "a merge chunk covers one pair, a whole number a thread");
+  auto kernel = rec_sort_coop_kernel<NV, THREADS, ITEMS, CHUNK, Load, Place>;
+  const size_t tile_smem = ((size_t)tile * NV + THREADS) * sizeof(uint4);
+  const size_t merge_smem = (size_t)CHUNK * sizeof(Rec<NV>);
+  const size_t smem = tile_smem > merge_smem ? tile_smem : merge_smem;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  int rounds = 0;
+  for (int run = tile; run < n; run <<= 1) ++rounds;
+  const int tiles = blocks_for(n, tile), chunks = blocks_for(n, CHUNK);
+  const int grid = coop_blocks((const void*)kernel,
+                               THREADS, smem, tiles > chunks ? tiles : chunks);
+  Rec<NV>* a = reinterpret_cast<Rec<NV>*>(buf_a);
+  Rec<NV>* b = reinterpret_cast<Rec<NV>*>(buf_b);
+  void* args[] = {&load, &place, &n, &a, &b};
+  e = cudaLaunchCooperativeKernel((const void*)kernel,
+                                  dim3(grid), dim3(THREADS), args, smem, st);
+  if (e != cudaSuccess) return e;
+  *sorted = rounds % 2 ? buf_b : buf_a;
+  return cudaGetLastError();
 }
 
 // f(std::integral_constant<int, NV>{}) for records of `words` words

@@ -125,6 +125,7 @@ _SIGNATURES = {
                             + [_P, _SZ, _P, _P], _I),
     "fdb_resolve_sharded_packed": ([_P] * 5 + [_I] * 7 + [_P] * 5
                                    + [_P, _SZ, _P, _P], _I),
+    "fdb_resolve_shard_scratch_bytes": ([_I] * 5, _SZ),
     "fdb_resolve_shard_ext": ([_P] * 16 + [_I] * 6 + [_P, _P, _SZ, _P, _P],
                               _I),
     "fdb_resolve_shard_ext_packed": ([_P] * 5 + [_I] * 5

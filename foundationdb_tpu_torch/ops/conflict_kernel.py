@@ -37,7 +37,11 @@ batch's unclipped endpoints once, as K3 does, builds ONE matrix from
 their ranks, an empty range counted invalid, which is the OR of the
 shards' clipped matrices bit for bit when the shards tile the key space,
 and gives every shard its surviving writes, clipped, by one stable
-partition of the same sort (see csrc/resolve.cu).
+partition of the same sort (see csrc/resolve.cu). With one shard a
+device, K8e and K8f (csrc/shard_step.cu) split that step at the
+cross-shard combine, and K8f's fixpoint builds no matrix: two trees
+over the sorted endpoints give each read the least transaction id of
+an alive write that overlaps it (see the note there).
 
 The plain version (`resolve_step_plain`) follows the reference line by
 line with PyTorch calls: key words widen to int64 (PyTorch's uint32
@@ -917,20 +921,20 @@ def make_resolve_sharded_packed_fn(n_shards: int, cap: int, n_txns: int,
 
 # ---------------------------------------------------------------------------
 # K8e and K8f: K8 split at its cross-shard combine, one shard a device
-# (csrc/resolve.cu fdb_resolve_shard_ext*, fdb_resolve_shard_finish*)
+# (csrc/shard_step.cu fdb_resolve_shard_ext*, fdb_resolve_shard_finish*)
 # ---------------------------------------------------------------------------
 
 def shard_scratch(hk, n_txns: int, n_reads: int, n_writes: int):
-    """The scratch a device's K8e and K8f share for one feed (K3's
-    layout, sized for the shard's history `hk`); None on the CPU, whose
-    plain versions need none. The caller owns it: one a device, the
-    same for the K8e and the K8f of a batch."""
+    """The scratch a device's K8e and K8f share for one feed, sized for
+    the shard's history `hk` by `fdb_resolve_shard_scratch_bytes`; None
+    on the CPU, whose plain versions need none. The caller owns it: one
+    a device, the same for the K8e and the K8f of a batch."""
     if not _device.is_cuda(hk):
         return None
     from ._build import lib
     cap, width = hk.shape
-    n = lib().fdb_resolve_scratch_bytes(cap, n_txns, n_reads, n_writes,
-                                        width)
+    n = lib().fdb_resolve_shard_scratch_bytes(cap, n_txns, n_reads,
+                                              n_writes, width)
     return torch.empty(n, dtype=torch.uint8, device=hk.device)
 
 
@@ -987,13 +991,14 @@ def resolve_shard_ext(hk, hv, snap, too_old, rb, re, rtxn, rvalid, wb, we,
         wvalid, commit, oldest)
     out = _ext_out(hk, n_reads, out)
     _check_scratch(scratch, dev)
-    counts = (ctypes.c_longlong * 3)()
     check(lib().fdb_resolve_shard_ext(
         hk.data_ptr(), hv.data_ptr(), *[t.data_ptr() for t in ins],
         low.data_ptr(), high.data_ptr(), flag_bytes, cap, n_txns, n_reads,
         n_writes, width, out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        _device.stream_handle(dev), counts), "resolve_shard_ext")
-    _note_launches(counts, "resolve_shard_ext")
+        _device.stream_handle(dev), None), "resolve_shard_ext")
+    # K8e's one kernel runs K1's, K2's and K7's work inside it and
+    # launches none of theirs, so only its own count moves
+    launches["resolve_shard_ext"] += 1
     return out
 
 
@@ -1017,13 +1022,12 @@ def resolve_shard_ext_packed(hk, hv, buf, low, high, n_txns: int,
     buf = buf.contiguous()
     out = _ext_out(hk, n_reads, out)
     _check_scratch(scratch, dev)
-    counts = (ctypes.c_longlong * 3)()
     check(lib().fdb_resolve_shard_ext_packed(
         hk.data_ptr(), hv.data_ptr(), buf.data_ptr(), low.data_ptr(),
         high.data_ptr(), cap, n_txns, n_reads, n_writes, width,
         out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        _device.stream_handle(dev), counts), "resolve_shard_ext_packed")
-    _note_launches(counts, "resolve_shard_ext")
+        _device.stream_handle(dev), None), "resolve_shard_ext_packed")
+    launches["resolve_shard_ext"] += 1
     return out
 
 

@@ -15,6 +15,12 @@ Every kind aims at a corner of the interval step:
   no_valid_writes  every write slot invalid, its rows left as garbage
   chain            transaction t reads what t-1 writes, so the fixpoint
                    needs one round per link (up to `chain` links)
+  nested           ranges around a few shared centres at widths from a
+                   quarter of the keyspace down to 1/128, and point
+                   ranges between: wide writes contain other writes and
+                   whole runs of reads, wide reads span hundreds of
+                   write begins at the cell's shape (K8f's range-min
+                   and stabbing queries reach the trees' high nodes)
   mixed            all of the above, range by range
   split_edges      the key-range shards' corners (`splits`, the key ids
                    the shards split at; the alphabet's quartiles by
@@ -81,7 +87,7 @@ VDEAD = -(1 << 30)
 INF = np.uint32(0xFFFFFFFF)
 COMMIT, OLDEST = 70, 20
 KINDS = ("duplicates", "empty_inverted", "inf_rows", "no_valid_writes",
-         "chain", "mixed", "split_edges", "clip_edges")
+         "chain", "mixed", "split_edges", "clip_edges", "nested")
 POINT_KINDS = ("one_key", "invalid_writes", "inf_writes", "mixed")
 N_SHARDS = 4
 
@@ -149,6 +155,21 @@ def _ranges(rng, kind: str, n: int, n_words: int, alphabet: int,
         e = np.where(((pick >= 0.2) & (pick < 0.7))[:, None],
                      special[rng.integers(1, 3, n)], e)
     return b, e
+
+
+def _nested_ranges(rng, n: int, n_words: int, alphabet: int):
+    """n (begin, end) row pairs for the nested kind: half of them wide,
+    centred on one of 8 shared centres at a width of alphabet >> (2 +
+    level) for a level in [0, 6), so ranges on one centre nest; the
+    rest one key wide (the key and the key + 1)."""
+    centres = rng.integers(0, alphabet, 8)
+    c = centres[rng.integers(0, len(centres), n)]
+    half = np.maximum(alphabet >> (2 + rng.integers(0, 6, n)), 1)
+    wide = rng.random(n) < 0.5
+    point = rng.integers(0, alphabet, n)
+    b = np.where(wide, np.maximum(c - half, 0), point)
+    e = np.where(wide, np.minimum(c + half, alphabet), point + 1)
+    return key_rows(b, n_words), key_rows(e, n_words)
 
 
 def split_ids(alphabet: int, n_shards: int = N_SHARDS) -> list:
@@ -318,6 +339,9 @@ def adversarial_batch(rng, kind: str, cap: int, T: int, R: int, Wr: int,
     elif kind == "split_edges":
         rb, re = _split_ranges(rng, R, n_words, splits, alphabet, False)
         wb, we = _split_ranges(rng, Wr, n_words, splits, alphabet, True)
+    elif kind == "nested":
+        rb, re = _nested_ranges(rng, R, n_words, alphabet)
+        wb, we = _nested_ranges(rng, Wr, n_words, alphabet)
     elif kind == "clip_edges":
         bounds = key_rows(splits, n_words)
         hk, hv = _with_rows(rng, hk, hv, np.concatenate([bounds,

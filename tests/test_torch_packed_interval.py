@@ -392,8 +392,9 @@ def test_staging_buffer_never_aliased_by_device(card, packed_knob):
 
         def checked(*a):
             ent = take(*a)
-            # a reused entry's last copy has landed before it is handed out
-            assert ent.event is None or ent.event.query()
+            # a reused entry's last copies have landed before it is
+            # handed out (one event a card the entry went to)
+            assert all(ev.query() for ev in ent.events)
             handed.append(ent)
             return ent
 

@@ -1,5 +1,5 @@
-"""The per-device sharded resolver on the card: K8e and K8f (K8 split at
-its cross-shard combine, csrc/resolve.cu) against their plain versions
+"""The per-device sharded resolver on the card: K8e and K8f (B11's step
+split at its cross-shard combine, csrc/shard_step.cu) against their plain versions
 on the adversarial batch kinds of `foundationdb_tpu_torch.testing` at
 four shards and on the clip-edge kind at three key widths, packed and
 unpacked, attributed and not, fresh and one step on; and four logical
@@ -18,6 +18,7 @@ from foundationdb_tpu_torch import testing as tg  # noqa: E402
 from foundationdb_tpu_torch.flow.knobs import SERVER_KNOBS  # noqa: E402
 from foundationdb_tpu_torch.models import ResolverTransaction  # noqa: E402
 from foundationdb_tpu_torch.ops import conflict_kernel as ck  # noqa: E402
+from foundationdb_tpu_torch.ops import keys, rmq  # noqa: E402
 from foundationdb_tpu_torch.parallel import (  # noqa: E402
     ShardedCudaConflictSet,
     dryrun_multichip,
@@ -73,7 +74,8 @@ def _run_pipelined(cs, batches, window=4):
 def _split_on_card(cuda, case):
     """K8e and K8f on the card, packed and unpacked, attributed and not,
     against their plain versions, one shard a logical device of the
-    card, fresh and one step on; each K8e and K8f counted once."""
+    card, fresh and one step on; each K8e and K8f counted once, and K1,
+    K2 and K7, whose work K8e runs inside its own kernel, not at all."""
     shk, shv, lows, highs, arrays, T, R, Wr = case
     n = shk.shape[0]
     lows_t, highs_t = torch.from_numpy(lows), torch.from_numpy(highs)
@@ -95,6 +97,9 @@ def _split_on_card(cuda, case):
             dun = [x.to(cuda) for x in unpacked]
             for packed in (True, False):
                 before = dict(ck.launches)
+                fused = (keys.launches["searchsorted_i32"],
+                         rmq.launches["range_max"],
+                         keys.launches["shard_clip"])
                 exts = []
                 scr = [ck.shard_scratch(dk[i], T, R, Wr) for i in range(n)]
                 for i in range(n):
@@ -125,6 +130,9 @@ def _split_on_card(cuda, case):
                     before["resolve_shard_ext"] + n
                 assert ck.launches["resolve_shard_finish"] == \
                     before["resolve_shard_finish"] + n
+                assert (keys.launches["searchsorted_i32"],
+                        rmq.launches["range_max"],
+                        keys.launches["shard_clip"]) == fused
             state = (torch.stack([w[0] for w in want]),
                      torch.stack([w[1] for w in want]))
 
