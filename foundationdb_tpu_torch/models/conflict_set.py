@@ -36,6 +36,8 @@ import time
 from bisect import bisect_left, bisect_right
 from typing import NamedTuple, Sequence
 
+from .. import host_spans
+
 CONFLICT = 0
 TOO_OLD = 1
 COMMITTED = 2
@@ -320,7 +322,10 @@ class ResolvePipeline:
         from ..flow.knobs import SERVER_KNOBS
         return max(1, int(SERVER_KNOBS.resolve_pipeline_depth))
 
-    def note_submit(self, ticket: ResolveTicket, t0: float) -> None:
+    def note_submit(self, ticket: ResolveTicket, t0: float,
+                    spans: "host_spans.HostSpans | None" = None) -> None:
+        """Admit `ticket` (submitted at `t0`, perf_counter seconds); a
+        forced drain is a wait of the submit's `spans`, if given."""
         self.submits += 1
         self.submit_latency.record(time.perf_counter() - t0)
         if not ticket.done:
@@ -329,7 +334,8 @@ class ResolvePipeline:
             # serial submit-block-read path
             while len(self.in_flight) >= self.depth:
                 self.forced_drains += 1
-                self.drain(self.in_flight[0])
+                with host_spans.wait(spans, "wait.forced_drain"):
+                    self.drain(self.in_flight[0])
             self.in_flight.append(ticket)
         self._occ_sum += len(self.in_flight)
         if len(self.in_flight) > self.peak_in_flight:

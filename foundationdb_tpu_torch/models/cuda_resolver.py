@@ -39,6 +39,7 @@ import torch
 
 from .. import device as _device
 from ..flow.stats import CounterCollection
+from ..host_spans import HostSpans
 from ..ops.keys import decode_keys, encode_keys, encode_keys_into, next_pow2
 from .conflict_set import (COMMITTED, CONFLICT, TOO_OLD, ConflictSetBase,
                            ConflictSetCheckpoint, ResolveTicket,
@@ -70,12 +71,34 @@ class _HostCopy:
             self.event = None
 
     def is_ready(self) -> bool:
-        return self.event is None or self.event.query()
+        if self.event is not None and self.event.query():
+            self.event = None       # landed: `numpy` waits for nothing
+        return self.event is None
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+class _HostCopies:
+    """The per-device row counts on their way to the host, one
+    `_HostCopy` a device; reads as the [D] array of them."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, counts):
+        self.parts = [_HostCopy(c) for c in counts]
+
+    def is_ready(self) -> bool:
+        return all(p.is_ready() for p in self.parts)
+
+    def numpy(self) -> np.ndarray:
+        return np.stack([p.numpy() for p in self.parts])
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
@@ -94,6 +117,9 @@ class _Staging:
         self.views = views
         self.host = host
         self.events = ()
+
+    def is_ready(self) -> bool:
+        return all(ev.query() for ev in self.events)
 
     def wait(self) -> None:
         for ev in self.events:
@@ -123,9 +149,10 @@ class CudaConflictSet(ConflictSetBase):
         self._last_commit = init_version
         self._count_hint = 1
         self._count_dev = None
-        # (async count copy, rows_added_since) pairs, oldest first: the
-        # capacity audit reads the OLDEST, which rarely stalls because
-        # newer batches are queued behind it
+        # (async count copy, rows_added_since, batch seq, capacity rows)
+        # of each pending count, oldest first: the capacity audit reads
+        # the OLDEST, which rarely stalls because newer batches are
+        # queued behind it
         self._count_async: list = []
         self._rows_since_async = 0
         self.profile = CounterCollection(f"{self.BACKEND}_kernel")
@@ -134,6 +161,13 @@ class CudaConflictSet(ConflictSetBase):
         self._enc_scratch = np.empty((0, 0), np.uint8)
         self._hk_alt = self._hv_alt = None
         self._spans = None      # (start, end) CUDA events: time_device()
+        self._span_open = None  # the start event of a device phase
+        # phase and wait totals, the span ring (host_spans.py)
+        self.host_spans = HostSpans()
+        # exact live rows: the folded counts' running totals
+        self._live = {"live_rows_sum": 0, "live_samples": 0,
+                      "live_rows_last": 0, "live_rows_last_seq": 0,
+                      "capacity_rows_sum": 0}
         self._hk, self._hv = self._to_device(*self._initial_state(init_version))
 
     def _initial_state(self, init_version: int):
@@ -187,7 +221,11 @@ class CudaConflictSet(ConflictSetBase):
         """EXACT current row count: blocks until the newest submitted
         batch lands (a full pipeline drain — last resort only)."""
         if self._count_dev is not None:
-            self._count_hint = int(np.max(np.asarray(self._count_dev)))
+            with self.host_spans.wait("wait.sync"):
+                rows = np.asarray(self._count_dev)
+            self._count_hint = int(np.max(rows))
+            if self._count_async:
+                self._note_live(rows, *self._count_async[-1][2:])
             self._count_dev = None
         self._count_async.clear()
         self._rows_since_async = 0
@@ -195,15 +233,16 @@ class CudaConflictSet(ConflictSetBase):
     def _grow(self, needed: int) -> None:
         """Double the capacity (or more, to fit `needed`); a sharded
         history ([S, cap] rows) keeps one capacity for every shard."""
-        new_cap = max(self._cap * 2, next_pow2(needed + 2))
-        old_k, old_v = self._host_state()
-        lead = old_v.shape[:-1]
-        hk = np.full(lead + (new_cap, self._n_words + 1), 0xFFFFFFFF,
-                     np.uint32)
-        hv = np.full(lead + (new_cap,), -(1 << 30), np.int32)
-        hk[..., :self._cap, :], hv[..., :self._cap] = old_k, old_v
-        self._cap = new_cap
-        self._hk, self._hv = self._to_device(hk, hv)
+        with self.host_spans.wait("wait.grow"):
+            new_cap = max(self._cap * 2, next_pow2(needed + 2))
+            old_k, old_v = self._host_state()
+            lead = old_v.shape[:-1]
+            hk = np.full(lead + (new_cap, self._n_words + 1), 0xFFFFFFFF,
+                         np.uint32)
+            hv = np.full(lead + (new_cap,), -(1 << 30), np.int32)
+            hk[..., :self._cap, :], hv[..., :self._cap] = old_k, old_v
+            self._cap = new_cap
+            self._hk, self._hv = self._to_device(hk, hv)
 
     def _host_state(self):
         """The device history as host arrays (HK, HV)."""
@@ -351,7 +390,19 @@ class CudaConflictSet(ConflictSetBase):
         RESOLVE_PIPELINE_DEPTH tickets stay in flight; `drain` awaits
         only one batch's verdict copy. The device serializes the chained
         history, so pipelined verdicts equal the serial path's."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        self.host_spans.begin(t0, self.pipeline.submits + 1)
+        try:
+            ticket = self._submit_txns(t0, txns, commit_version,
+                                       new_oldest_version, attribute)
+        except BaseException:
+            self.host_spans.abort()
+            raise
+        self.host_spans.end()
+        return ticket
+
+    def _submit_txns(self, t0, txns, commit_version, new_oldest_version,
+                     attribute):
         conflict, too_old, n, read_hit, read_map = self._resolve_flags(
             txns, commit_version, new_oldest_version, attribute=attribute)
         if n == 0:
@@ -379,7 +430,7 @@ class CudaConflictSet(ConflictSetBase):
 
             ticket = ResolveTicket(commit_version, n,
                                    materialize=materialize)
-        self.pipeline.note_submit(ticket, t0)
+        self.pipeline.note_submit(ticket, t0 * 1e-9, self.host_spans)
         return ticket
 
     def submit_arrays(self, snapshots, has_reads, rb, re, rt, wb, we, wt,
@@ -387,8 +438,22 @@ class CudaConflictSet(ConflictSetBase):
                       new_oldest_version: int) -> ResolveTicket:
         """Pipelined pre-encoded fast path: `resolve_arrays` wrapped in
         a ticket whose `drain_arrays` yields (conflict[:n] ndarray,
-        too_old ndarray)."""
-        t0 = time.perf_counter()
+        too_old ndarray). Its host spans (`host_spans`): one `submit`
+        span a call, tiled by the phases `resolve_arrays` switches to."""
+        t0 = time.perf_counter_ns()
+        self.host_spans.begin(t0, self.pipeline.submits + 1)
+        try:
+            ticket = self._submit_arrays(
+                t0, snapshots, has_reads, rb, re, rt, wb, we, wt,
+                commit_version, new_oldest_version)
+        except BaseException:
+            self.host_spans.abort()
+            raise
+        self.host_spans.end()
+        return ticket
+
+    def _submit_arrays(self, t0, snapshots, has_reads, rb, re, rt, wb, we,
+                       wt, commit_version, new_oldest_version):
         conflict, too_old = self.resolve_arrays(
             snapshots, has_reads, rb, re, rt, wb, we, wt,
             commit_version, new_oldest_version)
@@ -402,7 +467,7 @@ class CudaConflictSet(ConflictSetBase):
                 return np.asarray(conflict)[:n], too_old
 
         ticket = ResolveTicket(commit_version, n, materialize=materialize)
-        self.pipeline.note_submit(ticket, t0)
+        self.pipeline.note_submit(ticket, t0 * 1e-9, self.host_spans)
         return ticket
 
     def drain_arrays(self, ticket: ResolveTicket):
@@ -439,10 +504,12 @@ class CudaConflictSet(ConflictSetBase):
             return None, None, 0, None, []
         live_snaps = [tr.read_snapshot for tr in txns
                       if len(tr.read_ranges) and tr.read_snapshot >= self._oldest]
+        self.host_spans.switch("versions")
         offsets = self._prepare_versions(
             commit_version, new_oldest_version,
             min([max(self._oldest, new_oldest_version)] + live_snaps))
 
+        self.host_spans.switch("check")
         too_old = np.zeros(n, bool)
         snapshots = np.zeros(n, np.int64)
         for t, tr in enumerate(txns):
@@ -450,6 +517,7 @@ class CudaConflictSet(ConflictSetBase):
             if tr.read_snapshot < self._oldest and len(tr.read_ranges):
                 too_old[t] = True
 
+        self.host_spans.switch("stage")
         arrays, read_map = self._marshal_ranges(txns, too_old,
                                                 attribute=attribute)
         conflict, read_hit = self._dispatch(
@@ -560,6 +628,7 @@ class CudaConflictSet(ConflictSetBase):
         live = has_reads.astype(bool) & ~too_old
         floor = min(int(snapshots[live].min()) if live.any() else commit_version,
                     max(self._oldest, new_oldest_version))
+        self.host_spans.switch("versions")
         offsets = self._prepare_versions(commit_version, new_oldest_version,
                                          floor)
         conflict, _read_hit = self._dispatch(
@@ -584,7 +653,9 @@ class CudaConflictSet(ConflictSetBase):
         front of the list is the OLDEST submitted batch."""
         self._count_dev = count
         self._rows_since_async += new_rows
-        self._count_async.append((count, self._rows_since_async))
+        self._count_async.append((count, self._rows_since_async,
+                                  self.host_spans.seq,
+                                  self._capacity_rows()))
         limit = max(2, self.pipeline.depth + 1)
         while len(self._count_async) > limit:
             self._consume_oldest_count()
@@ -595,8 +666,14 @@ class CudaConflictSet(ConflictSetBase):
         from above (rows only leave via GC)."""
         if not self._count_async:
             return False
-        old, rows_after = self._count_async.pop(0)
-        stale = int(np.max(np.asarray(old)))
+        old, rows_after, seq, cap_rows = self._count_async.pop(0)
+        if old.is_ready():
+            rows = np.asarray(old)
+        else:
+            with self.host_spans.wait("wait.count"):
+                rows = np.asarray(old)
+        self._note_live(rows, seq, cap_rows)
+        stale = int(np.max(rows))
         bound = stale + (self._rows_since_async - rows_after)
         if bound < self._count_hint:
             self._count_hint = bound
@@ -605,6 +682,21 @@ class CudaConflictSet(ConflictSetBase):
             self._count_dev = None
             self._rows_since_async = 0
         return True
+
+    def _note_live(self, rows, seq: int, cap_rows: int) -> None:
+        """Fold one batch's exact row count (a shard's each, summed) into
+        the live-row totals."""
+        live = self._live
+        n = int(rows.sum())
+        live["live_rows_sum"] += n
+        live["live_samples"] += 1
+        live["live_rows_last"] = n
+        live["live_rows_last_seq"] = seq
+        live["capacity_rows_sum"] += cap_rows
+
+    def _capacity_rows(self) -> int:
+        """The rows a step sweeps: the capacity (of every shard)."""
+        return self._cap
 
     def _audit_capacity(self, new_rows: int) -> None:
         """Grow the device state if this batch could overflow it
@@ -658,15 +750,27 @@ class CudaConflictSet(ConflictSetBase):
                         "staging_allocs": snap.get("staging_allocs", 0)},
                 "counts": {k: v for k, v in snap.items()
                            if k != "batches"},
-                "pipeline": self.pipeline.stats()}
+                "pipeline": self.pipeline.stats(),
+                # host phases and waits inside submit, the exact live
+                # rows (outside `counts`, which the reference matches)
+                "host": {**self.host_spans.stats(),
+                         "live": dict(self._live)}}
 
     def _run_step(self, fn, *args):
-        """One resolve step into the ping-pong partner; the pending
-        outputs' host copies start right away."""
+        """One resolve step into the ping-pong partner; returns its
+        (count, conflict, read_hit) on the device."""
         hk, hv, count, conflict, read_hit = fn(self._hk, self._hv, *args,
-                                               out=self._alt())
+                                               out=self._alt(),
+                                               spans=self.host_spans)
         self._swap_in(hk, hv)
-        return (_HostCopy(count), _HostCopy(conflict),
+        return count, conflict, read_hit
+
+    def _start_copies(self, count, conflict, read_hit):
+        """The readback phase: the step's outputs on their way to host
+        memory (a count a device when `count` is a list)."""
+        self._phase("readback")
+        return ((_HostCopies(count) if isinstance(count, list)
+                 else _HostCopy(count)), _HostCopy(conflict),
                 None if read_hit is None else _HostCopy(read_hit))
 
     # -- packed single-buffer feed path ---------------------------------
@@ -704,7 +808,9 @@ class CudaConflictSet(ConflictSetBase):
         i = self._staging_idx.get(key, 0)
         self._staging_idx[key] = (i + 1) % len(pool)
         ent = pool[i % len(pool)]
-        ent.wait()
+        if not ent.is_ready():
+            with self.host_spans.wait("wait.staging"):
+                ent.wait()
         return ent
 
     def _fill_keys(self, dst: np.ndarray, src, nsrc: int) -> None:
@@ -779,9 +885,11 @@ class CudaConflictSet(ConflictSetBase):
         npad = next_pow2(max(n, _KERNEL_MIN_TXNS))
         nrp = next_pow2(max(nr, _KERNEL_MIN_RANGES))
         nwp = next_pow2(max(nw, _KERNEL_MIN_RANGES))
+        self.host_spans.switch("audit")
         self._audit_capacity(2 * nw)
         self._note_occupancy(n, npad, nr, nrp, nw, nwp)
 
+        self.host_spans.switch("stage")
         snap_off = np.clip(snapshots - self._base, 0,
                            SNAP_CLAMP).astype(np.int32)
         if not int(SERVER_KNOBS.interval_packed_feed):
@@ -810,16 +918,21 @@ class CudaConflictSet(ConflictSetBase):
         v.wtxn[nw:] = npad
         v.wvalid[:nw] = 1
         v.wvalid[nw:] = 0
-        span = self._span_start()
+        self._phase("feed", device=True)
         dev_buf = self._feed(ent)
-        self._span_end(span)
-        span = self._span_start()
-        count, conflict, read_hit = self._call_kernel_packed(
-            npad, nrp, nwp, dev_buf, attribute)
-        self._apply_fixup(fixup)
-        self._span_end(span)
+        self._phase("launch", device=True)
+        out = self._call_kernel_packed(npad, nrp, nwp, dev_buf, attribute)
+        count, conflict, read_hit = self._finish_step(out, fixup)
         self._note_count(count, 2 * nw)
         return conflict, read_hit
+
+    def _finish_step(self, out, fixup):
+        """After the step: any jump fixup (a `versions` phase), then the
+        readback's copies of `out`."""
+        if fixup is not None:
+            self._phase("versions", device=True)
+            self._apply_fixup(fixup)
+        return self._start_copies(*out)
 
     def _dispatch_unpacked(self, n, npad, nrp, nwp, snap_off, too_old,
                            rb, re, rt, wb, we, wt, commit_off, oldest_off,
@@ -841,20 +954,17 @@ class CudaConflictSet(ConflictSetBase):
         rvalid[:nr] = True
         wvalid = np.zeros(nwp, bool)
         wvalid[:nw] = True
-        span = self._span_start()
-        h2d = self._h2d
-        args = (h2d(snap_p), h2d(tooold_p),
-                h2d(self._pad_keys(rb, nrp)), h2d(self._pad_keys(re, nrp)),
-                h2d(self._pad_idx(rt, nrp, npad)), h2d(rvalid),
-                h2d(self._pad_keys(wb, nwp)), h2d(self._pad_keys(we, nwp)),
-                h2d(self._pad_idx(wt, nwp, npad)), h2d(wvalid),
-                h2d(np.int32(commit_off)), h2d(np.int32(oldest_off)))
-        self._span_end(span)
-        span = self._span_start()
+        host = (snap_p, tooold_p,
+                self._pad_keys(rb, nrp), self._pad_keys(re, nrp),
+                self._pad_idx(rt, nrp, npad), rvalid,
+                self._pad_keys(wb, nwp), self._pad_keys(we, nwp),
+                self._pad_idx(wt, nwp, npad), wvalid,
+                np.int32(commit_off), np.int32(oldest_off))
+        self._phase("feed", device=True)
+        args = tuple(self._h2d(a) for a in host)
+        self._phase("launch", device=True)
         out = self._call_kernel(npad, nrp, nwp, args, attribute)
-        self._apply_fixup(fixup)
-        self._span_end(span)
-        return out
+        return self._finish_step(out, fixup)
 
     def _pad_keys(self, a: np.ndarray, size: int) -> np.ndarray:
         out = np.zeros((size, self._n_words + 1), np.uint32)
@@ -869,12 +979,13 @@ class CudaConflictSet(ConflictSetBase):
 
     # -- device time of the stream (off unless asked for) ---------------
     def time_device(self, on: bool = True) -> None:
-        """Record a pair of CUDA events around each later batch's feed
-        copy and around its resolve step (K3, any jump fixup, the result
-        copies), for `device_ms`. Off by default; a no-op on the CPU.
+        """Record a pair of CUDA events around each later batch's
+        device phases (`_phase`: the feed copy, the resolve step, any
+        jump fixup), for `device_ms`. Off by default; a no-op on the CPU.
         A span includes the launch gaps inside the step, so the sum is
         an upper bound on the device's busy time."""
         self._spans = [] if on and self._device.type == "cuda" else None
+        self._span_open = None
 
     def device_ms(self) -> float:
         """Device milliseconds in the spans recorded since `time_device`
@@ -884,18 +995,37 @@ class CudaConflictSet(ConflictSetBase):
         self._spans[-1][1].synchronize()
         return sum(a.elapsed_time(b) for a, b in self._spans)
 
-    def _span_start(self):
+    def _phase(self, name: str, device: bool = False) -> None:
+        """Switch the batch's host span to phase `name`. With
+        `time_device` on, a pair of CUDA events brackets each `device`
+        phase (the feed, the step, a jump fixup) for `device_ms`."""
+        self.host_spans.switch(name)
         if self._spans is None:
-            return None
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self._device))
-        return ev
+            return
+        ev = None
+        if self._span_open is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self._device))
+            self._spans.append((self._span_open, ev))
+            self._span_open = None
+        if device:
+            if ev is None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(self._device))
+            self._span_open = ev
 
-    def _span_end(self, start) -> None:
-        if start is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(torch.cuda.current_stream(self._device))
-            self._spans.append((start, end))
+    # -- host spans inside submit (host_spans.py) -------------------------
+    def trace_spans(self, on: bool = True) -> None:
+        """Keep each later batch's spans (`submit`, its phases, their
+        waits) in a preallocated ring, read by `traced_spans`; off (the
+        default) the ring is dropped and only the totals in
+        `kernel_stats()["host"]` are kept."""
+        self.host_spans.trace(on)
+
+    def traced_spans(self) -> list:
+        """The ring's spans, oldest first: (batch seq, span id, parent
+        id or -1, name, start ns, end ns) on `time.perf_counter_ns`."""
+        return self.host_spans.spans()
 
 
 def load_reference_state(hk, hv, *, base: int, oldest: int,

@@ -181,16 +181,15 @@ class CudaPointConflictSet(CudaConflictSet):
         # exact bucket: one extra slot would double both dimensions
         nrp = next_pow2(max(nr, _KERNEL_MIN_RANGES))
         nwp = next_pow2(max(nw, _KERNEL_MIN_RANGES))
+        self.host_spans.switch("audit")
         self._audit_capacity(nw)  # one state row per point write
         self._note_occupancy(n, npad, nr, nrp, nw, nwp)
 
+        self.host_spans.switch("stage")
         snap_off = np.clip(snapshots - self._base, 0,
                            SNAP_CLAMP).astype(np.int32)
         init_off = int(np.clip(self._init_version - self._base, 0,
                                SNAP_CLAMP + 1))
-        fn = make_point_resolve_packed_fn(self._cap, npad, nrp, nwp,
-                                          self._n_words,
-                                          attribute=attribute)
         # ONE host->device transfer per batch: the eleven logical inputs,
         # version scalars included, ride one contiguous buffer built IN
         # PLACE over reused staging and read in place by K5
@@ -213,13 +212,14 @@ class CudaPointConflictSet(CudaConflictSet):
         v.wtxn[nw:] = npad
         v.wvalid[:nw] = 1
         v.wvalid[nw:] = 0
-        span = self._span_start()
+        self._phase("feed", device=True)
         dev_buf = self._feed(ent)
-        self._span_end(span)
-        span = self._span_start()
-        count, conflict, read_hit = self._run_step(fn, dev_buf)
-        self._apply_fixup(fixup)
-        self._span_end(span)
+        self._phase("launch", device=True)
+        fn = make_point_resolve_packed_fn(self._cap, npad, nrp, nwp,
+                                          self._n_words,
+                                          attribute=attribute)
+        count, conflict, read_hit = self._finish_step(
+            self._run_step(fn, dev_buf), fixup)
         self._note_count(count, nw)
         return conflict, read_hit
 

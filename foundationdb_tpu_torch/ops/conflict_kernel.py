@@ -55,12 +55,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import time
-from collections import namedtuple
+from collections import deque, namedtuple
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from .. import host_spans
 from ..flow.stats import CounterCollection
 from . import keys as _keys
 from . import rmq as _rmq
@@ -70,9 +71,32 @@ from .rmq import VDEAD, build_range_max_table, range_max_query
 SNAP_CLAMP = (1 << 30) + 1  # above any storable version offset
 REBASE_THRESHOLD = 1 << 30
 
+
+class KernelCounters(CounterCollection):
+    """A kernel profile whose sampled execute times come from CUDA
+    events read without a wait: a timed call leaves its (start, end)
+    pair in `pending`, and a later call or a read folds in each pair
+    whose end has fired."""
+
+    def __init__(self, role: str):
+        super().__init__(role)
+        self.pending: deque = deque()
+
+    def fold(self) -> None:
+        while self.pending and self.pending[0][1].query():
+            start, end, kernel = self.pending.popleft()
+            dt = start.elapsed_time(end) / 1e3
+            self.counter(f"{kernel}.timed_calls").add(1)
+            self.counter(f"{kernel}.execute_us").add(int(dt * 1e6))
+
+    def snapshot(self):
+        self.fold()
+        return super().snapshot()
+
+
 # Per-process kernel profile: every resolve entry accounts calls, its
 # first call (the kernel build included) and sampled execute time here.
-g_kernel_counters = CounterCollection("conflict_kernel")
+g_kernel_counters = KernelCounters("conflict_kernel")
 
 launches = {"resolve": 0, "resolve_sharded": 0, "resolve_shard_ext": 0,
             "resolve_shard_finish": 0, "window_upkeep": 0}
@@ -85,8 +109,15 @@ def _args_device(args) -> torch.device:
     return torch.device("cpu")
 
 
+def _fence(dev: torch.device, spans) -> None:
+    """Wait for the card: a wait of the batch `spans` times, if any."""
+    if dev.type == "cuda":
+        with host_spans.wait(spans, "wait.fence"):
+            torch.cuda.synchronize(dev)
+
+
 def profile_kernel(fn, kernel: str,
-                   counters: CounterCollection = g_kernel_counters):
+                   counters: KernelCounters = g_kernel_counters):
     """Wrap a kernel entry with first-call/execute accounting.
 
     The FIRST call is fenced on both sides and timed on the host clock:
@@ -94,13 +125,18 @@ def profile_kernel(fn, kernel: str,
     number to watch when the first batch is slow. Afterwards only
     1-in-KERNEL_PROFILE_EVERY calls are timed, with CUDA events around
     the launch on the card (host clock on the CPU), so the unfenced
-    pipeline stays asynchronous; 0 disables the periodic timing."""
+    pipeline stays asynchronous: nothing waits for the events, whose
+    time `counters` folds in once the end has fired. 0 disables the
+    periodic timing. A caller's `spans=` (host_spans.HostSpans) times
+    the first call's fences as waits of its batch."""
     from ..flow.knobs import SERVER_KNOBS
     state = {"compiled": False, "calls": 0}
     calls_c = counters.counter(f"{kernel}.calls")
 
-    def call(*args, **kwargs):
+    def call(*args, spans=None, **kwargs):
         state["calls"] += 1
+        if counters.pending:
+            counters.fold()
         first = not state["compiled"]
         if not first:
             every = int(SERVER_KNOBS.kernel_profile_every)
@@ -108,20 +144,20 @@ def profile_kernel(fn, kernel: str,
                 calls_c.add(1)
                 return fn(*args, **kwargs)
         dev = _args_device(args)
-        if first or dev.type != "cuda":
-            _device.synchronize(dev)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            _device.synchronize(dev)
-            dt = time.perf_counter() - t0
-        else:
+        if not first and dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
+            calls_c.add(1)
+            counters.pending.append((start, end, kernel))
+            return out
+        _fence(dev, spans)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        _fence(dev, spans)
+        dt = time.perf_counter() - t0
         calls_c.add(1)
         if first:
             state["compiled"] = True

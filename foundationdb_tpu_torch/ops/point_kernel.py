@@ -42,11 +42,10 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..flow.stats import CounterCollection
 from . import keys as _keys
-from .conflict_kernel import (SNAP_CLAMP, _check_history, _fault_seamed,
-                              _first_of_run, _lex_sort, _outputs,
-                              profile_kernel)
+from .conflict_kernel import (SNAP_CLAMP, KernelCounters, _check_history,
+                              _fault_seamed, _first_of_run, _lex_sort,
+                              _outputs, profile_kernel)
 from .conflict_kernel import _scratch as _step_scratch
 from .keys import searchsorted_i32_plain, searchsorted_rows_plain
 
@@ -55,7 +54,7 @@ INF = 0xFFFFFFFF
 
 # point-kernel call/first-call/execute accounting, separate from the
 # interval family
-g_kernel_counters = CounterCollection("point_kernel")
+g_kernel_counters = KernelCounters("point_kernel")
 
 launches = {"point_resolve": 0}
 

@@ -44,8 +44,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..models.cuda_resolver import (_MIN_CAP, CudaConflictSet, _host,
-                                    _HostCopy)
+from ..models.cuda_resolver import _MIN_CAP, CudaConflictSet, _host
 from ..ops.keys import decode_keys, encode_keys, lt_rows_plain, next_pow2
 
 
@@ -66,26 +65,6 @@ def _resolve_devices(devices) -> list:
     if len({torch.device(d).type for d in devices}) > 1:
         raise ValueError("devices must be all CUDA devices or all 'cpu'")
     return [_device.resolve(d) for d in devices]
-
-
-class _HostCopies:
-    """The per-device row counts on their way to the host, one
-    `_HostCopy` a device; reads as the [D] array of them."""
-
-    __slots__ = ("parts",)
-
-    def __init__(self, counts):
-        self.parts = [_HostCopy(c) for c in counts]
-
-    def is_ready(self) -> bool:
-        return all(p.is_ready() for p in self.parts)
-
-    def numpy(self) -> np.ndarray:
-        return np.stack([p.numpy() for p in self.parts])
-
-    def __array__(self, dtype=None, copy=None):
-        a = self.numpy()
-        return a if dtype is None else a.astype(dtype)
 
 
 class ShardedCudaConflictSet(CudaConflictSet):
@@ -203,6 +182,9 @@ class ShardedCudaConflictSet(CudaConflictSet):
         d = self._devices[i]
         return (torch.cuda.device(d) if d.type == "cuda"
                 else contextlib.nullcontext())
+
+    def _capacity_rows(self) -> int:
+        return self._n_shards * self._cap
 
     # -- checkpoint / restore -------------------------------------------
     def _stitched_rows(self):
@@ -328,9 +310,8 @@ class ShardedCudaConflictSet(CudaConflictSet):
         [D, R] flags, the rows copied to every other device (PyTorch's
         cross-card copy orders itself by events on both cards' streams,
         with no host synchronize; logical devices of one card share its
-        stream), then K8f. Returns the pending (counts, conflict,
-        read_hit) host copies: the verdicts off the first device, a
-        count off each."""
+        stream), then K8f. Returns (counts, conflict, read_hit) on the
+        devices: a count off each, the verdicts off the first."""
         from ..ops.conflict_kernel import make_resolve_shard_fns, shard_scratch
         from ..ops.fault_injection import convert_device_errors
         n = len(self._devices)
@@ -347,7 +328,8 @@ class ShardedCudaConflictSet(CudaConflictSet):
         for j in range(n):
             with self._on(j):
                 ext(self._hk[j], self._hv[j], *feeds[j], self._lows[j],
-                    self._highs[j], out=gathered[j][j], scratch=scratch[j])
+                    self._highs[j], out=gathered[j][j], scratch=scratch[j],
+                    spans=self.host_spans)
         with convert_device_errors("submit", "shard_gather"):
             for i in range(n):
                 for j in range(n):
@@ -361,14 +343,14 @@ class ShardedCudaConflictSet(CudaConflictSet):
                 outs.append(finish(self._hk[i], self._hv[i], *feeds[i],
                                    self._lows[i], self._highs[i],
                                    gathered[i], out=alts[i],
-                                   scratch=scratch[i]))
+                                   scratch=scratch[i],
+                                   spans=self.host_spans))
         if self._device.type == "cuda":
             self._alts = list(zip(self._hk, self._hv))
         self._hk = [o[0] for o in outs]
         self._hv = [o[1] for o in outs]
         lead = outs[0]
-        return (_HostCopies([o[2] for o in outs]), _HostCopy(lead[3]),
-                None if lead[4] is None else _HostCopy(lead[4]))
+        return [o[2] for o in outs], lead[3], lead[4]
 
     def _alt_states(self) -> list:
         """Each device's ping-pong partner, the buffers its next K8f

@@ -393,6 +393,26 @@ def render_prometheus(status: dict, f: _Families = None) -> str:
                       "Packed-feed staging buffers allocated (flat in "
                       "steady state: buffers are bucket-reused)",
                       {"role": r["name"]}, h2d.get("staging_allocs"))
+            # host phases and waits inside each submit, and the
+            # history's exact live rows (kernel_stats()["host"])
+            host = kern.get("host") or {}
+            for phase, t in sorted((host.get("phases") or {}).items()):
+                f.add(f"{_PREFIX}_kernel_host_seconds", "counter",
+                      "Host seconds in each phase of the resolver's "
+                      "batch submit (submit: the whole call)",
+                      {"role": r["name"], "phase": phase},
+                      t.get("ns", 0) / 1e9)
+            for w, t in sorted((host.get("waits") or {}).items()):
+                f.add(f"{_PREFIX}_kernel_host_waits", "counter",
+                      "Times the resolver's batch path waited for the "
+                      "device, by what it waited for",
+                      {"role": r["name"], "wait": w}, t.get("count"))
+            live = host.get("live") or {}
+            if live.get("live_samples"):
+                f.add(f"{_PREFIX}_kernel_live_rows", "gauge",
+                      "Live history rows after the newest batch whose "
+                      "exact count reached the host",
+                      {"role": r["name"]}, live.get("live_rows_last"))
         pipe = r.get("pipeline") or {}
         if pipe:
             plabels = {"role": r["name"]}

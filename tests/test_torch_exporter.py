@@ -366,3 +366,40 @@ def test_launch_counters_labeled_by_kernel():
     assert prof[("resolve", "launches")] == 12
     assert prof[("resolve[1024c/16t/32r/32w]", "calls")] == 12
     assert not any(k == "launches" for k, _ in prof)
+
+
+def test_host_phases_waits_and_live_rows():
+    """The resolver backend's host phases and waits inside each submit
+    (`kernel_stats()["host"]`) render as counters labeled by phase and
+    by wait, its exact live rows as a gauge."""
+    st = _canned_status()
+    st["cluster"]["resolvers"][0]["kernel"]["host"] = {
+        "phases": {"submit": {"ns": 3_000_000_000, "calls": 12,
+                              "wait_ns": 500_000_000},
+                   "stage": {"ns": 1_000_000_000, "calls": 12,
+                             "wait_ns": 0}},
+        "waits": {"wait.count": {"ns": 500_000_000, "count": 3},
+                  "wait.grow": {"ns": 0, "count": 0}},
+        "grows": 0,
+        "live": {"live_rows_sum": 340, "live_samples": 4,
+                 "live_rows_last": 97, "live_rows_last_seq": 12,
+                 "capacity_rows_sum": 4096}}
+    samples = parse_prometheus(render_prometheus(st))
+    got = {(n, tuple(sorted(l.items()))): v for n, l, v in samples}
+    role = ("role", "resolver-e3-0")
+    assert got[("fdbtpu_kernel_host_seconds",
+                (("phase", "submit"), role))] == 3.0
+    assert got[("fdbtpu_kernel_host_seconds",
+                (("phase", "stage"), role))] == 1.0
+    assert got[("fdbtpu_kernel_host_waits",
+                (role, ("wait", "wait.count")))] == 3
+    assert got[("fdbtpu_kernel_host_waits",
+                (role, ("wait", "wait.grow")))] == 0
+    assert got[("fdbtpu_kernel_live_rows", (role,))] == 97
+    keys = [(n, tuple(sorted(l.items()))) for n, l, _ in samples]
+    assert len(keys) == len(set(keys))
+    # a backend without host spans renders none of these families
+    names = {n for n, _, _ in parse_prometheus(
+        render_prometheus(_canned_status()))}
+    assert not any(n.startswith(("fdbtpu_kernel_host",
+                                 "fdbtpu_kernel_live")) for n in names)
