@@ -5,7 +5,8 @@ clock a device trace's marker kernels map onto the card's.
 A batch is one `submit` span, begun at the clock read the call already
 takes for the pipeline's submit latency. `switch(name)` ends the
 current phase and starts the next at ONE clock read, so the phases tile
-`submit` with no gap and no overlap (a name may recur). A wait is a
+`submit` with no gap and no overlap (a name may recur); `switch_at`
+does so at a clock read native code took on the same clock. A wait is a
 child span of the phase that blocks in it; the code that blocks asks
 for one only when it really waits (an event queried first). A phase's
 self time is its span less the waits inside it.
@@ -27,7 +28,7 @@ import time
 PHASES = ("submit", "check", "versions", "audit", "stage", "feed", "launch",
           "readback")
 WAITS = ("wait.count", "wait.sync", "wait.grow", "wait.staging",
-         "wait.fence", "wait.forced_drain")
+         "wait.fence", "wait.forced_drain", "wait.readback")
 NAMES = PHASES + WAITS
 CODE = {n: i for i, n in enumerate(NAMES)}
 SUBMIT = CODE["submit"]
@@ -132,7 +133,12 @@ class HostSpans:
         """End the current phase and start `phase` at one clock read (a
         no-op outside a batch)."""
         if self._open:
-            t = _clock()
+            self.switch_at(phase, _clock())
+
+    def switch_at(self, phase: str, t: int) -> None:
+        """`switch` at `t`, a perf_counter_ns reading taken since the
+        current phase began (by native code: CLOCK_MONOTONIC)."""
+        if self._open:
             c = self._cur
             self.ns[c] += t - self._cur_t
             self.calls[c] += 1

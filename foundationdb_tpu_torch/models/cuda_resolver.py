@@ -14,6 +14,14 @@ is, and only the runtime glue differs:
   - the packed feed is staged in a rotating pool of pinned host
     buffers (pipeline depth + 2 entries); an entry is reused only after
     the event recorded behind its last host->device copy has fired;
+  - on one card a packed batch's host work below the version
+    bookkeeping is one native call (csrc/submit.cu): the staging
+    fill, the feed copy into the bucket's device feed buffer, the step
+    into the bucket's outputs, and the result copies into a ring of
+    pinned slots (`_submit_one_call`); a jump fixup, `time_device` and
+    one shard a device take the same steps one call at a time, with the
+    same native fill (csrc/marshal.cpp, which also checks the
+    pre-encoded path's order and too-old flags);
   - with INTERVAL_PACKED_FEED=0 (read on every batch) the batch goes
     instead as the unpacked step's 12 inputs, each its own copy from a
     fresh pageable host array: the packed feed's parity baseline and
@@ -31,6 +39,7 @@ versions; `device=None` means the CUDA card and raises without one.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import Sequence
 
@@ -40,6 +49,7 @@ import torch
 from .. import device as _device
 from ..flow.stats import CounterCollection
 from ..host_spans import HostSpans
+from ..ops import marshal as _marshal
 from ..ops.keys import decode_keys, encode_keys, encode_keys_into, next_pow2
 from .conflict_set import (COMMITTED, CONFLICT, TOO_OLD, ConflictSetBase,
                            ConflictSetCheckpoint, ResolveTicket,
@@ -108,15 +118,18 @@ class _HostCopies:
 class _Staging:
     """One pool entry of packed-feed staging: the host buffer (pinned on
     the card's path), its named views, and the events behind the last
-    host->device copies that read it (one a card it went to)."""
+    host->device copies that read it (one a card it went to). `event`
+    is the entry's own, which the one-call submit records."""
 
-    __slots__ = ("buf", "views", "host", "events")
+    __slots__ = ("buf", "views", "host", "events", "addr", "event")
 
     def __init__(self, buf, views, host):
         self.buf = buf
         self.views = views
         self.host = host
         self.events = ()
+        self.addr = buf.ctypes.data
+        self.event = None
 
     def is_ready(self) -> bool:
         return all(ev.query() for ev in self.events)
@@ -124,6 +137,94 @@ class _Staging:
     def wait(self) -> None:
         for ev in self.events:
             ev.synchronize()
+
+
+def _made_event(dev: torch.device) -> torch.cuda.Event:
+    """A CUDA event of `dev` that exists (an event is made at its first
+    record), so native code can record it: `cuda_event` is its handle."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+class _Slot:
+    """One pinned slot of a shape bucket's readback ring: the step's
+    count, verdict flags and read flags land in it by the copies the
+    one-call submit enqueues, and `event` fires behind them. `parts`
+    are the results handed out of it; the slot is written again only
+    once its event has fired and each part has been copied out."""
+
+    __slots__ = ("count", "conflict", "read_hit", "event", "parts", "host",
+                 "ptrs")
+
+    def __init__(self, dev, count_shape, npad: int, nrp: int):
+        count_bytes = 4 * max(1, int(np.prod(count_shape)))
+        at = -(-count_bytes // 16) * 16
+        self.host = torch.empty(at + npad + nrp, dtype=torch.uint8,
+                                pin_memory=True)
+        b = self.host.numpy()
+        self.count = b[:count_bytes].view(np.int32).reshape(count_shape)
+        self.conflict = b[at:at + npad].view(bool)
+        self.read_hit = b[at + npad:].view(bool)
+        self.event = _made_event(dev)
+        self.parts = []
+        base = b.ctypes.data
+        self.ptrs = (base, base + at, base + at + npad,
+                     self.event.cuda_event)
+
+    def part(self, view) -> "_SlotPart":
+        p = _SlotPart(self, view)
+        self.parts.append(p)
+        return p
+
+    def release(self) -> None:
+        """Copy out every part not yet read (the event has fired)."""
+        for p in self.parts:
+            if p.data is None:
+                p.copy_out()
+        self.parts.clear()
+
+
+class _SlotPart:
+    """A result on its way to host memory in a readback slot; reads as
+    `_HostCopy` does. The first read waits for the slot's event and
+    copies the part out, so what a caller holds never aliases a slot
+    that is written again."""
+
+    __slots__ = ("slot", "view", "data")
+
+    def __init__(self, slot: _Slot, view: np.ndarray):
+        self.slot = slot
+        self.view = view
+        self.data = None
+
+    def copy_out(self) -> None:
+        self.data = self.view.copy()
+        self.slot = self.view = None
+
+    def is_ready(self) -> bool:
+        return self.data is not None or self.slot.event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self.data is None:
+            self.slot.event.synchronize()
+            self.copy_out()
+        return self.data
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+class _OneCall:
+    """A shape bucket's state for the one-call submit (csrc/submit.cu):
+    its argument block, the device feed buffer and step outputs (one
+    each, reused by every batch of the bucket: the next batch's copy and
+    step queue behind this one's on the stream), the step's profile and
+    fault seam, and the ring of pinned readback slots."""
+
+    __slots__ = ("args", "addr", "shape", "fn", "tensors", "slots",
+                 "slot_idx", "count_shape", "npad", "nrp", "launches")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -159,6 +260,12 @@ class CudaConflictSet(ConflictSetBase):
         self._staging: dict = {}
         self._staging_idx: dict = {}
         self._enc_scratch = np.empty((0, 0), np.uint8)
+        # the packed path's native check and fill (ops/marshal.py), and
+        # the one-call submit's state a shape bucket
+        self._marshal_lib = None
+        self._fill_args = _marshal.FillArgs()
+        self._one_calls: dict = {}
+        self._one_call_batches = 0
         self._hk_alt = self._hv_alt = None
         self._spans = None      # (start, end) CUDA events: time_device()
         self._span_open = None  # the start event of a device phase
@@ -222,8 +329,8 @@ class CudaConflictSet(ConflictSetBase):
         batch lands (a full pipeline drain — last resort only)."""
         if self._count_dev is not None:
             with self.host_spans.wait("wait.sync"):
-                rows = np.asarray(self._count_dev)
-            self._count_hint = int(np.max(rows))
+                rows = np.asarray(self._count_dev).ravel().tolist()
+            self._count_hint = max(rows)
             if self._count_async:
                 self._note_live(rows, *self._count_async[-1][2:])
             self._count_dev = None
@@ -615,29 +722,41 @@ class CudaConflictSet(ConflictSetBase):
         rejected here."""
         if commit_version < self._last_commit:
             raise ValueError("commit versions must be non-decreasing")
-        for name, ids in (("rt", rt), ("wt", wt)):
-            # signed view: np.diff on a uint array wraps modulo
-            ids = np.asarray(ids, dtype=np.int64)
-            if ids.size > 1 and not np.all(np.diff(ids) >= 0):
-                raise ValueError(
-                    f"per-range txn ids ({name}) must be non-decreasing: "
-                    "flatten conflict ranges in transaction order (the "
-                    "kernel reduces per-txn flags as segment sums over "
-                    "the slot order)")
-        too_old = (snapshots < self._oldest) & has_reads.astype(bool)
-        live = has_reads.astype(bool) & ~too_old
-        floor = min(int(snapshots[live].min()) if live.any() else commit_version,
-                    max(self._oldest, new_oldest_version))
+        snapshots = np.ascontiguousarray(snapshots, np.int64)
+        has_reads = np.asarray(has_reads)
+        if has_reads.dtype.itemsize != 1 or has_reads.dtype.kind not in "biu":
+            has_reads = has_reads.astype(bool)
+        if has_reads.shape != snapshots.shape:
+            has_reads = np.broadcast_to(has_reads, snapshots.shape)
+        has_reads = np.ascontiguousarray(has_reads)
+        rt, rt_kind = _marshal.ids(rt)
+        wt, wt_kind = _marshal.ids(wt)
+        code, too_old, floor = _marshal.check(
+            self._mlib(), snapshots, has_reads, rt, rt_kind, wt, wt_kind,
+            self._oldest, commit_version,
+            max(self._oldest, new_oldest_version))
+        if code:
+            raise ValueError(
+                f"per-range txn ids ({'rt' if code == 1 else 'wt'}) must "
+                "be non-decreasing: flatten conflict ranges in transaction "
+                "order (the kernel reduces per-txn flags as segment sums "
+                "over the slot order)")
         self.host_spans.switch("versions")
         offsets = self._prepare_versions(commit_version, new_oldest_version,
                                          floor)
         conflict, _read_hit = self._dispatch(
-            snapshots.shape[0], snapshots, too_old, rb, re,
-            np.asarray(rt, np.int32), wb, we, np.asarray(wt, np.int32),
+            snapshots.shape[0], snapshots, too_old, rb, re, rt, wb, we, wt,
             offsets)
         self._last_commit = commit_version  # only after a successful batch
         self._oldest = max(self._oldest, new_oldest_version)
         return conflict, too_old
+
+    def _mlib(self):
+        """The library of the native check and fill (ops/marshal.py)."""
+        lib = self._marshal_lib
+        if lib is None:
+            lib = self._marshal_lib = _marshal.lib_for(self._device)
+        return lib
 
     @staticmethod
     def finalize_verdicts(conflict, too_old) -> list[int]:
@@ -668,12 +787,12 @@ class CudaConflictSet(ConflictSetBase):
             return False
         old, rows_after, seq, cap_rows = self._count_async.pop(0)
         if old.is_ready():
-            rows = np.asarray(old)
+            rows = np.asarray(old).ravel().tolist()
         else:
             with self.host_spans.wait("wait.count"):
-                rows = np.asarray(old)
+                rows = np.asarray(old).ravel().tolist()
         self._note_live(rows, seq, cap_rows)
-        stale = int(np.max(rows))
+        stale = max(rows)
         bound = stale + (self._rows_since_async - rows_after)
         if bound < self._count_hint:
             self._count_hint = bound
@@ -683,11 +802,11 @@ class CudaConflictSet(ConflictSetBase):
             self._rows_since_async = 0
         return True
 
-    def _note_live(self, rows, seq: int, cap_rows: int) -> None:
+    def _note_live(self, rows: list, seq: int, cap_rows: int) -> None:
         """Fold one batch's exact row count (a shard's each, summed) into
         the live-row totals."""
         live = self._live
-        n = int(rows.sum())
+        n = sum(rows)
         live["live_rows_sum"] += n
         live["live_samples"] += 1
         live["live_rows_last"] = n
@@ -751,9 +870,11 @@ class CudaConflictSet(ConflictSetBase):
                 "counts": {k: v for k, v in snap.items()
                            if k != "batches"},
                 "pipeline": self.pipeline.stats(),
-                # host phases and waits inside submit, the exact live
-                # rows (outside `counts`, which the reference matches)
+                # host phases and waits inside submit, the batches that
+                # took the one-call submit, the exact live rows (outside
+                # `counts`, which the reference matches)
                 "host": {**self.host_spans.stats(),
+                         "one_call_batches": self._one_call_batches,
                          "live": dict(self._live)}}
 
     def _run_step(self, fn, *args):
@@ -846,11 +967,15 @@ class CudaConflictSet(ConflictSetBase):
         ent.events = (ev,)
         return dev
 
-    def _call_kernel_packed(self, npad, nrp, nwp, dev_buf, attribute: bool):
+    def _packed_fn(self, npad, nrp, nwp, attribute: bool):
+        """The shape bucket's profiled, fault-seamed packed step."""
         from ..ops.conflict_kernel import make_resolve_packed_fn
-        fn = make_resolve_packed_fn(self._cap, npad, nrp, nwp,
-                                    self._n_words, attribute=attribute)
-        return self._run_step(fn, dev_buf)
+        return make_resolve_packed_fn(self._cap, npad, nrp, nwp,
+                                      self._n_words, attribute=attribute)
+
+    def _call_kernel_packed(self, npad, nrp, nwp, dev_buf, attribute: bool):
+        return self._run_step(self._packed_fn(npad, nrp, nwp, attribute),
+                              dev_buf)
 
     def _call_kernel(self, npad, nrp, nwp, args, attribute: bool):
         """Run one unpacked batch (its 12 device inputs) through the
@@ -876,10 +1001,10 @@ class CudaConflictSet(ConflictSetBase):
         packed feed (INTERVAL_PACKED_FEED=1: the buffer built IN PLACE
         over reused staging, one transfer) or the unpacked one (=0).
         rb/re/wb/we are either flat lists of raw key bytes or
-        pre-encoded [n, W+1] arrays."""
+        pre-encoded [n, W+1] arrays; snapshots are int64, too_old bool,
+        rt/wt txn ids of a kind in `marshal.ID_KINDS`."""
         commit_off, oldest_off, fixup = offsets
         from ..flow.knobs import SERVER_KNOBS
-        from ..ops.conflict_kernel import SNAP_CLAMP
 
         nr, nw = len(rt), len(wt)
         npad = next_pow2(max(n, _KERNEL_MIN_TXNS))
@@ -890,41 +1015,231 @@ class CudaConflictSet(ConflictSetBase):
         self._note_occupancy(n, npad, nr, nrp, nw, nwp)
 
         self.host_spans.switch("stage")
-        snap_off = np.clip(snapshots - self._base, 0,
-                           SNAP_CLAMP).astype(np.int32)
         if not int(SERVER_KNOBS.interval_packed_feed):
+            from ..ops.conflict_kernel import SNAP_CLAMP
+            snap_off = np.clip(snapshots - self._base, 0,
+                               SNAP_CLAMP).astype(np.int32)
             count, conflict, read_hit = self._dispatch_unpacked(
                 n, npad, nrp, nwp, snap_off, too_old, rb, re, rt, wb, we,
                 wt, commit_off, oldest_off, fixup, attribute)
             self._note_count(count, 2 * nw)
             return conflict, read_hit
         ent = self._staging_views(npad, nrp, nwp)
-        v = ent.views
-        v.hdr[0] = commit_off
-        v.hdr[1] = oldest_off
-        v.snap[:n] = snap_off
-        v.snap[n:] = 0
-        v.too_old[:n] = too_old
-        v.too_old[n:] = 0
-        self._fill_keys(v.rb, rb, nr)
-        self._fill_keys(v.re, re, nr)
-        v.rtxn[:nr] = rt
-        v.rtxn[nr:] = npad
-        v.rvalid[:nr] = 1
-        v.rvalid[nr:] = 0
-        self._fill_keys(v.wb, wb, nw)
-        self._fill_keys(v.we, we, nw)
-        v.wtxn[:nw] = wt
-        v.wtxn[nw:] = npad
-        v.wvalid[:nw] = 1
-        v.wvalid[nw:] = 0
-        self._phase("feed", device=True)
-        dev_buf = self._feed(ent)
-        self._phase("launch", device=True)
-        out = self._call_kernel_packed(npad, nrp, nwp, dev_buf, attribute)
-        count, conflict, read_hit = self._finish_step(out, fixup)
+        one = self._one_call(npad, nrp, nwp, attribute, fixup)
+        if one is not None:
+            count, conflict, read_hit = self._submit_one_call(
+                one, ent, n, snapshots, too_old, rb, re, rt, wb, we, wt,
+                commit_off, oldest_off)
+        else:
+            f = self._fill_args
+            keep = self._stage(f, ent, n, snapshots, too_old, rb, re, rt,
+                               wb, we, wt, commit_off, oldest_off)
+            self._mlib().fdb_marshal_fill(ctypes.addressof(f))
+            del keep
+            self._phase("feed", device=True)
+            dev_buf = self._feed(ent)
+            self._phase("launch", device=True)
+            out = self._call_kernel_packed(npad, nrp, nwp, dev_buf, attribute)
+            count, conflict, read_hit = self._finish_step(out, fixup)
         self._note_count(count, 2 * nw)
         return conflict, read_hit
+
+    def _stage(self, f, ent: _Staging, n, snapshots, too_old, rb, re, rt,
+               wb, we, wt, commit_off, oldest_off) -> list:
+        """Set the fill's arguments `f` (`marshal.FillArgs`) for one
+        batch into staging entry `ent`: every field but the keys that
+        came as raw bytes, which are encoded straight into the entry
+        here. Returns the arrays whose memory the fill reads (keep them
+        until it has run)."""
+        v = ent.views
+        nr, nw = len(rt), len(wt)
+        snapshots = np.ascontiguousarray(snapshots, np.int64)
+        too_old = np.ascontiguousarray(too_old, bool)
+        keep = [snapshots, too_old]
+        f.buf = ent.addr
+        f.n, f.nr, f.nw = n, nr, nw
+        f.npad = v.snap.shape[0]
+        f.nrp = v.rtxn.shape[0]
+        f.nwp = v.wtxn.shape[0]
+        f.width = self._n_words + 1
+        f.commit_off, f.oldest_off = commit_off, oldest_off
+        f.snapshots = _marshal.addr(snapshots)
+        f.base = self._base
+        f.too_old = _marshal.addr(too_old)
+        f.rb = self._key_rows(v.rb, rb, nr, keep)
+        f.re = self._key_rows(v.re, re, nr, keep)
+        f.wb = self._key_rows(v.wb, wb, nw, keep)
+        f.we = self._key_rows(v.we, we, nw, keep)
+        rt, f.rt_kind = _marshal.ids(rt)
+        wt, f.wt_kind = _marshal.ids(wt)
+        keep += (rt, wt)
+        f.rt = _marshal.addr(rt)
+        f.wt = _marshal.addr(wt)
+        return keep
+
+    def _key_rows(self, dst: np.ndarray, src, nsrc: int, keep: list):
+        """The address of the key rows the fill copies into `dst`, or
+        None where `src` is raw key bytes, encoded into `dst` here.
+        Pre-encoded rows of another dtype, layout or shape are put into
+        the bucket's rows by NumPy's own cast and broadcast first."""
+        if not isinstance(src, np.ndarray):
+            self._fill_keys(dst, src, nsrc)
+            return None
+        if src.dtype != np.uint32 or src.ndim != 2 \
+                or src.shape[0] < nsrc or src.shape[1] != dst.shape[1] \
+                or not src.flags.c_contiguous:
+            rows = np.empty((nsrc, dst.shape[1]), np.uint32)
+            rows[:] = src[:nsrc]
+            src = rows
+        keep.append(src)
+        return _marshal.addr(src)
+
+    # -- the one-call submit (csrc/submit.cu) ---------------------------
+    def _one_call(self, npad, nrp, nwp, attribute: bool, fixup):
+        """The shape bucket's `_OneCall` where this batch takes the
+        one-call submit, else None: the batch then takes the same steps
+        one call at a time. That is so on the CPU, for a jump fixup
+        (applied between the step and the readback), with `time_device`
+        on (events between the phases), for one shard a device (its own
+        feed and step sequence), and for the first call of a step, which
+        its profile fences and times with the build."""
+        if fixup is not None or self._spans is not None \
+                or self._device.type != "cuda":
+            return None
+        step = self._one_call_step()
+        if step is None:
+            return None
+        key = (npad, nrp, nwp, attribute)
+        one = self._one_calls.get(key)
+        if one is None or one.shape != self._hk.shape:
+            fn = self._packed_fn(npad, nrp, nwp, attribute)
+            if not fn.profiled.compiled:
+                return None
+            if len(self._one_calls) >= 8:
+                self._one_calls.clear()
+            one = self._one_calls[key] = self._make_one_call(
+                fn, step, npad, nrp, nwp, attribute)
+        return one
+
+    def _one_call_step(self):
+        """(sharded, lows, highs, shards) of the step the one-call submit
+        launches: K3 here."""
+        return 0, None, None, 1
+
+    def _make_one_call(self, fn, step, npad, nrp, nwp, attribute):
+        from ..ops.conflict_kernel import (_check_bounds, _check_history,
+                                           _scratch)
+        sharded, lows, highs, shards = step
+        hk = self._hk
+        dev = self._device
+        _check_history(hk, self._hv, hk.dim())
+        if sharded:
+            _check_bounds(hk, lows, highs)
+        width = self._n_words + 1
+        one = _OneCall()
+        one.shape = hk.shape
+        one.fn = fn
+        one.npad, one.nrp = npad, nrp
+        one.count_shape = tuple(hk.shape[:-2])
+        # the launcher's counts a batch: K1, K2 (and K8's K7)
+        one.launches = ("resolve_sharded", 3) if sharded else ("resolve", 2)
+        feed = torch.empty(self._feed_len(npad, nrp, nwp),
+                           dtype=torch.uint32, device=dev)
+        count = torch.empty(one.count_shape, dtype=torch.int32, device=dev)
+        conflict = torch.empty(npad, dtype=torch.bool, device=dev)
+        read_hit = (torch.empty(nrp, dtype=torch.bool, device=dev)
+                    if attribute else None)
+        scratch = (_scratch(dev, self._cap, npad, nrp, nwp, width,
+                            "fdb_resolve_sharded_scratch_bytes", shards)
+                   if sharded else
+                   _scratch(dev, self._cap, npad, nrp, nwp, width))
+        one.tensors = (feed, count, conflict, read_hit, scratch, lows, highs)
+        a = one.args = _marshal.SubmitArgs()
+        one.addr = ctypes.addressof(a)
+        a.feed = feed.data_ptr()
+        a.sharded = sharded
+        a.lows = None if lows is None else lows.data_ptr()
+        a.highs = None if highs is None else highs.data_ptr()
+        a.shards, a.cap, a.attribute = shards, self._cap, int(attribute)
+        a.count = count.data_ptr()
+        a.conflict = conflict.data_ptr()
+        a.read_hit = None if read_hit is None else read_hit.data_ptr()
+        a.scratch, a.scratch_bytes = scratch.data_ptr(), scratch.numel()
+        one.slots = []
+        one.slot_idx = 0
+        return one
+
+    def _readback_slot(self, one: _OneCall) -> _Slot:
+        """The next slot of the bucket's readback ring (pipeline depth +
+        2 slots). A slot comes around again only after its event has
+        fired (a `wait.readback` when the host has to wait for it) and
+        the parts still held from it have been copied out."""
+        ring = one.slots
+        if len(ring) < max(2, int(self.pipeline.depth) + 2):
+            slot = _Slot(self._device, one.count_shape, one.npad, one.nrp)
+            ring.append(slot)
+            return slot
+        i = one.slot_idx
+        one.slot_idx = (i + 1) % len(ring)
+        slot = ring[i % len(ring)]
+        if not slot.event.query():
+            with self.host_spans.wait("wait.readback"):
+                slot.event.synchronize()
+        slot.release()
+        return slot
+
+    def _submit_one_call(self, one: _OneCall, ent: _Staging, n, snapshots,
+                         too_old, rb, re, rt, wb, we, wt, commit_off,
+                         oldest_off):
+        """One packed batch's stage, feed, launch and readback as one
+        native call (csrc/submit.cu), its profile, seam, counters and
+        host spans as the Python sequence keeps them. Returns the
+        (count, conflict, read_hit) parts of its readback slot."""
+        from ..ops._build import check
+        from ..ops.conflict_kernel import _note_launches
+        from ..ops.fault_injection import (convert_device_errors,
+                                           g_device_faults)
+        a = one.args
+        keep = self._stage(a.fill, ent, n, snapshots, too_old, rb, re, rt,
+                           wb, we, wt, commit_off, oldest_off)
+        slot = self._readback_slot(one)
+        if ent.event is None:
+            ent.event = _made_event(self._device)
+        hk_out, hv_out = self._alt()
+        a.feed_event = ent.event.cuda_event
+        a.hk, a.hv = self._hk.data_ptr(), self._hv.data_ptr()
+        a.hk_out, a.hv_out = hk_out.data_ptr(), hv_out.data_ptr()
+        a.stream = _device.stream_handle(self._device)
+        (a.host_count, a.host_conflict, a.host_read_hit,
+         a.result_event) = slot.ptrs
+        p = self.profile
+        p.counter("h2d_transfers").add(1)
+        p.counter("h2d_bytes").add(int(ent.buf.nbytes))
+        fn = one.fn
+        g_device_faults.check("submit", fn.where)
+        timed = fn.profiled.external()
+        if timed:
+            a.timed_start = timed[0].cuda_event
+            a.timed_end = timed[1].cuda_event
+        else:
+            a.timed_start = a.timed_end = None
+        with convert_device_errors("submit", fn.where):
+            check(self._mlib().fdb_submit_packed(one.addr), "submit_packed")
+        del keep
+        if timed:
+            fn.profiled.timed(*timed)
+        ent.events = (ent.event,)
+        name, counted = one.launches
+        _note_launches(a.launches[:counted], name)
+        t = a.t
+        spans = self.host_spans
+        spans.switch_at("feed", t[1])
+        spans.switch_at("launch", t[2])
+        spans.switch_at("readback", t[3])
+        self._swap_in(hk_out, hv_out)
+        self._one_call_batches += 1
+        return (slot.part(slot.count), slot.part(slot.conflict[:n]),
+                slot.part(slot.read_hit[:len(rt)]) if a.attribute else None)
 
     def _finish_step(self, out, fixup):
         """After the step: any jump fixup (a `versions` phase), then the

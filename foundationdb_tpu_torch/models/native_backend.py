@@ -46,32 +46,42 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _digest() -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(f"{platform.node()} {platform.machine()}".encode())
-    with open(NATIVE_SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: str) -> None:
+def _build(out_dir: str, source: str, lib_name: str) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native conflict set is built "
-                           "from native/conflictset.cpp at first use")
+        raise RuntimeError(f"g++ not found: {os.path.basename(source)} is "
+                           "built at first use")
     os.makedirs(BUILD_ROOT, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="native-build-", dir=BUILD_ROOT)
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", os.path.join(tmp, LIB_NAME),
-                        NATIVE_SOURCE], stdout=subprocess.PIPE,
+    r = subprocess.run([cxx, *CXX_FLAGS, "-o", os.path.join(tmp, lib_name),
+                        source], stdout=subprocess.PIPE,
                        stderr=subprocess.STDOUT)
     if r.returncode:
         shutil.rmtree(tmp, ignore_errors=True)
-        raise RuntimeError("native conflict set build failed:\n"
+        raise RuntimeError(f"{os.path.basename(source)} build failed:\n"
                            + r.stdout.decode(errors="replace"))
     try:
         os.replace(tmp, out_dir)
     except OSError:          # another process won the race: use its build
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def build_host_library(tag: str, source: str, lib_name: str) -> str:
+    """The path of `source` built by g++ into a shared library under
+    `_kbuild/<tag>-<hash>/`, keyed by the source, the flags and the
+    host; built on first use (the caller holds its own lock)."""
+    path = os.path.join(BUILD_ROOT, f"{tag}-{_digest(source)}", lib_name)
+    if not os.path.exists(path):
+        _build(os.path.dirname(path), source, lib_name)
+    return path
 
 
 def load_native_library() -> ctypes.CDLL:
@@ -81,11 +91,8 @@ def load_native_library() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            out_dir = os.path.join(BUILD_ROOT, "native-" + _digest())
-            path = os.path.join(out_dir, LIB_NAME)
-            if not os.path.exists(path):
-                _build(out_dir)
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(build_host_library("native", NATIVE_SOURCE,
+                                                 LIB_NAME))
             p = ctypes.POINTER
             lib.fdbtpu_conflictset_new.restype = ctypes.c_void_p
             lib.fdbtpu_conflictset_new.argtypes = [ctypes.c_int64]

@@ -30,6 +30,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 LIB_NAME = "libfdbtorch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# units whose host code is hot (the one-call submit's check and fill)
+# are built for the host that runs them, as g++ builds that code for the
+# CPU path (ops/marshal.py): its loops vectorize
+UNIT_FLAGS = {"submit.cu": ["-Xcompiler", "-march=native"]}
 
 _lock = threading.Lock()
 _lib = None
@@ -55,12 +59,15 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
+    """Every file of the build: the `.cu` units, the headers, and the
+    plain host C++ (`marshal.cpp`) that `submit.cu` includes."""
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith((".cu", ".cuh")))
+                  if f.endswith((".cu", ".cuh", ".cpp")))
 
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(UNIT_FLAGS.items())).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -77,8 +84,9 @@ def _build(out_dir: str) -> None:
     procs = []
     for src in units:
         obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+        extra = UNIT_FLAGS.get(os.path.basename(src), [])
         procs.append((src, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj],
+            [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC, "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     log, failed = [], []
     for src, _obj, p in procs:
@@ -110,6 +118,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SZ = ctypes.c_size_t
 _U = ctypes.c_uint
+_L = ctypes.c_int64
 _SIGNATURES = {
     "fdb_error_string": ([_I], ctypes.c_char_p),
     "fdb_searchsorted_i32": ([_P, _I, _P, _I, _I, _P, _P], _I),
@@ -146,6 +155,10 @@ _SIGNATURES = {
                                  + [_P, _SZ, _P, _P], _I),
     "fdb_chain_gen": ([_P] * 8 + [_I] * 4 + [_U, _U, _U, _I, _P], _I),
     "fdb_chain_tally": ([_P, _P, _I, _P, _I, _P], _I),
+    "fdb_marshal_check": ([_P, _P, _L, _P, _L, _L, _P, _L, _L, _L, _L, _L,
+                           _P, _P], _I),
+    "fdb_marshal_fill": ([_P], None),
+    "fdb_submit_packed": ([_P], _I),
 }
 
 

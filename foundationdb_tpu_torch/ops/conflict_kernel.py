@@ -63,6 +63,7 @@ import torch
 from .. import device as _device
 from .. import host_spans
 from ..flow.stats import CounterCollection
+from . import fault_injection as _faults
 from . import keys as _keys
 from . import rmq as _rmq
 from .keys import searchsorted_i32_plain
@@ -116,32 +117,46 @@ def _fence(dev: torch.device, spans) -> None:
             torch.cuda.synchronize(dev)
 
 
-def profile_kernel(fn, kernel: str,
-                   counters: KernelCounters = g_kernel_counters):
-    """Wrap a kernel entry with first-call/execute accounting.
+class ProfiledKernel:
+    """A kernel entry with first-call/execute accounting.
 
     The FIRST call is fenced on both sides and timed on the host clock:
-    on the card it includes the kernel library's build and load, the
-    number to watch when the first batch is slow. Afterwards only
-    1-in-KERNEL_PROFILE_EVERY calls are timed, with CUDA events around
-    the launch on the card (host clock on the CPU), so the unfenced
-    pipeline stays asynchronous: nothing waits for the events, whose
-    time `counters` folds in once the end has fired. 0 disables the
-    periodic timing. A caller's `spans=` (host_spans.HostSpans) times
-    the first call's fences as waits of its batch."""
-    from ..flow.knobs import SERVER_KNOBS
-    state = {"compiled": False, "calls": 0}
-    calls_c = counters.counter(f"{kernel}.calls")
+    on the card it includes the kernel's first load (and the library's
+    build, where nothing built it before: the resolvers' native check
+    loads it), the number to watch when the first batch is slow.
+    Afterwards only 1-in-KERNEL_PROFILE_EVERY calls are timed, with CUDA
+    events around the launch on the card (host clock on the CPU), so the
+    unfenced pipeline stays asynchronous: nothing waits for the events,
+    whose time `counters` folds in once the end has fired. 0 disables
+    the periodic timing. A caller's `spans=` (host_spans.HostSpans)
+    times the first call's fences as waits of its batch.
 
-    def call(*args, spans=None, **kwargs):
-        state["calls"] += 1
+    A launch made outside `fn` (the resolvers' one-call submit, which
+    calls the same C launcher) is accounted by `external` and, when
+    timed, `timed`, exactly as a call of `fn` would be."""
+
+    __slots__ = ("fn", "kernel", "counters", "compiled", "calls",
+                 "calls_c")
+
+    def __init__(self, fn, kernel: str, counters: KernelCounters):
+        self.fn = fn
+        self.kernel = kernel
+        self.counters = counters
+        self.compiled = False
+        self.calls = 0
+        self.calls_c = counters.counter(f"{kernel}.calls")
+
+    def __call__(self, *args, spans=None, **kwargs):
+        from ..flow.knobs import SERVER_KNOBS
+        fn, counters = self.fn, self.counters
+        self.calls += 1
         if counters.pending:
             counters.fold()
-        first = not state["compiled"]
+        first = not self.compiled
         if not first:
             every = int(SERVER_KNOBS.kernel_profile_every)
-            if not every or state["calls"] % every:
-                calls_c.add(1)
+            if not every or self.calls % every:
+                self.calls_c.add(1)
                 return fn(*args, **kwargs)
         dev = _args_device(args)
         if not first and dev.type == "cuda":
@@ -150,28 +165,58 @@ def profile_kernel(fn, kernel: str,
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            calls_c.add(1)
-            counters.pending.append((start, end, kernel))
+            self.calls_c.add(1)
+            counters.pending.append((start, end, self.kernel))
             return out
         _fence(dev, spans)
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         _fence(dev, spans)
         dt = time.perf_counter() - t0
-        calls_c.add(1)
+        self.calls_c.add(1)
         if first:
-            state["compiled"] = True
-            counters.counter(f"{kernel}.compiles").add(1)
-            counters.counter(f"{kernel}.compile_us").add(int(dt * 1e6))
+            self.compiled = True
+            counters.counter(f"{self.kernel}.compiles").add(1)
+            counters.counter(f"{self.kernel}.compile_us").add(int(dt * 1e6))
             from ..flow.trace import SevDebug, TraceEvent
-            TraceEvent("KernelCompile", kernel, severity=SevDebug).detail(
+            TraceEvent("KernelCompile", self.kernel, severity=SevDebug).detail(
                 Backend=_device.platform(dev), Seconds=round(dt, 6)).log()
         else:
-            counters.counter(f"{kernel}.timed_calls").add(1)
-            counters.counter(f"{kernel}.execute_us").add(int(dt * 1e6))
+            counters.counter(f"{self.kernel}.timed_calls").add(1)
+            counters.counter(f"{self.kernel}.execute_us").add(int(dt * 1e6))
         return out
 
-    return call
+    def external(self):
+        """Account one launch on the card made outside `fn`, after the
+        first call (which only `fn` makes): () for an untimed call, or
+        the (start, end) CUDA events the launch is to record around it
+        on a timed one, handed back to `timed` once it has launched."""
+        from ..flow.knobs import SERVER_KNOBS
+        self.calls += 1
+        if self.counters.pending:
+            self.counters.fold()
+        every = int(SERVER_KNOBS.kernel_profile_every)
+        if not every or self.calls % every:
+            self.calls_c.add(1)
+            return ()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # made now (an event is made at its first record); the launch
+        # records both again around itself
+        start.record()
+        end.record()
+        return start, end
+
+    def timed(self, start, end) -> None:
+        self.calls_c.add(1)
+        self.counters.pending.append((start, end, self.kernel))
+
+
+def profile_kernel(fn, kernel: str,
+                   counters: KernelCounters = g_kernel_counters):
+    """Wrap a kernel entry with first-call/execute accounting
+    (`ProfiledKernel`)."""
+    return ProfiledKernel(fn, kernel, counters)
 
 
 # ---------------------------------------------------------------------------
@@ -1202,21 +1247,29 @@ def make_resolve_packed_fn(cap: int, n_txns: int, n_reads: int,
     return _fault_seamed(fn, f"resolve_packed[{cap}c]")
 
 
-def _fault_seamed(fn, where: str):
+class _FaultSeamed:
     """Device-fault seam at kernel launch (the `submit` point): an
     injected fault models the device rejecting the launch, and a lost
     device (a CUDA error PyTorch raises, memory exhausted) is converted
     to the same DeviceFaultError — either way the history buffers are
     in an unknown state. An error the kernel itself reports
-    (`CudaKernelError`) escapes unconverted."""
-    from .fault_injection import convert_device_errors, g_device_faults
+    (`CudaKernelError`) escapes unconverted. `profiled` and `where` are
+    what a launch made outside `fn` accounts and seams with."""
 
-    def call(*args, **kwargs):
-        g_device_faults.check("submit", where)
-        with convert_device_errors("submit", where):
-            return fn(*args, **kwargs)
+    __slots__ = ("profiled", "where")
 
-    return call
+    def __init__(self, profiled, where: str):
+        self.profiled = profiled
+        self.where = where
+
+    def __call__(self, *args, **kwargs):
+        _faults.g_device_faults.check("submit", self.where)
+        with _faults.convert_device_errors("submit", self.where):
+            return self.profiled(*args, **kwargs)
+
+
+def _fault_seamed(fn, where: str) -> _FaultSeamed:
+    return _FaultSeamed(fn, where)
 
 
 # ---------------------------------------------------------------------------

@@ -245,11 +245,22 @@ class ShardedCudaConflictSet(CudaConflictSet):
         if self._devices is not None:
             return self._device_step([(b,) for b in dev_buf], npad, nrp,
                                      nwp, attribute, packed=True)
+        return self._run_step(self._packed_fn(npad, nrp, nwp, attribute),
+                              dev_buf, self._lows, self._highs)
+
+    def _packed_fn(self, npad, nrp, nwp, attribute: bool):
+        """Lockstep: the shape bucket's profiled, fault-seamed K8."""
         from ..ops.conflict_kernel import make_resolve_sharded_packed_fn
-        fn = make_resolve_sharded_packed_fn(self._n_shards, self._cap, npad,
-                                            nrp, nwp, self._n_words,
-                                            attribute=attribute)
-        return self._run_step(fn, dev_buf, self._lows, self._highs)
+        return make_resolve_sharded_packed_fn(self._n_shards, self._cap,
+                                              npad, nrp, nwp, self._n_words,
+                                              attribute=attribute)
+
+    def _one_call_step(self):
+        """K8 in lockstep for the one-call submit; None per device, whose
+        feed and K8e/K8f sequence stay their own."""
+        if self._devices is not None:
+            return None
+        return 1, self._lows, self._highs, self._n_shards
 
     def _call_kernel(self, npad, nrp, nwp, args, attribute: bool):
         """One unpacked batch (INTERVAL_PACKED_FEED=0: its 12 inputs,

@@ -393,8 +393,9 @@ def render_prometheus(status: dict, f: _Families = None) -> str:
                       "Packed-feed staging buffers allocated (flat in "
                       "steady state: buffers are bucket-reused)",
                       {"role": r["name"]}, h2d.get("staging_allocs"))
-            # host phases and waits inside each submit, and the
-            # history's exact live rows (kernel_stats()["host"])
+            # host phases and waits inside each submit, the batches
+            # that took the one-call submit, and the history's exact
+            # live rows (kernel_stats()["host"])
             host = kern.get("host") or {}
             for phase, t in sorted((host.get("phases") or {}).items()):
                 f.add(f"{_PREFIX}_kernel_host_seconds", "counter",
@@ -407,6 +408,12 @@ def render_prometheus(status: dict, f: _Families = None) -> str:
                       "Times the resolver's batch path waited for the "
                       "device, by what it waited for",
                       {"role": r["name"], "wait": w}, t.get("count"))
+            if host.get("one_call_batches") is not None:
+                f.add(f"{_PREFIX}_kernel_one_call_batches", "counter",
+                      "Batches whose host work after the version "
+                      "bookkeeping was one native call (the packed feed "
+                      "on one card)",
+                      {"role": r["name"]}, host.get("one_call_batches"))
             live = host.get("live") or {}
             if live.get("live_samples"):
                 f.add(f"{_PREFIX}_kernel_live_rows", "gauge",

@@ -402,4 +402,28 @@ def test_host_phases_waits_and_live_rows():
     names = {n for n, _, _ in parse_prometheus(
         render_prometheus(_canned_status()))}
     assert not any(n.startswith(("fdbtpu_kernel_host",
-                                 "fdbtpu_kernel_live")) for n in names)
+                                 "fdbtpu_kernel_live",
+                                 "fdbtpu_kernel_one_call")) for n in names)
+
+
+def test_one_call_batches_counter():
+    """The batches that took the resolver's one-call submit
+    (`kernel_stats()["host"]["one_call_batches"]`) render as a counter
+    a role, a zero included; a backend without the count renders
+    none."""
+    st = _canned_status()
+    host = {"phases": {}, "waits": {}, "grows": 0, "live": {}}
+    st["cluster"]["resolvers"][0]["kernel"]["host"] = dict(
+        host, one_call_batches=338)
+    samples = parse_prometheus(render_prometheus(st))
+    got = [(l, v) for n, l, v in samples
+           if n == "fdbtpu_kernel_one_call_batches"]
+    assert got == [({"role": "resolver-e3-0"}, 338)]
+    assert "# TYPE fdbtpu_kernel_one_call_batches counter" in \
+        render_prometheus(st)
+    st["cluster"]["resolvers"][0]["kernel"]["host"] = dict(
+        host, one_call_batches=0)
+    assert [v for n, _l, v in parse_prometheus(render_prometheus(st))
+            if n == "fdbtpu_kernel_one_call_batches"] == [0]
+    st["cluster"]["resolvers"][0]["kernel"]["host"] = host
+    assert "fdbtpu_kernel_one_call_batches" not in render_prometheus(st)

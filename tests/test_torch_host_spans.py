@@ -6,6 +6,7 @@ profile's unfenced execute timing. The interval (`cuda`) and sharded
 path, on the packed and the unpacked feed; the `cuda`-marked case runs
 them on the card."""
 
+import time
 import tracemalloc
 
 import numpy as np
@@ -317,12 +318,49 @@ def test_spans_and_unfenced_profile_on_card(backend, feed):
         assert phases[0][4] == submit[4] and phases[-1][5] == submit[5]
         for a, b in zip(phases, phases[1:]):
             assert a[5] == b[4]
+        # the one-call submit's parts are the same phases, in order
+        names = [s[3] for s in phases]
+        if feed == "packed":
+            assert names[names.index("stage"):] == ["stage", "feed",
+                                                     "launch", "readback"]
+    # the packed batches after a bucket's first call took the one-call
+    # submit (the unpacked feed never does)
+    if feed == "packed":
+        assert 0 < host["one_call_batches"] <= len(batches)
+    else:
+        assert host["one_call_batches"] == 0
     # only a shape bucket's first call is fenced; the timed calls after
     # it wait for nothing, and their times reach the profile once read
     assert host["waits"]["wait.fence"]["count"] < len(batches)
     torch.cuda.synchronize()
     snap = ck.g_kernel_counters.snapshot()
     assert sum(v for k, v in snap.items() if k.endswith(".timed_calls")) > 0
+
+
+def test_switch_at_tiles_with_times_taken_elsewhere():
+    """`switch_at` ends a phase at a clock reading taken by other code
+    (the one-call submit's, on the same clock): the phases still tile
+    the `submit` span."""
+    spans = host_spans.HostSpans()
+    spans.trace(True)
+    t0 = time.perf_counter_ns()
+    spans.begin(t0, 1)
+    spans.switch("stage")
+    t = [time.perf_counter_ns() for _ in range(3)]
+    for phase, at in zip(("feed", "launch", "readback"), t):
+        spans.switch_at(phase, at)
+    spans.end()
+    rows = spans.spans()
+    (submit,) = [s for s in rows if s[3] == "submit"]
+    phases = [s for s in rows if s[3] != "submit"]
+    assert [s[3] for s in phases] == ["check", "stage", "feed", "launch",
+                                      "readback"]
+    assert [s[4] for s in phases[2:]] == t
+    assert phases[0][4] == submit[4] and phases[-1][5] == submit[5]
+    for a, b in zip(phases, phases[1:]):
+        assert a[5] == b[4]
+    st = spans.stats()["phases"]
+    assert st["submit"]["ns"] == sum(s[5] - s[4] for s in phases)
 
 
 def test_ring_keeps_the_newest_spans(monkeypatch):

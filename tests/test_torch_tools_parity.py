@@ -293,11 +293,12 @@ def _drop_process_wide(doc):
 #: and slow tasks, sim seconds a busy second, the resolve pipeline's
 #: submit and drain latencies, the process's CPU and memory), that
 #: count process-wide kernel work, or that only the port's resolver
-#: reports (its host phases and waits, its exact live rows)
+#: reports (its host phases and waits, its one-call batches, its exact
+#: live rows)
 _HOST_FAMILIES = re.compile(
     r"^fdbtpu_(run_loop_(busy|slow)\w*|sim_per_busy\w*"
     r"|resolve_pipeline_latency\w*|process_\w+|kernel_profile"
-    r"|kernel_host_\w+|kernel_live_rows)\b")
+    r"|kernel_host_\w+|kernel_one_call_batches|kernel_live_rows)\b")
 
 
 def _prom_norm(text, backend=None):
